@@ -1,0 +1,323 @@
+"""Layer configuration classes (the forward half).
+
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py`` for the layers the
+char-RNN serves through: DenseLayer, LSTM, GravesLSTM, OutputLayer and
+RnnOutputLayer. As in the JAX package a layer config IS the runtime:
+
+    param_shapes()                          -> {name: shape}
+    init_params(generator, dtype, device)   -> {name: Tensor}
+    apply(params, state, x)                 -> (y, new_state)
+
+with the same config fields, JSON and param names, so a configuration or
+a set of weights moves between the two packages unchanged. Inference
+only: dropout is the identity here, and losses come with the training
+slice.
+
+Conventions (matching DL4J): dense inputs [N, F]; recurrent inputs and
+outputs [N, C, T].
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+
+from deeplearning4j_tpu_torch.autodiff.ops import lstmLayer
+from deeplearning4j_tpu_torch.nn.activations import resolve_activation
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType, RecurrentType
+from deeplearning4j_tpu_torch.nn.weights import init_weight
+from deeplearning4j_tpu_torch.optimize.updaters import updater_from_config
+
+LAYER_REGISTRY: dict = {}
+
+
+def _register(cls):
+    LAYER_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+class _Builder:
+    """Generic DL4J-style builder: any method call sets the same-named config
+    field (e.g. .nIn(784).nOut(100).activation("relu")); build() constructs
+    the layer class."""
+
+    def __init__(self, cls, **preset):
+        self._cls = cls
+        self._kw = dict(preset)
+
+    def __getattr__(self, item):
+        if item.startswith("_"):
+            raise AttributeError(item)
+
+        def setter(*args):
+            self._kw[item] = args[0] if len(args) == 1 else list(args)
+            return self
+
+        return setter
+
+    def build(self):
+        return self._cls(**self._kw)
+
+
+class BaseLayer:
+    """Common config fields + (de)serialization."""
+
+    # fields every layer inherits from the NeuralNetConfiguration defaults
+    # when not set explicitly
+    INHERITED = ("activation", "weightInit", "biasInit", "updater", "l1",
+                 "l2", "dropOut", "gradientNormalization",
+                 "gradientNormalizationThreshold")
+
+    def __init__(self, name=None, activation=None, weightInit=None,
+                 biasInit=None, updater=None, l1=None, l2=None, dropOut=None,
+                 gradientNormalization=None,
+                 gradientNormalizationThreshold=None):
+        self.name = name
+        self.activation = activation
+        self.weightInit = weightInit
+        self.biasInit = biasInit
+        self.updater = updater
+        self.l1 = l1
+        self.l2 = l2
+        self.dropOut = dropOut
+        self.gradientNormalization = gradientNormalization
+        self.gradientNormalizationThreshold = gradientNormalizationThreshold
+
+    # -- builder -------------------------------------------------------------
+    class _BuilderFactory:
+        def __get__(self, obj, cls):
+            return lambda **kw: _Builder(cls, **kw)
+
+    Builder = _BuilderFactory()
+
+    def apply_defaults(self, defaults: dict):
+        for f in self.INHERITED:
+            if getattr(self, f, None) is None and f in defaults:
+                # deep-copy so layers never share mutable config objects
+                setattr(self, f, copy.deepcopy(defaults[f]))
+        if self.activation is None:
+            self.activation = "identity"
+        if self.weightInit is None:
+            self.weightInit = "xavier"
+        if self.biasInit is None:
+            self.biasInit = 0.0
+
+    # -- shape / params ------------------------------------------------------
+    def infer(self, input_type):
+        """Set nIn-style fields from input_type; return the output type."""
+        return input_type
+
+    def param_shapes(self) -> dict:
+        return {}
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        return {}
+
+    def init_state(self, dtype=torch.float32, device="cpu") -> dict:
+        return {}
+
+    def apply(self, params, state, x):
+        return x, state
+
+    def _act(self, x):
+        # softmax normalizes the CLASS axis: dim 1 in the DL4J NCW
+        # time-series layout [N, C, T] (the last axis there is time)
+        if x.dim() == 3 and self.activation in ("softmax", "logsoftmax"):
+            fn = (torch.softmax if self.activation == "softmax"
+                  else torch.log_softmax)
+            return fn(x, dim=1)
+        return resolve_activation(self.activation or "identity")(x)
+
+    # -- serde ---------------------------------------------------------------
+    def to_json(self):
+        d = {"@class": type(self).__name__}
+        for k, v in self.__dict__.items():
+            if k.startswith("_") or v is None:
+                continue
+            if hasattr(v, "to_json"):
+                v = v.to_json()
+            elif isinstance(v, tuple):
+                v = list(v)
+            d[k] = v
+        return d
+
+    @staticmethod
+    def from_json(d):
+        d = dict(d)
+        name = d.pop("@class")
+        if name not in LAYER_REGISTRY:
+            raise NotImplementedError(
+                f"layer {name} is not ported to deeplearning4j_tpu_torch yet "
+                f"(ported: {sorted(LAYER_REGISTRY)})")
+        for k, v in list(d.items()):
+            if isinstance(v, dict) and "@class" in v:
+                d[k] = updater_from_config(v)
+        return LAYER_REGISTRY[name](**d)
+
+    def __repr__(self):
+        fields = ", ".join(f"{k}={v!r}" for k, v in self.__dict__.items()
+                           if v is not None and not k.startswith("_"))
+        return f"{type(self).__name__}({fields})"
+
+
+# ---------------------------------------------------------------------------
+# feed-forward layers
+# ---------------------------------------------------------------------------
+
+@_register
+class DenseLayer(BaseLayer):
+    """3-D input [N, C, T] is handled natively (per-timestep linear)."""
+
+    def __init__(self, nIn=None, nOut=None, hasBias=True, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        self.hasBias = hasBias
+
+    def infer(self, input_type):
+        if isinstance(input_type, RecurrentType):
+            self.nIn = self.nIn or input_type.size
+            return InputType.recurrent(self.nOut, input_type.timeSeriesLength)
+        self.nIn = self.nIn or input_type.arrayElementsPerExample()
+        return InputType.feedForward(self.nOut)
+
+    def param_shapes(self):
+        if self.nIn is None or self.nOut is None:
+            raise ValueError(
+                f"{type(self).__name__} has nIn={self.nIn}, nOut={self.nOut}:"
+                f" set nIn explicitly or declare setInputType on the config")
+        shapes = {"W": (self.nIn, self.nOut)}
+        if self.hasBias:
+            shapes["b"] = (self.nOut,)
+        return shapes
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        shapes = self.param_shapes()
+        p = {"W": init_weight(self.weightInit, generator, shapes["W"],
+                              self.nIn, self.nOut, dtype, device)}
+        if self.hasBias:
+            p["b"] = torch.full(shapes["b"], float(self.biasInit),
+                                dtype=dtype, device=device)
+        return p
+
+    def _linear(self, params, x):
+        if x.dim() == 3:  # [N, C, T]: contract the channel axis per timestep
+            y = torch.einsum("nct,ch->nht", x, params["W"])
+            if self.hasBias:
+                y = y + params["b"][None, :, None]
+            return y
+        if x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        y = x @ params["W"]
+        if self.hasBias:
+            y = y + params["b"]
+        return y
+
+    def apply(self, params, state, x):
+        return self._act(self._linear(params, x)), state
+
+
+# ---------------------------------------------------------------------------
+# recurrent layers
+# ---------------------------------------------------------------------------
+
+@_register
+class LSTM(BaseLayer):
+    """The recurrence runs in ``autodiff.ops.lstmLayer`` (the hand-written
+    CUDA kernel on the GPU). Input/output layout [N, C, T]."""
+
+    IS_RECURRENT = True
+
+    def __init__(self, nIn=None, nOut=None, forgetGateBiasInit=1.0, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        self.forgetGateBiasInit = forgetGateBiasInit
+        if self.activation is None:
+            self.activation = "tanh"
+
+    def infer(self, input_type):
+        self.nIn = self.nIn or input_type.size
+        t = getattr(input_type, "timeSeriesLength", None)
+        return InputType.recurrent(self.nOut, t)
+
+    def param_shapes(self):
+        h = self.nOut
+        return {"W": (self.nIn, 4 * h), "R": (h, 4 * h), "b": (4 * h,)}
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        shapes = self.param_shapes()
+        h = self.nOut
+        return {
+            "W": init_weight(self.weightInit, generator, shapes["W"],
+                             self.nIn, h, dtype, device),
+            "R": init_weight(self.weightInit, generator, shapes["R"], h, h,
+                             dtype, device),
+            "b": torch.zeros(shapes["b"], dtype=dtype, device=device),
+        }
+
+    def apply(self, params, state, x):
+        """When `state` carries {"h","c"} (streaming rnnTimeStep), the
+        recurrence starts from it and the updated state is returned;
+        otherwise it starts from zeros and the state passes through."""
+        h0 = state.get("h") if isinstance(state, dict) else None
+        c0 = state.get("c") if isinstance(state, dict) else None
+        out, hT, cT = lstmLayer(
+            x, params["W"], params["R"], params["b"], h0=h0, c0=c0,
+            forgetBias=self.forgetGateBiasInit)
+        if h0 is not None:
+            return out, {"h": hT, "c": cT}
+        return out, state
+
+    def streaming_state(self, batch_size, dtype=torch.float32, device="cpu"):
+        """Zero carried state for rnnTimeStep."""
+        h = torch.zeros((batch_size, self.nOut), dtype=dtype, device=device)
+        return {"h": h, "c": torch.zeros_like(h)}
+
+
+@_register
+class GravesLSTM(LSTM):
+    """Kept for config parity; peephole connections are dropped, as in the
+    JAX package."""
+
+
+# ---------------------------------------------------------------------------
+# output layers
+# ---------------------------------------------------------------------------
+
+class BaseOutputLayer(DenseLayer):
+    def __init__(self, lossFunction="mcxent", **kw):
+        super().__init__(**kw)
+        self.lossFunction = lossFunction
+        # remember whether the user set the activation explicitly so a
+        # global .activation(...) default can propagate (DL4J semantics:
+        # softmax is the fallback only when NO global default exists)
+        self._explicit_activation = self.activation is not None
+        if self.activation is None:
+            self.activation = "softmax"
+
+    def apply_defaults(self, defaults):
+        if (not getattr(self, "_explicit_activation", True)
+                and defaults.get("activation") is not None):
+            self.activation = defaults["activation"]
+        super().apply_defaults(defaults)
+
+
+@_register
+class OutputLayer(BaseOutputLayer):
+    """Dense + loss (the loss comes with the training slice)."""
+
+
+@_register
+class RnnOutputLayer(BaseOutputLayer):
+    """Per-timestep output over [N, C, T]."""
+
+    def infer(self, input_type):
+        self.nIn = self.nIn or input_type.size
+        return InputType.recurrent(self.nOut,
+                                   getattr(input_type, "timeSeriesLength",
+                                           None))
+
+
+OUTPUT_LAYER_TYPES = (BaseOutputLayer,)
