@@ -2,18 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version at the shapes the serving path
-gives it, then serves the full-width GravesLSTM char-RNN
-(TextGenerationLSTM: vocab 77, hidden 256, seqLength 100, random weights
-from a numpy seed) through InferenceSession and checks the answers. Any
-failed check exits non-zero. Without a GPU it exits non-zero and prints no
-result. It imports nothing of the JAX package.
+Builds the port's CUDA kernels from the sources in this checkout (one
+nvcc per source, in parallel), holds each against its plain PyTorch version
+at the shapes the training and serving paths give it, then drives the
+full-width GravesLSTM char-RNN (TextGenerationLSTM: vocab 77, hidden 256,
+seqLength 100, batch 32, Adam(2e-3), random weights from a numpy seed):
+
+- training: ``gradients`` and 5 ``fit`` steps on the card against the same
+  on the CPU (the plain versions), one truncated-BPTT step likewise, the
+  kernels' launch counts per step, and the step time;
+- serving: the trained net through InferenceSession, its answers against
+  ``net.output`` and the CPU plain forward.
+
+Any failed check exits non-zero. Without a GPU it exits non-zero and prints
+no result. It imports nothing of the JAX package.
 
 Output: the card's name and power limit (as nvidia-smi gives them), the
 build time, one line per kernel shape (max |error| and times), the
-serving checks, then a ``{"kernels": [...]}`` JSON line and, last,
-``{"ok": true, "device": {...}}``.
+training and serving checks, then a ``{"kernels": [...]}`` JSON line and,
+last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,29 @@ PLAIN_TOL = 1e-4     # served rows vs the CPU plain-version forward
 # ladder and a large batch), one step, and a ragged edge in N and H
 KERNEL_SHAPES = [(100, 1, 256), (100, 8, 256), (100, 32, 256),
                  (100, 1024, 256), (1, 8, 256), (13, 3, 200)]
-REPORT_SHAPE = (100, 32, 256)   # the ladder's largest bucket
+# the training kernels: the training batch (100, 32, 256) and the others
+TRAIN_SHAPES = [(100, 32, 256), (100, 1, 256), (100, 1024, 256),
+                (1, 8, 256), (13, 3, 200)]
+REPORT_SHAPE = (100, 32, 256)   # the ladder's largest bucket, the batch
+# Backward tolerance, relative to each output's largest element: another
+# summation order over 4H in dz R^T (carried through T steps) and over T*N
+# in dR, where the plain version sums per step with cuBLAS.
+GRAD_TOL = 1e-4
+# Training on the card vs the same on the CPU (plain versions), float32:
+TRAIN_LOSS_TOL = 1e-4    # relative, per step
+# Adam moves a weight by about lr per step (lr*m/sqrt(v), bias-corrected),
+# so trained weights are compared against lr*steps, about the most they
+# can have moved. Where |g| is small, m/sqrt(v) amplifies the rounding
+# difference of the two summation orders, and an element whose gradient
+# is at that noise can even take the other sign and land up to
+# 2*lr*steps away. Such elements are those whose first moment m is below
+# MOMENT_FLOOR of its tensor's largest. Every other weight must agree to
+# PARAM_TOL of lr*steps, and m and v themselves to MOMENT_TOL of their
+# tensor's largest element.
+PARAM_TOL = 1e-2
+MOMENT_FLOOR = 1e-3
+MOMENT_TOL = 1e-4
+STEPS = 5
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and the
 # float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -65,16 +94,36 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
+def _bound(nbytes, flops):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the float32 operations over the non-tensor float32 rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def lstm_bound(t, n, h):
     """Least time (ms) the card needs for the recurrence: each input read
     once (xw, R, h0, c0), each output written once (hs, hT, cT), against
     the 2*T*N*H*4H multiply-adds of h.R at the float32 non-tensor rate."""
-    nbytes = 4 * (t * n * 4 * h + h * 4 * h + 2 * n * h + t * n * h
-                  + 2 * n * h)
-    flops = 2.0 * t * n * h * 4 * h
-    by_bytes, by_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations")
+    return _bound(4 * (t * n * 4 * h + h * 4 * h + 2 * n * h + t * n * h
+                       + 2 * n * h), 2.0 * t * n * h * 4 * h)
+
+
+def fwd_bound(t, n, h):
+    """The training forward: reads xw, R, h0, c0 once, writes hs, gates
+    and cs once; the same 2*T*N*H*4H multiply-adds."""
+    return _bound(4 * (t * n * 4 * h + h * 4 * h + 2 * n * h + t * n * h
+                       + t * n * 4 * h + t * n * h), 2.0 * t * n * h * 4 * h)
+
+
+def bwd_bound(t, n, h):
+    """The backward: reads dhs, dhT, dcT, gates, cs, hs, R, h0, c0 once,
+    writes dxw, dR, dh0, dc0 once; 2*T*N*H*4H multiply-adds for dz R^T and
+    as many for dR."""
+    return _bound(4 * (t * n * h + 2 * n * h + t * n * 4 * h + 2 * t * n * h
+                       + h * 4 * h + 2 * n * h + t * n * 4 * h + h * 4 * h
+                       + 2 * n * h), 4.0 * t * n * h * 4 * h)
 
 
 def kernel_phase(torch, lstm):
@@ -150,31 +199,278 @@ def kernel_phase(torch, lstm):
     return rows, max_err
 
 
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def train_kernel_phase(torch, lstm):
+    """lstm_seq_fwd and lstm_seq_bwd vs their plain versions at every
+    training shape; times of each kernel, its plain version and cuDNN's
+    LSTM layer in training (its forward with grad; autograd's backward of
+    it, which also forms the input-projection gradients)."""
+    rows = {"lstm_seq_fwd": {}, "lstm_seq_bwd": {}}
+    errs = {"lstm_seq_fwd": 0.0, "lstm_seq_bwd": 0.0}   # max |d|, absolute
+    for (t, n, h) in TRAIN_SHAPES:
+        rng = np.random.default_rng([SEED, 1, t, n, h])
+
+        def dev(*shape, scale=1.0):
+            return torch.tensor((rng.normal(size=shape) * scale).astype(
+                np.float32), device="cuda")
+
+        x, w, r = dev(t, n, h), dev(h, 4 * h, scale=0.08), \
+            dev(h, 4 * h, scale=0.08)
+        b, h0, c0 = dev(4 * h, scale=0.1), dev(n, h, scale=0.2), \
+            dev(n, h, scale=0.2)
+        dhs, dhT, dcT = dev(t, n, h), dev(n, h), dev(n, h)
+        bias = b.clone()
+        bias[h:2 * h] += 1.0
+        xw = torch.matmul(x, w) + bias
+
+        fwd, bwd = lstm.lstm_seq_fwd, lstm.lstm_seq_bwd
+        before = (fwd.launches, bwd.launches)
+        hs, gates, cs = fwd(xw, r, h0, c0)
+        grads = bwd(dhs, dhT, dcT, gates, cs, hs, r, h0, c0)
+        torch.cuda.synchronize()
+        if (fwd.launches, bwd.launches) != (before[0] + 1, before[1] + 1):
+            fail(f"training kernels' launch counters did not rise at "
+                 f"{(t, n, h)}")
+        want_f = lstm.lstm_seq_fwd_reference(xw, r, h0, c0)
+        want_b = lstm.lstm_seq_bwd_reference(dhs, dhT, dcT, gates, cs, hs,
+                                             r, h0, c0)
+        if not all(bool(torch.isfinite(a).all())
+                   for a in (hs, gates, cs, *grads)):
+            fail(f"non-finite training kernel output at {(t, n, h)}")
+        err_f = max(float((a - e).abs().max())
+                    for a, e in zip((hs, gates, cs), want_f))
+        err_b = max(_rel_err(a, e) for a, e in zip(grads, want_b))
+        abs_b = max(float((a - e).abs().max()) for a, e in zip(grads, want_b))
+        if err_f > KERNEL_TOL:
+            fail(f"lstm_seq_fwd vs plain max|d|={err_f:.3e} > {KERNEL_TOL} "
+                 f"at {(t, n, h)}")
+        if err_b > GRAD_TOL:
+            fail(f"lstm_seq_bwd vs plain max|d|/max={err_b:.3e} > "
+                 f"{GRAD_TOL} at {(t, n, h)}")
+        again = bwd(dhs, dhT, dcT, gates, cs, hs, r, h0, c0)
+        if not all(torch.equal(a, e) for a, e in zip(again, grads)):
+            fail(f"lstm_seq_bwd gave other bits on a second run at "
+                 f"{(t, n, h)}: its sums must run in a fixed order")
+        errs["lstm_seq_fwd"] = max(errs["lstm_seq_fwd"], err_f)
+        errs["lstm_seq_bwd"] = max(errs["lstm_seq_bwd"], abs_b)
+
+        cudnn = torch.nn.LSTM(h, h).cuda()
+        with torch.no_grad():
+            cudnn.weight_ih_l0.copy_(w.t())
+            cudnn.weight_hh_l0.copy_(r.t())
+            cudnn.bias_ih_l0.copy_(bias)
+            cudnn.bias_hh_l0.zero_()
+        x_g, h0_g, c0_g = (a.clone().requires_grad_() for a in (x, h0, c0))
+        wrt = [x_g, h0_g, c0_g, *cudnn.parameters()]
+
+        def lib_fwd():
+            return cudnn(x_g, (h0_g[None], c0_g[None]))
+
+        ref_hs, (ref_hT, ref_cT) = lib_fwd()
+        cudnn_err = float((ref_hs.detach() - hs).abs().max())
+        if cudnn_err > KERNEL_TOL:
+            fail(f"lstm_seq_fwd vs cuDNN max|d|={cudnn_err:.3e} at "
+                 f"{(t, n, h)}")
+        outs, cts = (ref_hs, ref_hT, ref_cT), (dhs, dhT[None], dcT[None])
+        reps = 10 if n >= 1024 else 30
+        launches = (fwd.launches, bwd.launches)   # after the rerun above
+        f_ms = time_ms(lambda: fwd(xw, r, h0, c0), reps)
+        b_ms = time_ms(lambda: bwd(dhs, dhT, dcT, gates, cs, hs, r, h0, c0),
+                       reps)
+        if (fwd.launches, bwd.launches) != (launches[0] + reps + 1,
+                                            launches[1] + reps + 1):
+            fail("training kernels' launch counters out of step with the "
+                 "timed launches")
+        plain_reps = max(3, reps // 3)
+        pf_ms = time_ms(lambda: lstm.lstm_seq_fwd_reference(xw, r, h0, c0),
+                        plain_reps)
+        pb_ms = time_ms(lambda: lstm.lstm_seq_bwd_reference(
+            dhs, dhT, dcT, gates, cs, hs, r, h0, c0), plain_reps)
+        lf_ms = time_ms(lib_fwd, reps)
+        lb_ms = time_ms(lambda: torch.autograd.grad(outs, wrt, cts,
+                                                    retain_graph=True), reps)
+        for name, ms, p_ms, l_ms, bound in (
+                ("lstm_seq_fwd", f_ms, pf_ms, lf_ms, fwd_bound(t, n, h)),
+                ("lstm_seq_bwd", b_ms, pb_ms, lb_ms, bwd_bound(t, n, h))):
+            rows[name][(t, n, h)] = dict(ms=ms, plain_ms=p_ms,
+                                         library_ms=l_ms, bound_ms=bound[0],
+                                         bound_by=bound[1])
+            err = (f"{err_f:.3e}" if name == "lstm_seq_fwd" else
+                   f"{abs_b:.3e} ({err_b:.3e} of the largest)")
+            print(f"{name} T={t} N={n} H={h}: max|d| {err}; "
+                  f"kernel {ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN LSTM "
+                  f"layer {'backward' if name == 'lstm_seq_bwd' else 'training forward'} "
+                  f"{l_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})",
+                  flush=True)
+    return rows, errs
+
+
+def next_char_batch(rng, n, vocab, t):
+    """n one-hot sequences [n, vocab, t] and their next-character labels."""
+    idx = rng.integers(0, vocab, size=(n, t + 1))
+    eye = np.eye(vocab, dtype=np.float32)
+    return (eye[idx[:, :-1]].transpose(0, 2, 1).copy(),
+            eye[idx[:, 1:]].transpose(0, 2, 1).copy())
+
+
+def _net_pair(conf_json, arrays):
+    """The same network on the card (the default device) and on the CPU."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils.convert import params_from_numpy
+
+    conf = MultiLayerConfiguration.from_json(conf_json)
+    gpu = MultiLayerNetwork(conf).init(params_from_numpy(conf, arrays,
+                                                         "cuda"))
+    if gpu.device.type != "cuda":
+        fail(f"the network defaulted to {gpu.device}, not cuda")
+    conf = MultiLayerConfiguration.from_json(conf_json)
+    cpu = MultiLayerNetwork(conf, device="cpu").init(
+        params_from_numpy(conf, arrays, "cpu"))
+    return gpu, cpu
+
+
+def _compare_trained(gpu, cpu, what, lr, steps):
+    """Params and Adam moments of two nets trained alike (see PARAM_TOL)."""
+    worst_p = worst_m = worst_tiny = 0.0
+    n_tiny_off = 0
+    for i, (pg, pc) in enumerate(zip(gpu._params, cpu._params)):
+        for k in pc:
+            mg, mc = (net._opt_states[i]["m"][k].cpu() for net in (gpu, cpu))
+            vg, vc = (net._opt_states[i]["v"][k].cpu() for net in (gpu, cpu))
+            worst_m = max(worst_m, _rel_err(mg, mc), _rel_err(vg, vc))
+            tiny = mc.abs() < MOMENT_FLOOR * mc.abs().max()
+            d = (pg[k].cpu() - pc[k]).abs()
+            if (~tiny).any():
+                worst_p = max(worst_p, float(d[~tiny].max()))
+            if tiny.any():
+                worst_tiny = max(worst_tiny, float(d[tiny].max()))
+                n_tiny_off += int((d[tiny] > PARAM_TOL * lr * steps).sum())
+    print(f"train: {what}: card vs CPU params max|d| {worst_p:.3e} = "
+          f"{worst_p / (lr * steps):.3e} of lr*steps (moments above the "
+          f"floor), Adam m/v max|d|/max {worst_m:.3e}; {n_tiny_off} weights "
+          f"with tiny moments beyond that, max|d| {worst_tiny:.3e}",
+          flush=True)
+    if worst_p > PARAM_TOL * lr * steps:
+        fail(f"{what}: params differ by {worst_p:.3e} > "
+             f"{PARAM_TOL} * lr * steps")
+    if worst_m > MOMENT_TOL:
+        fail(f"{what}: Adam moments differ by {worst_m:.3e} > {MOMENT_TOL}")
+    if worst_tiny > 2 * lr * steps * (1 + 1e-3):
+        fail(f"{what}: a weight moved {worst_tiny:.3e}, more than Adam's "
+             f"2*lr*steps")
+
+
+def training_phase(torch, lstm):
+    """Train TextGenerationLSTM at full width on the card and on the CPU
+    from the same weights and batch; returns (the trained card net, the
+    kernels' launches in the 5 fit steps, the median step ms)."""
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+
+    vocab, hidden, seq, batch = 77, 256, 100, 32
+    conf = TextGenerationLSTM(vocabSize=vocab, hidden=hidden,
+                              seqLength=seq).conf()
+    lr = conf.defaults["updater"].learningRate
+    rng = np.random.default_rng(SEED + 1)
+    arrays = [{k: (rng.normal(size=s) * 0.08).astype(np.float32)
+               for k, s in lr_.param_shapes().items()} for lr_ in conf.layers]
+    f, l = next_char_batch(rng, batch, vocab, seq)
+    gpu, cpu = _net_pair(conf.to_json(), arrays)
+
+    # (a) gradients, relative to each layer's largest
+    g_gpu, g_cpu = gpu.gradients(f, l), cpu.gradients(f, l)
+    worst_g = max(_rel_err(torch.cat([gg[k].cpu().reshape(-1) for k in gc]),
+                           torch.cat([gc[k].reshape(-1) for k in gc]))
+                  for gg, gc in zip(g_gpu, g_cpu) if gc)
+    print(f"train: gradients card vs CPU max|d|/max per layer "
+          f"{worst_g:.3e}", flush=True)
+    if worst_g > GRAD_TOL:
+        fail(f"gradients differ by {worst_g:.3e} > {GRAD_TOL} relative")
+
+    # (b)-(d) STEPS fit steps on both; the counters read the card's run
+    kernels = (lstm.lstm_seq_infer, lstm.lstm_seq_fwd, lstm.lstm_seq_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    losses_gpu = []
+    for _ in range(STEPS):
+        gpu.fit(f, l)
+        losses_gpu.append(gpu.score())
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    losses_cpu = []
+    for _ in range(STEPS):
+        cpu.fit(f, l)
+        losses_cpu.append(cpu.score())
+    print(f"train: {STEPS} Adam steps, losses card {losses_gpu}, CPU "
+          f"{losses_cpu}; launches {launches}", flush=True)
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses_gpu,
+                                                         losses_cpu))
+    if worst_loss > TRAIN_LOSS_TOL:
+        fail(f"losses differ by {worst_loss:.3e} relative")
+    if not losses_gpu[-1] < losses_gpu[0]:
+        fail(f"the loss did not fall: {losses_gpu}")
+    if launches != {"lstm_seq_infer": 0, "lstm_seq_fwd": 2 * STEPS,
+                    "lstm_seq_bwd": 2 * STEPS}:
+        fail(f"launches in {STEPS} fit steps of a 2-LSTM net: {launches}")
+    _compare_trained(gpu, cpu, f"{STEPS} fit steps", lr, STEPS)
+
+    # (e) one truncated-BPTT fit: segments of 50 on T=100
+    d = json.loads(conf.to_json())
+    d["backpropType"], d["tbpttLength"] = "TruncatedBPTT", 50
+    t_gpu, t_cpu = _net_pair(json.dumps(d), arrays)
+    before = {fn.__name__: fn.launches for fn in kernels}
+    t_gpu.fit(f, l)
+    t_cpu.fit(f, l)
+    t_launches = {fn.__name__: fn.launches - before[fn.__name__]
+                  for fn in kernels}
+    rel = abs(t_gpu.score() - t_cpu.score()) / abs(t_cpu.score())
+    print(f"train: TBPTT(50) fit, 2 segments: loss card {t_gpu.score()} "
+          f"CPU {t_cpu.score()}; launches {t_launches}", flush=True)
+    if t_gpu.getIterationCount() != 2 or rel > TRAIN_LOSS_TOL:
+        fail(f"TBPTT: {t_gpu.getIterationCount()} iterations, loss "
+             f"differs by {rel:.3e}")
+    if t_launches != {"lstm_seq_infer": 0, "lstm_seq_fwd": 4,
+                      "lstm_seq_bwd": 4}:
+        fail(f"TBPTT launches {t_launches}")
+    _compare_trained(t_gpu, t_cpu, "TBPTT step", lr, 2)
+
+    # (f) the step time on the host clock, after a warm-up
+    times = []
+    for k in range(12):
+        t0 = time.perf_counter()
+        gpu.fit(f, l)
+        torch.cuda.synchronize()
+        if k >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    print(f"train: step time at N={batch} T={seq} H={hidden} vocab={vocab}:"
+          f" median {step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times):.3f}, max {max(times):.3f})", flush=True)
+    return gpu, launches, step_ms
+
+
 def one_hot_batch(rng, n, vocab, t):
     idx = rng.integers(0, vocab, size=(n, t))
     return np.eye(vocab, dtype=np.float32)[idx].transpose(0, 2, 1).copy()
 
 
-def slice_phase(torch, lstm):
-    """Serve TextGenerationLSTM at full width through InferenceSession."""
-    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+def slice_phase(torch, lstm, net):
+    """Serve the trained TextGenerationLSTM at full width through
+    InferenceSession."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import (
         DEFAULT_BATCH_BUCKETS, BucketLadder, InferenceSession)
-    from deeplearning4j_tpu_torch.utils.convert import params_from_numpy
 
-    vocab, hidden, seq = 77, 256, 100
-    conf = TextGenerationLSTM(vocabSize=vocab, hidden=hidden,
-                              seqLength=seq).conf()
+    vocab, seq = net.layers[-1].nOut, 100
+    plain = MultiLayerNetwork(net.conf, device="cpu").init(
+        [{k: v.detach().cpu().clone() for k, v in p.items()}
+         for p in net._params])
     rng = np.random.default_rng(SEED)
-    arrays = [{k: (rng.normal(size=s) * 0.08).astype(np.float32)
-               for k, s in lr.param_shapes().items()} for lr in conf.layers]
-    net = MultiLayerNetwork(conf).init(params_from_numpy(conf, arrays,
-                                                         "cuda"))
-    if net.device.type != "cuda":
-        fail(f"the network defaulted to {net.device}, not cuda")
-    plain = MultiLayerNetwork(conf, device="cpu").init(
-        params_from_numpy(conf, arrays, "cpu"))
 
     requests = [one_hot_batch(rng, int(rng.integers(1, 5)), vocab, seq)
                 for _ in range(16)]
@@ -262,31 +558,41 @@ def main():
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    build.load("lstm_seq_infer")
-    print(f"build: lstm_seq_infer {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for line in build.build_log("lstm_seq_infer").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: {line.strip()}", flush=True)
+    sources = ["lstm_seq_infer", "lstm_seq_bwd"]
+    build.load_all(sources)
+    print(f"build: {', '.join(sources)} {time.perf_counter() - t0:.2f} s "
+          f"(in parallel)", flush=True)
+    for name in sources:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name}: {line.strip()}", flush=True)
 
     rows, max_err = kernel_phase(torch, lstm)
-    launches = slice_phase(torch, lstm)
+    train_rows, train_errs = train_kernel_phase(torch, lstm)
+    net, train_launches, _ = training_phase(torch, lstm)
+    launches = slice_phase(torch, lstm, net)
 
-    rep = rows[REPORT_SHAPE]
+    entries = [
+        ("lstm_seq_infer", "lstm_seq_infer.cu", 115, launches, max_err,
+         rows[REPORT_SHAPE])] + [
+        (name, source, line, train_launches[name], train_errs[name],
+         train_rows[name][REPORT_SHAPE])
+        for name, source, line in (("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
+                                   ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))]
     print(json.dumps({"kernels": [{
-        "name": "lstm_seq_infer",
+        "name": name,
         "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/csrc/lstm_seq_infer.cu",
-        "replaces": "deeplearning4j_tpu/kernels/lstm.py:115",
+        "source": f"deeplearning4j_tpu_torch/csrc/{source}",
+        "replaces": f"deeplearning4j_tpu/kernels/lstm.py:{line}",
         "shape": list(REPORT_SHAPE),
-        "launches": launches,
-        "max_abs_err": max_err,
+        "launches": n_launch,
+        "max_abs_err": err,
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
-    }]}), flush=True)
+    } for name, source, line, n_launch, err, rep in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

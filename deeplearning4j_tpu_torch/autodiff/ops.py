@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from deeplearning4j_tpu_torch.kernels.lstm import lstm_seq_infer
+from deeplearning4j_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_infer
 
 
 def lstmCell(x, h_prev, c_prev, w, r, b=None, forgetBias=0.0):
@@ -59,7 +59,9 @@ def lstmLayer(x, w, r, b=None, h0=None, c0=None, forgetBias=0.0,
         xw = xw + b
     if forgetBias:
         xw[:, :, hsz:2 * hsz] += forgetBias   # xw is a fresh tensor here
-    hs, hT, cT = lstm_seq_infer(xw, r, h0, c0)
+    needs_grad = torch.is_grad_enabled() and any(
+        a is not None and a.requires_grad for a in (x, w, r, b, h0, c0))
+    hs, hT, cT = (lstm_seq if needs_grad else lstm_seq_infer)(xw, r, h0, c0)
     if not returnFullSequence:
         return hT, hT, cT
     return hs.permute(1, 2, 0), hT, cT   # [N, H, T]

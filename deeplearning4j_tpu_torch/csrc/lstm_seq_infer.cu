@@ -1,12 +1,24 @@
-// LSTM recurrence forward (inference) for Hopper, sm_90a.
+// LSTM recurrence forward for Hopper, sm_90a: two entry points that share
+// one kernel body, told apart by the compile-time flag kSave.
 //
-// Replaces deeplearning4j_tpu/kernels/lstm.py:_fwd_infer_kernel (launched
-// by _fwd_call with save_residuals=False). Same function:
+// lstm_seq_infer_f32 (kSave = false) replaces
+// deeplearning4j_tpu/kernels/lstm.py:_fwd_infer_kernel (launched by
+// _fwd_call with save_residuals=False):
 //
 //   xw [T,N,4H] f32 (input projection, bias and forgetBias folded in),
 //   R [H,4H], h0, c0 [N,H]  ->  hs [T,N,H], hT, cT [N,H]
 //   z = xw_t + h_{t-1} R;  gates i,f,g,o = sig, sig, tanh, sig;
 //   c = f c + i g;  h = o tanh(c)
+//
+// lstm_seq_fwd_f32 (kSave = true) replaces _fwd_kernel (launched by
+// _fwd_call with save_residuals=True), the training forward: the same
+// recurrence, writing the residuals the backward needs instead of hT, cT:
+//
+//   -> hs [T,N,H], gates [T,N,4H] (post-activation i|f|g|o), cs [T,N,H]
+//
+// The residuals add 5 stores per cell and step (4 gates and c) to the 1
+// of hs; at T=100, N=32, H=256 they are 16.4 MB on top of xw's 13.1 MB,
+// small beside the serial steps that bound the kernel at such batches.
 //
 // What bounds it on this card. Each step is an [N,H]x[H,4H] product plus
 // gates, and step t needs every h_{t-1}. At N=1024, H=256, T=100 the
@@ -61,14 +73,17 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int KSPLIT>
+// kSave: write gates and cs for the backward (training) instead of hT,
+// cT; c_{t-1} is then read back from cs[t-1], else from cT.
+template <int KSPLIT, bool kSave>
 __global__ void __launch_bounds__(kThreads)
-lstm_seq_infer_kernel(const float* __restrict__ xw,
-                      const float* __restrict__ r,
-                      const float* __restrict__ h0,
-                      const float* __restrict__ c0,
-                      float* hs, float* __restrict__ hT, float* cT,
-                      int T, int N, int H, int unit_tiles, int row_groups) {
+lstm_seq_kernel(const float* __restrict__ xw,
+                const float* __restrict__ r,
+                const float* __restrict__ h0,
+                const float* __restrict__ c0,
+                float* hs, float* __restrict__ hT, float* cT,
+                float* __restrict__ gates, float* cs,
+                int T, int N, int H, int unit_tiles, int row_groups) {
   constexpr int kRows = kMaxRows / KSPLIT;   // rows per tile
   extern __shared__ float smem[];
   float* r_s = smem;                          // [H][4 * kUnits]
@@ -102,7 +117,8 @@ lstm_seq_infer_kernel(const float* __restrict__ xw,
 
   for (int t = 0; t < T; ++t) {
     const float* h_prev = t == 0 ? h0 : hs + (size_t)(t - 1) * nh;
-    const float* c_prev = t == 0 ? c0 : cT;
+    const float* c_prev =
+        t == 0 ? c0 : (kSave ? cs + (size_t)(t - 1) * nh : cT);
     const float* xw_t = xw + (size_t)t * N * four_h;
     float* h_out = hs + (size_t)t * nh;
 
@@ -172,9 +188,19 @@ lstm_seq_infer_kernel(const float* __restrict__ xw,
         const float o_g = sigmoid(acc[q][3]);
         const float c = f_g * c_prev[cell] + i_g * g_g;
         const float h = o_g * tanhf(c);
-        cT[cell] = c;
+        if constexpr (kSave) {
+          float* g_out = gates + (size_t)t * N * four_h + (size_t)n * four_h
+                         + j;
+          g_out[0] = i_g;
+          g_out[H] = f_g;
+          g_out[2 * H] = g_g;
+          g_out[3 * H] = o_g;
+          cs[(size_t)t * nh + cell] = c;
+        } else {
+          cT[cell] = c;
+          if (t == T - 1) hT[cell] = h;
+        }
         h_out[cell] = h;
-        if (t == T - 1) hT[cell] = h;
       }
     }
     if (t + 1 < T) grid.sync();
@@ -190,13 +216,14 @@ constexpr int kNotOneWave = -4;
 
 // Launch the KSPLIT variant. Unless `force`, only when all its row tiles
 // fit in one co-resident wave (else kNotOneWave, and nothing runs).
-template <int KSPLIT>
+template <int KSPLIT, bool kSave>
 int launch(const float* xw, const float* r, const float* h0,
-           const float* c0, float* hs, float* hT, float* cT, int T, int N,
-           int H, int sms, int smem_optin, cudaStream_t stream, bool force) {
+           const float* c0, float* hs, float* hT, float* cT, float* gates,
+           float* cs, int T, int N, int H, int sms, int smem_optin,
+           cudaStream_t stream, bool force) {
   const size_t smem = smem_bytes(H, KSPLIT);
   if (smem > (size_t)smem_optin) return -1;
-  auto kernel = lstm_seq_infer_kernel<KSPLIT>;
+  auto kernel = lstm_seq_kernel<KSPLIT, kSave>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -214,6 +241,7 @@ int launch(const float* xw, const float* r, const float* h0,
   if (row_groups > row_tiles) row_groups = row_tiles;
   void* args[] = {(void*)&xw, (void*)&r, (void*)&h0, (void*)&c0,
                   (void*)&hs, (void*)&hT, (void*)&cT,
+                  (void*)&gates, (void*)&cs,
                   (void*)&T, (void*)&N, (void*)&H,
                   (void*)&unit_tiles, (void*)&row_groups};
   err = cudaLaunchCooperativeKernel((void*)kernel,
@@ -221,6 +249,36 @@ int launch(const float* xw, const float* r, const float* h0,
                                     dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The largest split whose row tiles all fit in one co-resident wave;
+// KSPLIT=1 otherwise, looping over row tiles.
+template <bool kSave>
+int run(const float* xw, const float* r, const float* h0, const float* c0,
+        float* hs, float* hT, float* cT, float* gates, float* cs, int T,
+        int N, int H, cudaStream_t st) {
+  if (T < 1 || N < 1 || H < 1) return -3;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int smem_optin = 0, sms = 0, coop = 0;
+  cudaDeviceGetAttribute(&smem_optin,
+                         cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return -2;
+  int rc = launch<8, kSave>(xw, r, h0, c0, hs, hT, cT, gates, cs, T, N, H,
+                            sms, smem_optin, st, false);
+  if (rc == kNotOneWave)
+    rc = launch<4, kSave>(xw, r, h0, c0, hs, hT, cT, gates, cs, T, N, H,
+                          sms, smem_optin, st, false);
+  if (rc == kNotOneWave)
+    rc = launch<2, kSave>(xw, r, h0, c0, hs, hT, cT, gates, cs, T, N, H,
+                          sms, smem_optin, st, false);
+  if (rc == kNotOneWave)
+    rc = launch<1, kSave>(xw, r, h0, c0, hs, hT, cT, gates, cs, T, N, H,
+                          sms, smem_optin, st, true);
+  return rc;
 }
 
 }  // namespace
@@ -233,31 +291,17 @@ extern "C" int lstm_seq_infer_f32(const float* xw, const float* r,
                                   const float* h0, const float* c0,
                                   float* hs, float* hT, float* cT,
                                   int T, int N, int H, void* stream) {
-  if (T < 1 || N < 1 || H < 1) return -3;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int smem_optin = 0, sms = 0, coop = 0;
-  cudaDeviceGetAttribute(&smem_optin,
-                         cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return -2;
-  cudaStream_t st = (cudaStream_t)stream;
-  // the largest split whose row tiles all fit in one co-resident wave;
-  // KSPLIT=1 otherwise, looping over row tiles
-  int rc = launch<8>(xw, r, h0, c0, hs, hT, cT, T, N, H, sms, smem_optin,
-                     st, false);
-  if (rc == kNotOneWave)
-    rc = launch<4>(xw, r, h0, c0, hs, hT, cT, T, N, H, sms, smem_optin, st,
-                   false);
-  if (rc == kNotOneWave)
-    rc = launch<2>(xw, r, h0, c0, hs, hT, cT, T, N, H, sms, smem_optin, st,
-                   false);
-  if (rc == kNotOneWave)
-    rc = launch<1>(xw, r, h0, c0, hs, hT, cT, T, N, H, sms, smem_optin, st,
-                   true);
-  return rc;
+  return run<false>(xw, r, h0, c0, hs, hT, cT, nullptr, nullptr, T, N, H,
+                    (cudaStream_t)stream);
+}
+
+// The training forward: hs, gates [T,N,4H] and cs [T,N,H]; same codes.
+extern "C" int lstm_seq_fwd_f32(const float* xw, const float* r,
+                                const float* h0, const float* c0,
+                                float* hs, float* gates, float* cs,
+                                int T, int N, int H, void* stream) {
+  return run<true>(xw, r, h0, c0, hs, nullptr, nullptr, gates, cs, T, N, H,
+                   (cudaStream_t)stream);
 }
 
 extern "C" const char* lstm_seq_infer_error_string(int code) {

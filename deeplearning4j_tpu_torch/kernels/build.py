@@ -56,25 +56,50 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless its library exists; returns
+    (process, temporary output, output) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    out.with_name("build.log").write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {name} ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def load_all(names) -> list[ctypes.CDLL]:
+    """The loaded libraries of several sources, the missing ones built
+    together: one nvcc per source, all started at once."""
+    with _lock:
+        todo = [n for n in names if n not in _loaded]
+        started = {n: _start(n) for n in todo}
+        try:
+            for n, st in started.items():
+                if st is not None:
+                    _finish(n, st)
+        finally:
+            for st in started.values():   # never leave a compiler behind
+                if st is not None and st[0].poll() is None:
+                    st[0].kill()
+                    st[0].wait()
+        for n in todo:
+            _loaded[n] = ctypes.CDLL(str(library_path(n)))
+        return [_loaded[n] for n in names]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        out = library_path(name)
-        if not out.exists():
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f".{out.name}.{os.getpid()}")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            out.with_name("build.log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {name} ({proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        _loaded[name] = lib
-        return lib
+    return load_all([name])[0]

@@ -1,17 +1,20 @@
-"""Layer configuration classes (the forward half).
+"""Layer configuration classes.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py`` for the layers the
-char-RNN serves through: DenseLayer, LSTM, GravesLSTM, OutputLayer and
-RnnOutputLayer. As in the JAX package a layer config IS the runtime:
+char-RNN trains and serves through: DenseLayer, LSTM, GravesLSTM,
+OutputLayer and RnnOutputLayer. As in the JAX package a layer config IS the
+runtime:
 
     param_shapes()                          -> {name: shape}
     init_params(generator, dtype, device)   -> {name: Tensor}
-    apply(params, state, x)                 -> (y, new_state)
+    apply(params, state, x, training=False, generator=None)
+                                            -> (y, new_state)
+    compute_loss(params, x, labels, mask)   (output layers)
 
 with the same config fields, JSON and param names, so a configuration or
-a set of weights moves between the two packages unchanged. Inference
-only: dropout is the identity here, and losses come with the training
-slice.
+a set of weights moves between the two packages unchanged. Dropout runs
+only in training and draws its mask from the ``torch.Generator`` passed
+in (the JAX package draws from a threefry key, so masks are not shared).
 
 Conventions (matching DL4J): dense inputs [N, F]; recurrent inputs and
 outputs [N, C, T].
@@ -26,6 +29,7 @@ import torch
 from deeplearning4j_tpu_torch.autodiff.ops import lstmLayer
 from deeplearning4j_tpu_torch.nn.activations import resolve_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType, RecurrentType
+from deeplearning4j_tpu_torch.nn.losses import resolve_loss
 from deeplearning4j_tpu_torch.nn.weights import init_weight
 from deeplearning4j_tpu_torch.optimize.updaters import updater_from_config
 
@@ -117,8 +121,17 @@ class BaseLayer:
     def init_state(self, dtype=torch.float32, device="cpu") -> dict:
         return {}
 
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, training=False, generator=None):
         return x, state
+
+    def _dropout(self, x, training, generator):
+        """Inverted dropout; ``dropOut`` is the RETAIN probability (DL4J)."""
+        p = self.dropOut
+        if not p or p >= 1.0 or not training or generator is None:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) < p
+        return torch.where(keep, x / p, torch.zeros_like(x))
 
     def _act(self, x):
         # softmax normalizes the CLASS axis: dim 1 in the DL4J NCW
@@ -214,7 +227,8 @@ class DenseLayer(BaseLayer):
             y = y + params["b"]
         return y
 
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, training=False, generator=None):
+        x = self._dropout(x, training, generator)
         return self._act(self._linear(params, x)), state
 
 
@@ -257,10 +271,12 @@ class LSTM(BaseLayer):
             "b": torch.zeros(shapes["b"], dtype=dtype, device=device),
         }
 
-    def apply(self, params, state, x):
-        """When `state` carries {"h","c"} (streaming rnnTimeStep), the
-        recurrence starts from it and the updated state is returned;
-        otherwise it starts from zeros and the state passes through."""
+    def apply(self, params, state, x, training=False, generator=None):
+        """When `state` carries {"h","c"} (streaming rnnTimeStep or a TBPTT
+        segment), the recurrence starts from it and the updated state is
+        returned; otherwise it starts from zeros and the state passes
+        through."""
+        x = self._dropout(x, training, generator)
         h0 = state.get("h") if isinstance(state, dict) else None
         c0 = state.get("c") if isinstance(state, dict) else None
         out, hT, cT = lstmLayer(
@@ -303,10 +319,19 @@ class BaseOutputLayer(DenseLayer):
             self.activation = defaults["activation"]
         super().apply_defaults(defaults)
 
+    def pre_output(self, params, x):
+        return self._linear(params, x)
+
+    def compute_loss(self, params, x, labels, mask=None):
+        """The loss from the pre-activation (the fused, stable form)."""
+        pre = self.pre_output(params, x)
+        return resolve_loss(self.lossFunction)(
+            labels, pre, self.activation, mask)
+
 
 @_register
 class OutputLayer(BaseOutputLayer):
-    """Dense + loss (the loss comes with the training slice)."""
+    """Dense + loss."""
 
 
 @_register
@@ -318,6 +343,9 @@ class RnnOutputLayer(BaseOutputLayer):
         return InputType.recurrent(self.nOut,
                                    getattr(input_type, "timeSeriesLength",
                                            None))
+
+    def apply(self, params, state, x, training=False, generator=None):
+        return self._act(self._linear(params, x)), state
 
 
 OUTPUT_LAYER_TYPES = (BaseOutputLayer,)

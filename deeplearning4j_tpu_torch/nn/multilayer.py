@@ -1,10 +1,16 @@
-"""MultiLayerNetwork: the sequential-network runtime (inference half).
+"""MultiLayerNetwork: the sequential-network runtime.
 
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``. Parameters are a
 list of per-layer ``{name: Tensor}`` dicts in the JAX package's order and
-with its names, on one explicit device. The network runs on the GPU
-unless the caller passes ``device="cpu"``. Training (fit, score, TBPTT,
-the updaters' state) comes with the training slice.
+with its names, on one explicit device, and so is the updater state. The
+network runs on the GPU unless the caller passes ``device="cpu"``.
+
+A training step is eager PyTorch: the forward with the fused loss,
+``torch.autograd.grad`` (through the LSTM kernels' autograd Function on the
+GPU), per-layer gradient normalization, the updater, and ``p -= u`` in
+place. Left for later slices, as in ROADMAP.md: the precision policies'
+compute cast and loss scaler, the loss-state and aux-loss channels of
+``_loss_from``, training health, telemetry, prefetch and fitMultiBatch.
 """
 
 from __future__ import annotations
@@ -12,10 +18,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.autodiff.samediff import (
+    _host_array, _ones_mask, _pad_to_bucket, _prepare_batches,
+    _split_dataset_full)
 from deeplearning4j_tpu_torch.backend import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
-    MultiLayerConfiguration)
+    BackpropType, MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import OUTPUT_LAYER_TYPES
+
+
+class GradientNormalization:
+    ClipL2PerLayer = "clip_l2_per_layer"
+    ClipL2PerParamType = "clip_l2_per_param"
+    ClipElementWiseAbsoluteValue = "clip_elementwise"
+    RenormalizeL2PerLayer = "renorm_l2_per_layer"
+
+
+def _normalize_grads(grads, mode, threshold):
+    """One layer's {name: gradient}; the L2 modes take the norm over all
+    of the layer's gradients (as the JAX package does, per-param-type
+    included)."""
+    if mode is None:
+        return grads
+    if mode == GradientNormalization.ClipElementWiseAbsoluteValue:
+        return {k: torch.clamp(g, -threshold, threshold)
+                for k, g in grads.items()}
+    norm = torch.sqrt(sum((grads[k] * grads[k]).sum() for k in sorted(grads))
+                      + 1e-12)
+    if mode == GradientNormalization.RenormalizeL2PerLayer:
+        return {k: g / norm for k, g in grads.items()}
+    scale = torch.clamp(threshold / norm, max=1.0)
+    return {k: g * scale for k, g in grads.items()}
+
+
+def _detached(states):
+    """Layer states with no graph: carried state never takes a gradient
+    across steps or TBPTT segments."""
+    return [{k: v.detach() for k, v in st.items()} for st in states]
 
 
 class MultiLayerNetwork:
@@ -33,8 +72,13 @@ class MultiLayerNetwork:
         self.device = resolve_device(device)
         self._params: list[dict] = []
         self._states: list[dict] = []
+        self._opt_states: list = []
         self._stream_states = None   # rnnTimeStep carried state per layer
         self._stream_batch = None
+        self._bucket = None   # fit batch-size bucket (ragged tail pads to it)
+        self._iteration = 0
+        self._epoch = 0
+        self._score = None
         self._initialized = False
 
     # -- init ----------------------------------------------------------------
@@ -65,8 +109,14 @@ class MultiLayerNetwork:
         self._params = list(params)
         self._states = [lr.init_state(dtype, self.device)
                         for lr in self.layers]
+        self._opt_states = [self._layer_updater(i).init_state(p) if p else ()
+                            for i, p in enumerate(self._params)]
         self._initialized = True
         return self
+
+    def _layer_updater(self, i):
+        u = self.layers[i].updater
+        return u if u is not None else self.conf.defaults["updater"]
 
     def _check_init(self):
         if not self._initialized:
@@ -82,23 +132,26 @@ class MultiLayerNetwork:
         return x
 
     # -- pure forward --------------------------------------------------------
-    def _forward(self, params, states, x):
+    def _forward(self, params, states, x, training=False, generator=None,
+                 upto=None):
         new_states = []
-        for lr, p, st in zip(self.layers, params, states):
-            x, st = lr.apply(p, st, x)
+        n = len(self.layers) if upto is None else upto
+        for i in range(n):
+            x, st = self.layers[i].apply(params[i], states[i], x, training,
+                                         generator)
             new_states.append(st)
+        new_states.extend(states[n:])
         return x, new_states
 
     def _infer_fn(self, training=False):
         """The inference function ``(params, states, x) -> y``. PyTorch runs
-        eagerly, so there is nothing to compile or cache."""
-        if training:
-            raise NotImplementedError(
-                "training-mode forward comes with the training slice")
+        eagerly, so there is nothing to compile or cache. With
+        ``training`` the layers run in training mode without a generator,
+        so dropout is off, as in the JAX package (no rng there)."""
 
         def fn(params, states, x):
             with torch.inference_mode():
-                y, _ = self._forward(params, states, x)
+                y, _ = self._forward(params, states, x, training)
             return y
 
         return fn
@@ -168,6 +221,220 @@ class MultiLayerNetwork:
             self._stream_batch = n
         self._stream_states[layer_idx] = vals
 
+    # -- training ------------------------------------------------------------
+    def _loss_from(self, params, states, f, l, training, generator,
+                   mask=None):
+        """Forward to the last hidden activation, then the output layer's
+        fused pre-activation loss, plus L1/L2 on every parameter."""
+        out_idx = len(self.layers) - 1
+        h, new_states = self._forward(params, states, f, training, generator,
+                                      upto=out_idx)
+        loss = self.layers[out_idx].compute_loss(params[out_idx], h, l, mask)
+        reg = 0.0
+        for lr, p in zip(self.layers, params):
+            leaves = [p[k] for k in sorted(p)]
+            if lr.l2:
+                reg = reg + lr.l2 * sum((w * w).sum() for w in leaves) * 0.5
+            if lr.l1:
+                # |w| with the JAX package's subgradient at 0 (1, where
+                # torch's abs takes 0), so a zero bias moves as it does there
+                reg = reg + lr.l1 * sum(torch.where(w >= 0, w, -w).sum()
+                                        for w in leaves)
+        return loss + reg, new_states
+
+    def _value_and_grad(self, states, f, l, mask, training, generator):
+        """(loss, new_states, per-layer gradients) at the current params."""
+        leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+                  for p in self._params]
+        loss, new_states = self._loss_from(leaves, states, f, l, training,
+                                           generator, mask=mask)
+        flat = [v for p in leaves for v in p.values()]
+        grads = iter(torch.autograd.grad(loss, flat) if flat else ())
+        return (loss.detach(), _detached(new_states),
+                [{k: next(grads) for k in p} for p in leaves])
+
+    def _dropout_generator(self, it):
+        """The step's dropout generator, seeded from conf.seed + 1 and the
+        iteration; None when no layer drops out."""
+        if not any(lr.dropOut and lr.dropOut < 1.0 for lr in self.layers):
+            return None
+        seed = np.random.SeedSequence([int(self.conf.seed) + 1, int(it)])
+        return torch.Generator(device=self.device).manual_seed(
+            int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+
+    def _step(self, states, f, l, lmask):
+        """One optimizer step on a device batch; returns (loss, states).
+        The params and the updater state are updated in place."""
+        it = self._iteration
+        loss, new_states, grads = self._value_and_grad(
+            states, f, l, lmask, True, self._dropout_generator(it))
+        with torch.no_grad():
+            for i, lr in enumerate(self.layers):
+                if not self._params[i]:
+                    continue
+                g = _normalize_grads(grads[i], lr.gradientNormalization,
+                                     lr.gradientNormalizationThreshold or 1.0)
+                upd, self._opt_states[i] = self._layer_updater(i).apply_mixed(
+                    g, self._opt_states[i], self._params[i], it)
+                for k, u in upd.items():
+                    self._params[i][k].sub_(u)
+        self._iteration += 1
+        return loss, new_states
+
+    def _device_batch(self, f, l, lmask):
+        return (self._input(f), self._input(l),
+                torch.as_tensor(lmask, device=self.device))
+
+    def fit(self, data, epochs: int | None = None):
+        """fit(iterator) / fit(iterator, nEpochs) / fit(features, labels) /
+        fit(DataSet). Every batch trains with an explicit label mask; a
+        ragged final batch is padded to the largest batch seen, with mask
+        0 on the padding rows."""
+        self._check_init()
+        if epochs is not None and not isinstance(epochs, int):
+            data, epochs = (data, epochs), 1   # fit(features, labels)
+        epochs = epochs or 1
+        last_loss = None
+        for epoch_i in range(epochs):
+            batches, data = _prepare_batches(data, epoch_i, epochs)
+            for ds in batches:
+                feats, labels, _, lmasks = _split_dataset_full(ds)
+                f = _host_array(feats[0])
+                l = _host_array(labels[0])
+                lmask = (_host_array(lmasks[0], np.float32)
+                         if lmasks[0] is not None else _ones_mask(l))
+                if self._bucket is None or f.shape[0] > self._bucket:
+                    self._bucket = f.shape[0]
+                if f.shape[0] < self._bucket:
+                    (f, l), lmask, _ = _pad_to_bucket([f, l], lmask,
+                                                      self._bucket)
+                tbptt = (self.conf.backpropType == BackpropType.TruncatedBPTT
+                         and self.conf.tbpttLength and f.ndim == 3
+                         and f.shape[2] > self.conf.tbpttLength)
+                if tbptt:
+                    last_loss = self._fit_tbptt(f, l, lmask)
+                else:
+                    last_loss, _ = self._step(
+                        self._states, *self._device_batch(f, l, lmask))
+            self._epoch += 1
+        if last_loss is not None:
+            self._score = float(last_loss)
+        return self
+
+    def _strip_rnn_states(self, states):
+        out = list(states)
+        for i in self._recurrent_indices():
+            out[i] = {}
+        return out
+
+    def _fit_tbptt(self, f, l, lmask):
+        """Truncated BPTT: each segment of tbpttLength steps is one
+        optimizer step; h and c carry across segments, detached, and reset
+        at the next minibatch."""
+        seg = self.conf.tbpttLength
+        states = self._seed_rnn_states(self._states, f.shape[0])
+        loss = None
+        for t0 in range(0, f.shape[2], seg):
+            fc = f[:, :, t0:t0 + seg]
+            lc = l[:, :, t0:t0 + seg] if l.ndim == 3 else l
+            mc = lmask[:, t0:t0 + seg] if lmask.ndim == 2 else lmask
+            if fc.shape[2] < seg:
+                # zero-pad the tail segment to the segment length and mask
+                # the padded timesteps out of the loss
+                pad = seg - fc.shape[2]
+                fc = np.concatenate(
+                    [fc, np.zeros(fc.shape[:2] + (pad,), fc.dtype)], axis=2)
+                if lc.ndim == 3:
+                    lc = np.concatenate(
+                        [lc, np.zeros(lc.shape[:2] + (pad,), lc.dtype)],
+                        axis=2)
+                if mc.ndim == 2:
+                    mc = np.concatenate(
+                        [mc, np.zeros((mc.shape[0], pad), mc.dtype)], axis=1)
+            loss, states = self._step(states,
+                                      *self._device_batch(fc, lc, mc))
+        self._states = self._strip_rnn_states(states)
+        return loss
+
+    # -- scoring / gradients ---------------------------------------------------
+    def score(self, dataset=None) -> float:
+        self._check_init()
+        if dataset is None:
+            if self._score is None:
+                raise ValueError("no score yet: call fit() or score(dataset)")
+            return self._score
+        feats, labels, _, lmasks = _split_dataset_full(dataset)
+        mask = None if lmasks[0] is None else torch.as_tensor(
+            _host_array(lmasks[0]), device=self.device)
+        with torch.no_grad():
+            loss, _ = self._loss_from(self._params, self._states,
+                                      self._input(feats[0]),
+                                      self._input(labels[0]), False, None,
+                                      mask=mask)
+        return float(loss)
+
+    def gradients(self, features, labels) -> list[dict]:
+        """Per-layer gradients of the loss (inference mode: no dropout)."""
+        self._check_init()
+        return self._value_and_grad(self._states, self._input(features),
+                                    self._input(labels), None, False,
+                                    None)[2]
+
+    def computeGradientAndScore(self, features, labels):
+        self._check_init()
+        loss, _, grads = self._value_and_grad(
+            self._states, self._input(features), self._input(labels), None,
+            False, None)
+        self._score = float(loss)
+        return grads, self._score
+
     # -- params --------------------------------------------------------------
+    def params(self) -> torch.Tensor:
+        """Flat parameter vector in layer order, keys sorted within each
+        layer (the JAX package's order)."""
+        self._check_init()
+        leaves = [p[k].reshape(-1) for p in self._params for k in sorted(p)]
+        if not leaves:
+            return torch.zeros((0,), dtype=self.conf.dtype,
+                               device=self.device)
+        return torch.cat(leaves)
+
+    def setParams(self, flat):
+        """Copy a flat vector (``params()`` order) into the params, in
+        place."""
+        self._check_init()
+        flat = self._input(flat).reshape(-1)
+        if flat.numel() != self.numParams():
+            raise ValueError(f"{flat.numel()} values for {self.numParams()} "
+                             f"parameters")
+        off = 0
+        with torch.no_grad():
+            for p in self._params:
+                for k in sorted(p):
+                    n = p[k].numel()
+                    p[k].copy_(flat[off:off + n].reshape(p[k].shape))
+                    off += n
+
     def numParams(self) -> int:
         return sum(v.numel() for p in self._params for v in p.values())
+
+    def getParam(self, layer_idx: int, name: str) -> torch.Tensor:
+        return self._params[layer_idx][name]
+
+    def setParam(self, layer_idx: int, name: str, value):
+        old = self._params[layer_idx][name]
+        value = self._input(value)
+        if value.shape != old.shape:
+            raise ValueError(f"param {layer_idx}_{name} has shape "
+                             f"{tuple(old.shape)}, got {tuple(value.shape)}")
+        self._params[layer_idx][name] = value.to(old.dtype).clone()
+
+    def paramTable(self) -> dict:
+        return {f"{i}_{k}": v
+                for i, p in enumerate(self._params) for k, v in p.items()}
+
+    def getIterationCount(self):
+        return self._iteration
+
+    def getEpochCount(self):
+        return self._epoch

@@ -1,10 +1,14 @@
-"""Weights from numpy into the port's parameter layout.
+"""Weights and updater state from numpy into the port's layout, and back.
 
 No JAX counterpart. ``params_from_numpy`` takes the per-layer
 ``{name: ndarray}`` dicts of a network (the JAX package's
 ``net._params`` as numpy arrays, or the arrays of a ``params.npz``) and
 returns the port's per-layer ``{name: Tensor}`` dicts, checked against the
 configuration's shapes. Both packages then compute the same function.
+``opt_states_from_numpy`` does the same for the updater state (the JAX
+package's ``net._opt_states`` as numpy: per layer ``()`` or nested dicts
+such as Adam's ``{"m": {...}, "v": {...}}``), and ``opt_states_to_numpy``
+is its inverse, so both packages can start from the same state.
 """
 
 from __future__ import annotations
@@ -35,3 +39,31 @@ def params_from_numpy(conf, arrays, device):
             p[name] = torch.tensor(a, dtype=conf.dtype, device=device)
         out.append(p)
     return out
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every leaf of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def opt_states_from_numpy(conf, arrays, device):
+    """``arrays``: one updater state per layer of ``conf`` with numpy
+    leaves. Returns the same structure with tensors of ``conf``'s dtype on
+    ``device`` (copies)."""
+    if len(arrays) != len(conf.layers):
+        raise ValueError(f"{len(arrays)} updater states for "
+                         f"{len(conf.layers)} layers")
+    return [_tree_map(lambda a: torch.tensor(np.asarray(a), dtype=conf.dtype,
+                                             device=device), st)
+            for st in arrays]
+
+
+def opt_states_to_numpy(states):
+    """The port's per-layer updater states with numpy leaves (host
+    copies)."""
+    return [_tree_map(lambda t: t.detach().cpu().numpy(), st)
+            for st in states]

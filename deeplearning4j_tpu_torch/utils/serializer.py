@@ -1,18 +1,25 @@
-"""Model restore from the JAX package's ModelSerializer zip.
+"""Model persistence in the JAX package's ModelSerializer zip.
 
-Counterpart of the restore half of ``deeplearning4j_tpu/utils/serializer.py``.
-The zip holds ``modelType``, ``configuration.json`` and ``params.npz``,
+Counterpart of the single-file half of
+``deeplearning4j_tpu/utils/serializer.py``. The zip holds ``modelType``, ``configuration.json`` and ``params.npz``,
 whose keys are ``p<SEP>layer<SEP>name`` (parameters) and
-``s<SEP>layer<SEP>name`` (layer state) with SEP the unit separator. The
-updater state and ``writeModel`` come with the training slice.
+``s<SEP>layer<SEP>name`` (layer state) with SEP the unit separator; with
+the updater, ``updaterState.npz`` (the updater state's leaves keyed
+"0", "1", ... in ``jax.tree_util.tree_flatten`` order: layers in order,
+dict keys sorted, so Adam writes m.R, m.W, m.b, v.R, v.W, v.b) and
+``trainingState.json`` (iteration and epoch). A zip written by either
+package restores in the other. Sharded checkpoints, normalizers and
+bfloat16 parameters come with later slices.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import zipfile
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.backend import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
@@ -23,16 +30,70 @@ from deeplearning4j_tpu_torch.utils.convert import params_from_numpy
 _SEP = "\x1f"  # unit separator: cannot appear in layer names
 
 
+def _leaves(tree):
+    """The leaves of nested dicts/lists/tuples in tree_flatten order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _fill(tree, leaves):
+    """``tree``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _fill(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_fill(v, leaves) for v in tree)
+    return None if tree is None else next(leaves)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:   # numpy has no bfloat16
+        raise NotImplementedError(
+            "writing bfloat16 arrays (paramDtypes.json) comes with the "
+            "precision slice")
+    return t.detach().cpu().numpy()
+
+
+def _npz_bytes(named) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **named)
+    return buf.getvalue()
+
+
 class ModelSerializer:
     @staticmethod
-    def restoreMultiLayerNetwork(path, loadUpdater: bool = False,
+    def writeModel(model, path, saveUpdater: bool = True):
+        """Write ``model`` (a MultiLayerNetwork) to the single-file zip at
+        ``path``, with its updater state and training counters unless
+        ``saveUpdater`` is False."""
+        named = {}
+        for kind, groups in (("p", model._params), ("s", model._states)):
+            for i, group in enumerate(groups):
+                for k, v in group.items():
+                    named[_SEP.join((kind, str(i), k))] = _host(v)
+        with zipfile.ZipFile(path, "w") as zf:
+            zf.writestr("configuration.json", model.conf.to_json())
+            zf.writestr("modelType", "MultiLayerNetwork")
+            zf.writestr("params.npz", _npz_bytes(named))
+            if saveUpdater:
+                leaves = _leaves(model._opt_states)
+                zf.writestr("updaterState.npz", _npz_bytes(
+                    {str(i): _host(v) for i, v in enumerate(leaves)}))
+                zf.writestr("trainingState.json", json.dumps(
+                    {"iteration": model._iteration, "epoch": model._epoch}))
+
+    @staticmethod
+    def restoreMultiLayerNetwork(path, loadUpdater: bool = True,
                                  device=None):
         """The network saved at ``path``, on ``device`` ("cuda" unless the
-        caller names another)."""
-        if loadUpdater:
-            raise NotImplementedError(
-                "updater state is restored with the training slice; pass "
-                "loadUpdater=False")
+        caller names another), with its updater state and training
+        counters when the zip holds them and ``loadUpdater``."""
         device = resolve_device(device)
         with zipfile.ZipFile(path) as zf:
             names = set(zf.namelist())
@@ -40,7 +101,7 @@ class ModelSerializer:
             if mtype != "MultiLayerNetwork":
                 raise ValueError(f"model file holds a {mtype}, not "
                                  f"MultiLayerNetwork")
-            if "paramDtypes.json" in names:
+            if names & {"paramDtypes.json", "updaterDtypes.json"}:
                 raise NotImplementedError(
                     "non-native parameter dtypes (paramDtypes.json) come "
                     "with the precision slice")
@@ -58,7 +119,22 @@ class ModelSerializer:
                 if kind == "p":
                     arrays[int(idx)][name] = npz[key]
                 elif kind == "s":
-                    # the layers ported so far keep no state
+                    # the layers ported so far keep no state between fits
                     raise ValueError(f"unexpected layer state {key!r}")
-        net = MultiLayerNetwork(conf, device=device)
-        return net.init(params_from_numpy(conf, arrays, device))
+            net = MultiLayerNetwork(conf, device=device)
+            net.init(params_from_numpy(conf, arrays, device))
+            if loadUpdater and "updaterState.npz" in names:
+                data = np.load(io.BytesIO(zf.read("updaterState.npz")))
+                n_leaves = sum(1 for _ in _leaves(net._opt_states))
+                if len(data.files) != n_leaves:
+                    raise ValueError(
+                        f"updaterState.npz holds {len(data.files)} arrays; "
+                        f"the configuration's updaters have {n_leaves}")
+                leaves = (torch.tensor(data[str(i)], dtype=conf.dtype,
+                                       device=device)
+                          for i in range(n_leaves))
+                net._opt_states = _fill(net._opt_states, leaves)
+                ts = json.loads(zf.read("trainingState.json"))
+                net._iteration = ts["iteration"]
+                net._epoch = ts["epoch"]
+        return net

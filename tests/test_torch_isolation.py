@@ -4,7 +4,8 @@
   ``jax`` or ``deeplearning4j_tpu`` (checked on the source's AST, so a
   lazy import inside a function counts too).
 - With CUDA absent, every entry point given no device raises instead of
-  running on the CPU; a CUDA tensor never reaches the plain version.
+  running on the CPU, training included; a CUDA tensor never reaches the
+  plain version.
 """
 
 import ast
@@ -50,6 +51,13 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     for want in ("deeplearning4j_tpu_torch/kernels/lstm.py",
                  "deeplearning4j_tpu_torch/serving/session.py",
+                 "deeplearning4j_tpu_torch/nn/losses.py",
+                 "deeplearning4j_tpu_torch/optimize/schedules.py",
+                 "deeplearning4j_tpu_torch/optimize/updaters.py",
+                 "deeplearning4j_tpu_torch/datasets/dataset.py",
+                 "deeplearning4j_tpu_torch/datasets/iterator.py",
+                 "deeplearning4j_tpu_torch/autodiff/samediff.py",
+                 "deeplearning4j_tpu_torch/utils/serializer.py",
                  "chip_smoke.py"):
         assert want in names
     bad = tmp_path / "bad.py"
@@ -82,3 +90,23 @@ def test_restore_without_device_raises_without_cuda(no_cuda, tmp_path):
     path = tmp_path / "missing.zip"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelSerializer.restoreMultiLayerNetwork(str(path))
+
+
+def test_training_raises_without_cuda_unless_cpu_is_named(no_cuda, tmp_path):
+    conf = TextGenerationLSTM(vocabSize=5, hidden=8, seqLength=4).conf()
+    rng = np.random.default_rng(0)
+    f = np.eye(5, dtype=np.float32)[rng.integers(0, 5, (2, 4))]
+    f = f.transpose(0, 2, 1).copy()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiLayerNetwork(conf).init().fit(f, f)
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    net.fit(f, f)
+    assert net.getIterationCount() == 1
+    assert all(v.device.type == "cpu" for p in net._params
+               for v in p.values())
+    path = str(tmp_path / "net.zip")
+    ModelSerializer.writeModel(net, path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelSerializer.restoreMultiLayerNetwork(path)
+    restored = ModelSerializer.restoreMultiLayerNetwork(path, device="cpu")
+    assert restored.getIterationCount() == 1

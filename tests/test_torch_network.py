@@ -113,9 +113,11 @@ def test_restore_jax_model_zip(jax_net, tmp_path):
         int(np.prod(v.shape)) for p in jax_net._params for v in p.values())
     x = _one_hot(3, SEQ, seed=21)
     _close(port.output(x).numpy(), jax_net.output(x).toNumpy())
-    with pytest.raises(NotImplementedError):
-        ModelSerializer.restoreMultiLayerNetwork(path, loadUpdater=True,
-                                                 device="cpu")
+    # the updater state comes along (by default, as in the JAX package)
+    for got, want in zip(port._opt_states, jax_net._opt_states):
+        for k in ("m", "v"):
+            for name, v in want[k].items():
+                _close(got[k][name].numpy(), v)
 
 
 def test_params_are_checked_against_the_configuration(jax_net):
