@@ -4,15 +4,26 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), holds each against its plain PyTorch version
-at the shapes the training and serving paths give it, then drives the
-full-width GravesLSTM char-RNN (TextGenerationLSTM: vocab 77, hidden 256,
-seqLength 100, batch 32, Adam(2e-3), random weights from a numpy seed):
+at the shapes the training and serving paths give it (the GRU kernels also
+against torch.nn.GRU on cuDNN, which is only timed and checked, never
+called by the port), then drives two full-width models with random
+weights from a numpy seed:
 
-- training: ``gradients`` and 5 ``fit`` steps on the card against the same
-  on the CPU (the plain versions), one truncated-BPTT step likewise, the
-  kernels' launch counts per step, and the step time;
-- serving: the trained net through InferenceSession, its answers against
-  ``net.output`` and the CPU plain forward.
+- the GravesLSTM char-RNN (TextGenerationLSTM: vocab 77, hidden 256,
+  seqLength 100, batch 32, Adam(2e-3)): ``gradients`` and 5 ``fit`` steps
+  on the card against the same on the CPU (the plain versions), one
+  truncated-BPTT step likewise, the kernels' launch counts per step and
+  the step time; then the trained net served through InferenceSession,
+  its answers against ``net.output`` and the CPU plain forward;
+- the GRU char-RNN of TensorFlow's text-generation tutorial (Embedding 66
+  -> 256, GRU 1024 reset-after, softmax output 66, T=100, batch 64,
+  Adam(1e-3)), with token ids as input: the same training checks, exactly
+  one GRU forward and one backward launch per step; then a burst of token
+  requests through InferenceSession and 20 tokens of ``rnnTimeStep``
+  generation at N=1 against ``net.output``.
+
+Each main path sets its kernels' launch counters to 0 just before it runs
+and reads them just after.
 
 Any failed check exits non-zero. Without a GPU it exits non-zero and prints
 no result. It imports nothing of the JAX package.
@@ -310,6 +321,191 @@ def train_kernel_phase(torch, lstm):
     return rows, errs
 
 
+# ---------------------------------------------------------------------------
+# the GRU (reset-after) kernels and the GRU char-RNN
+# ---------------------------------------------------------------------------
+
+# (T, N, H): the GRU char-RNN's training batch (100, 64, 1024), the serving
+# ladder's ends (N=1 and 32), one generation step, a ragged edge, and an H
+# that is no multiple of 4 (the kernels' scalar, non-float4 paths)
+GRU_SHAPES = [(100, 64, 1024), (100, 1, 1024), (100, 32, 1024),
+              (1, 1, 1024), (13, 3, 200), (7, 5, 37)]
+GRU_TRAIN_SHAPE = (100, 64, 1024)
+GRU_SERVE_SHAPE = (100, 32, 1024)   # the serving ladder's largest bucket
+GRU_EMBED = 256                     # the GRU layer's input width
+
+
+def gru_infer_bound(t, n, h):
+    """Reads xw, R, rb, h0 once, writes hs, hT once; 2*T*N*H*3H
+    multiply-adds of h.R at the float32 non-tensor rate."""
+    return _bound(4 * (t * n * 3 * h + h * 3 * h + 3 * h + n * h + t * n * h
+                       + n * h), 2.0 * t * n * h * 3 * h)
+
+
+def gru_fwd_bound(t, n, h):
+    """The training forward: reads xw, R, rb, h0 once, writes hs, ru
+    [T,N,2H], rz_c and cand once; the same multiply-adds."""
+    return _bound(4 * (t * n * 3 * h + h * 3 * h + 3 * h + n * h
+                       + 5 * t * n * h), 2.0 * t * n * h * 3 * h)
+
+
+def gru_bwd_bound(t, n, h):
+    """The backward: reads dhs, dhT, ru, rz_c, cand, hs, R, h0 once,
+    writes dxw, dR, drb, dh0 once; 2*T*N*H*3H multiply-adds for drz R^T and
+    as many for dR."""
+    return _bound(4 * (6 * t * n * h + 2 * n * h + 2 * h * 3 * h
+                       + 3 * t * n * h + 3 * h + n * h),
+                  4.0 * t * n * h * 3 * h)
+
+
+def dr_pass_ms(torch, hs, h0, reps):
+    """CUDA-event median of gru_seq_bwd's second pass alone (dR and drb
+    from a drz scratch), through its own entry point, so that the sweep
+    and the reduction are timed apart. Values do not change its time."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.kernels import build
+
+    t, n, h = hs.shape
+    fn = build.load("gru_seq_bwd").gru_seq_bwd_dr_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    drz = torch.ones((t, n, 3 * h), device="cuda")
+    dr = torch.empty((h, 3 * h), device="cuda")
+    drb = torch.empty((3 * h,), device="cuda")
+
+    def run():
+        rc = fn(hs.data_ptr(), h0.data_ptr(), drz.data_ptr(), dr.data_ptr(),
+                drb.data_ptr(), t, n, h,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"gru_seq_bwd_dr_f32 returned {rc}")
+
+    return time_ms(run, reps)
+
+
+def gru_kernel_phase(torch, gru):
+    """The three GRU kernels vs their plain versions at every GRU shape;
+    the backward's determinism; times of each kernel, its plain version
+    and torch.nn.GRU on cuDNN (the yardstick: the same reset-after
+    recurrence, gate order r, z, n, weight_hh = R^T; never called by the
+    port)."""
+    names = ("gru_seq_infer", "gru_seq_fwd", "gru_seq_bwd")
+    rows = {name: {} for name in names}
+    errs = dict.fromkeys(names, 0.0)   # max |d|, absolute
+    for (t, n, h) in GRU_SHAPES:
+        rng = np.random.default_rng([SEED, 2, t, n, h])
+
+        def dev(*shape, scale=1.0):
+            return torch.tensor((rng.normal(size=shape) * scale).astype(
+                np.float32), device="cuda")
+
+        x = dev(t, n, GRU_EMBED)
+        w = dev(GRU_EMBED, 3 * h, scale=GRU_EMBED ** -0.5)
+        r = dev(h, 3 * h, scale=h ** -0.5)
+        b, rb = dev(3 * h, scale=0.1), dev(3 * h, scale=0.1)
+        h0 = dev(n, h, scale=0.2)
+        dhs, dhT = dev(t, n, h), dev(n, h)
+        xw = torch.matmul(x, w) + b
+        fns = [getattr(gru, name) for name in names]
+
+        before = [fn.launches for fn in fns]
+        got_i = gru.gru_seq_infer(xw, r, rb, h0)
+        got_f = gru.gru_seq_fwd(xw, r, rb, h0)
+        hs, ru, rzc, cand = got_f
+        got_b = gru.gru_seq_bwd(dhs, dhT, ru, rzc, cand, hs, r, h0)
+        torch.cuda.synchronize()
+        if [fn.launches for fn in fns] != [k + 1 for k in before]:
+            fail(f"GRU launch counters did not rise at {(t, n, h)}")
+        want_i = gru.gru_seq_infer_reference(xw, r, rb, h0)
+        want_f = gru.gru_seq_fwd_reference(xw, r, rb, h0)
+        want_b = gru.gru_seq_bwd_reference(dhs, dhT, ru, rzc, cand, hs, r,
+                                           h0)
+        if not all(bool(torch.isfinite(a).all())
+                   for a in (*got_i, *got_f, *got_b)):
+            fail(f"non-finite GRU kernel output at {(t, n, h)}")
+        err_i = max(float((a - e).abs().max()) for a, e in zip(got_i, want_i))
+        err_f = max(float((a - e).abs().max()) for a, e in zip(got_f, want_f))
+        rel_b = max(_rel_err(a, e) for a, e in zip(got_b, want_b))
+        err_b = max(float((a - e).abs().max()) for a, e in zip(got_b, want_b))
+        for name, err in (("gru_seq_infer", err_i), ("gru_seq_fwd", err_f)):
+            if err > KERNEL_TOL:
+                fail(f"{name} vs plain max|d|={err:.3e} > {KERNEL_TOL} at "
+                     f"{(t, n, h)}")
+        if rel_b > GRAD_TOL:
+            fail(f"gru_seq_bwd vs plain max|d|/max={rel_b:.3e} > {GRAD_TOL}"
+                 f" at {(t, n, h)}")
+        again = gru.gru_seq_bwd(dhs, dhT, ru, rzc, cand, hs, r, h0)
+        if not all(torch.equal(a, e) for a, e in zip(again, got_b)):
+            fail(f"gru_seq_bwd gave other bits on a second run at "
+                 f"{(t, n, h)}: its sums must run in a fixed order")
+        for name, err in zip(names, (err_i, err_f, err_b)):
+            errs[name] = max(errs[name], err)
+
+        cudnn = torch.nn.GRU(GRU_EMBED, h).cuda()
+        with torch.no_grad():
+            cudnn.weight_ih_l0.copy_(w.t())
+            cudnn.weight_hh_l0.copy_(r.t())
+            cudnn.bias_ih_l0.copy_(b)
+            cudnn.bias_hh_l0.copy_(rb)
+        with torch.inference_mode():
+            ref_hs, _ = cudnn(x, h0[None])
+        cudnn_err = float((ref_hs - got_i[0]).abs().max())
+        if cudnn_err > KERNEL_TOL:
+            fail(f"GRU kernel vs cuDNN max|d|={cudnn_err:.3e} at "
+                 f"{(t, n, h)}: the weight mapping or the kernel is wrong")
+        x_g, h0_g = (a.clone().requires_grad_() for a in (x, h0))
+        wrt = [x_g, h0_g, *cudnn.parameters()]
+
+        def lib_fwd():
+            return cudnn(x_g, h0_g[None])
+
+        outs = lib_fwd()
+        cts = (dhs, dhT[None])
+        reps = 10 if t * n * h >= 100 * 32 * 1024 else 20
+        plain_reps = 3
+        launches = [fn.launches for fn in fns]
+        with torch.inference_mode():
+            i_ms = time_ms(lambda: gru.gru_seq_infer(xw, r, rb, h0), reps)
+            pi_ms = time_ms(lambda: gru.gru_seq_infer_reference(
+                xw, r, rb, h0), plain_reps)
+            li_ms = time_ms(lambda: cudnn(x, h0[None]), reps)
+        f_ms = time_ms(lambda: gru.gru_seq_fwd(xw, r, rb, h0), reps)
+        b_ms = time_ms(lambda: gru.gru_seq_bwd(dhs, dhT, ru, rzc, cand, hs,
+                                               r, h0), reps)
+        if [fn.launches for fn in fns] != [k + reps + 1 for k in launches]:
+            fail("GRU launch counters out of step with the timed launches")
+        pf_ms = time_ms(lambda: gru.gru_seq_fwd_reference(xw, r, rb, h0),
+                        plain_reps)
+        pb_ms = time_ms(lambda: gru.gru_seq_bwd_reference(
+            dhs, dhT, ru, rzc, cand, hs, r, h0), plain_reps)
+        lf_ms = time_ms(lib_fwd, reps)
+        lb_ms = time_ms(lambda: torch.autograd.grad(outs, wrt, cts,
+                                                    retain_graph=True), reps)
+        del outs
+        dr_ms = dr_pass_ms(torch, hs, h0, reps)
+        print(f"gru_seq_bwd T={t} N={n} H={h}: its dR, drb pass alone "
+              f"{dr_ms:.4f} ms, so the sweep {b_ms - dr_ms:.4f} ms",
+              flush=True)
+        for name, ms, p_ms, l_ms, bound, err, lib in (
+                ("gru_seq_infer", i_ms, pi_ms, li_ms,
+                 gru_infer_bound(t, n, h), f"{err_i:.3e}", "layer"),
+                ("gru_seq_fwd", f_ms, pf_ms, lf_ms, gru_fwd_bound(t, n, h),
+                 f"{err_f:.3e}", "training forward"),
+                ("gru_seq_bwd", b_ms, pb_ms, lb_ms, gru_bwd_bound(t, n, h),
+                 f"{err_b:.3e} ({rel_b:.3e} of the largest)",
+                 "autograd backward")):
+            rows[name][(t, n, h)] = dict(ms=ms, plain_ms=p_ms,
+                                         library_ms=l_ms, bound_ms=bound[0],
+                                         bound_by=bound[1])
+            print(f"{name} T={t} N={n} H={h}: max|d| {err}"
+                  f"{f' (vs cuDNN {cudnn_err:.3e})' if lib == 'layer' else ''}"
+                  f"; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN GRU "
+                  f"{lib} {l_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]})", flush=True)
+    return rows, errs
+
+
 def next_char_batch(rng, n, vocab, t):
     """n one-hot sequences [n, vocab, t] and their next-character labels."""
     idx = rng.integers(0, vocab, size=(n, t + 1))
@@ -540,6 +736,192 @@ def slice_phase(torch, lstm, net):
     return launches
 
 
+def gru_char_rnn_conf(vocab=66, embed=256, hidden=1024, seq=100):
+    """The GRU char-RNN of TensorFlow's "Text generation with an RNN"
+    tutorial in the port's DSL: Embedding(66, 256), GRU(1024) with Keras'
+    defaults (reset_after=True, tanh/sigmoid), Dense(66) logits with
+    sparse softmax cross-entropy (here RnnOutputLayer softmax/mcxent on
+    one-hot labels, its stable equivalent), Adam(1e-3), sequences of 100."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        GRU, EmbeddingSequenceLayer, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    return (NeuralNetConfiguration.Builder().seed(SEED).updater(Adam(1e-3))
+            .list()
+            .layer(EmbeddingSequenceLayer.Builder().nIn(vocab).nOut(embed)
+                   .build())
+            .layer(GRU.Builder().nOut(hidden).resetAfter(True).build())
+            .layer(RnnOutputLayer.Builder().nOut(vocab).activation("softmax")
+                   .lossFunction("mcxent").build())
+            .setInputType(InputType.recurrent(vocab, seq)).build())
+
+
+def token_batch(rng, n, vocab, t):
+    """n token-id sequences [n, 1, t] (int64) and their next-token one-hot
+    labels [n, vocab, t]."""
+    idx = rng.integers(0, vocab, size=(n, t + 1))
+    labels = np.eye(vocab, dtype=np.float32)[idx[:, 1:]].transpose(0, 2, 1)
+    return idx[:, None, :-1].copy(), labels.copy()
+
+
+def gru_training_phase(torch, gru):
+    """Train the GRU char-RNN at full width (66/256/1024, T=100, N=64,
+    Adam(1e-3)) on the card and on the CPU from the same weights and
+    batch; returns (the trained card net, the kernels' launches in the
+    5 fit steps, the median step ms)."""
+    vocab, seq, batch = 66, 100, 64
+    conf = gru_char_rnn_conf(vocab=vocab, seq=seq)
+    lr = conf.defaults["updater"].learningRate
+    rng = np.random.default_rng(SEED + 2)
+    arrays = [{k: (rng.normal(size=sh) * (sh[0] ** -0.5 if len(sh) == 2
+                                          else 0.05)).astype(np.float32)
+               for k, sh in lr_.param_shapes().items()}
+              for lr_ in conf.layers]
+    f, l = token_batch(rng, batch, vocab, seq)
+    gpu, cpu = _net_pair(conf.to_json(), arrays)
+
+    g_gpu, g_cpu = gpu.gradients(f, l), cpu.gradients(f, l)
+    worst_g = max(_rel_err(torch.cat([gg[k].cpu().reshape(-1) for k in gc]),
+                           torch.cat([gc[k].reshape(-1) for k in gc]))
+                  for gg, gc in zip(g_gpu, g_cpu) if gc)
+    print(f"gru train: gradients card vs CPU max|d|/max per layer "
+          f"{worst_g:.3e}", flush=True)
+    if worst_g > GRAD_TOL:
+        fail(f"GRU gradients differ by {worst_g:.3e} > {GRAD_TOL} relative")
+
+    kernels = (gru.gru_seq_infer, gru.gru_seq_fwd, gru.gru_seq_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    losses_gpu, per_step = [], []
+    for _ in range(STEPS):
+        before = [fn.launches for fn in kernels]
+        gpu.fit(f, l)
+        losses_gpu.append(gpu.score())
+        per_step.append(tuple(fn.launches - k
+                              for fn, k in zip(kernels, before)))
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    losses_cpu = []
+    for _ in range(STEPS):
+        cpu.fit(f, l)
+        losses_cpu.append(cpu.score())
+    print(f"gru train: {STEPS} Adam steps, losses card {losses_gpu}, CPU "
+          f"{losses_cpu}; launches {launches}", flush=True)
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses_gpu,
+                                                         losses_cpu))
+    if worst_loss > TRAIN_LOSS_TOL:
+        fail(f"GRU losses differ by {worst_loss:.3e} relative")
+    if not losses_gpu[-1] < losses_gpu[0]:
+        fail(f"the GRU loss did not fall: {losses_gpu}")
+    if per_step != [(0, 1, 1)] * STEPS:
+        fail(f"GRU launches per fit step (infer, fwd, bwd): {per_step}")
+    _compare_trained(gpu, cpu, f"GRU {STEPS} fit steps", lr, STEPS)
+
+    times = []
+    for k in range(7):
+        t0 = time.perf_counter()
+        gpu.fit(f, l)
+        torch.cuda.synchronize()
+        if k >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    print(f"gru train: step time at N={batch} T={seq} "
+          f"H={gpu.layers[1].nOut} vocab={vocab}:"
+          f" median {step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times):.3f}, max {max(times):.3f})", flush=True)
+    return gpu, launches, step_ms
+
+
+def gru_slice_phase(torch, gru, net):
+    """Serve the trained GRU char-RNN through InferenceSession (token ids
+    [N, 1, T] as float32) and generate with rnnTimeStep at N=1; returns the
+    gru_seq_infer launches of the two (not of the net.output calls that
+    check them)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import (
+        DEFAULT_BATCH_BUCKETS, BucketLadder, InferenceSession)
+
+    vocab, seq = net.layers[-1].nOut, 100
+    plain = MultiLayerNetwork(net.conf, device="cpu").init(
+        [{k: v.detach().cpu().clone() for k, v in p.items()}
+         for p in net._params])
+    rng = np.random.default_rng(SEED + 3)
+
+    def ids(n, t):
+        return rng.integers(0, vocab, size=(n, 1, t)).astype(np.float32)
+
+    requests = [ids(int(rng.integers(1, 5)), seq) for _ in range(12)]
+    requests += [ids(32, seq), ids(1, 37)]   # 37 pads to 50
+
+    gru.gru_seq_infer.launches = 0
+    t0 = time.perf_counter()
+    session = InferenceSession()
+    entry = session.register(
+        "gru-charrnn", net, example_shape=(1, seq), warmup=True,
+        ladder=BucketLadder(DEFAULT_BATCH_BUCKETS, seq_lengths=(50, seq)))
+    warm_s = time.perf_counter() - t0
+    dispatches = []
+    infer = entry.servable.infer
+
+    def counting_infer(x):
+        dispatches.append(x.shape)
+        return infer(x)
+
+    entry.servable.infer = counting_infer
+    t1 = time.perf_counter()
+    futures = [session.predict_async("gru-charrnn", x) for x in requests]
+    answers = [fu.result(timeout=300) for fu in futures]
+    serve_s = time.perf_counter() - t1
+    session.close()
+    n_warm = len(entry.servable.warmed_shapes)
+    served = gru.gru_seq_infer.launches
+    print(f"gru slice: warmup of {n_warm} ladder shapes {warm_s:.3f} s; "
+          f"{len(requests)} requests ({sum(len(x) for x in requests)} rows) "
+          f"in {len(dispatches)} dispatches {sorted(set(dispatches))}, "
+          f"{serve_s:.4f} s; kernel launches {served}", flush=True)
+    if served != n_warm + len(dispatches) or not dispatches:
+        fail(f"{served} gru_seq_infer launches for {n_warm} warmup and "
+             f"{len(dispatches)} serving dispatches of a 1-GRU net")
+
+    worst_gpu = worst_plain = 0.0
+    for x, y in zip(requests, answers):
+        if y.shape != (x.shape[0], vocab, x.shape[2]):
+            fail(f"answer shape {y.shape} for request {x.shape}")
+        if not np.isfinite(y).all():
+            fail("non-finite GRU answer")
+        if np.abs(y.sum(axis=1) - 1.0).max() > 1e-5:
+            fail("GRU softmax rows do not sum to 1")
+        worst_gpu = max(worst_gpu,
+                        float(np.abs(y - net.output(x).cpu().numpy()).max()))
+        worst_plain = max(worst_plain,
+                          float(np.abs(y - plain.output(x).numpy()).max()))
+    print(f"gru slice: served vs net.output max|d| {worst_gpu:.3e}, served "
+          f"vs plain CPU forward max|d| {worst_plain:.3e}", flush=True)
+    if worst_gpu > SERVE_TOL:
+        fail(f"GRU served vs net.output {worst_gpu:.3e} > {SERVE_TOL}")
+    if worst_plain > PLAIN_TOL:
+        fail(f"GRU served vs plain forward {worst_plain:.3e} > {PLAIN_TOL}")
+
+    # generation: 20 single tokens at N=1, each a [1, 1] id
+    tokens = rng.integers(0, vocab, size=(1, 20))
+    full = net.output(tokens).cpu().numpy()
+    net.rnnClearPreviousState()
+    gru.gru_seq_infer.launches = 0
+    steps = np.stack([net.rnnTimeStep(tokens[:, k:k + 1]).cpu().numpy()
+                      for k in range(20)], axis=-1)
+    generated = gru.gru_seq_infer.launches
+    step_err = float(np.abs(steps - full).max())
+    print(f"gru slice: rnnTimeStep x20 at N=1 vs output max|d| "
+          f"{step_err:.3e}; {generated} launches", flush=True)
+    if step_err > SERVE_TOL:
+        fail(f"GRU rnnTimeStep vs output {step_err:.3e} > {SERVE_TOL}")
+    if generated != 20:
+        fail("rnnTimeStep did not launch gru_seq_infer once per token")
+    return served + generated
+
+
 def main():
     import torch
 
@@ -547,7 +929,7 @@ def main():
         print("chip_smoke: CUDA is not available; this smoke run needs a "
               "GPU", file=sys.stderr)
         return 2
-    from deeplearning4j_tpu_torch.kernels import build, lstm
+    from deeplearning4j_tpu_torch.kernels import build, gru, lstm
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -558,33 +940,42 @@ def main():
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ["lstm_seq_infer", "lstm_seq_bwd"]
-    build.load_all(sources)
-    print(f"build: {', '.join(sources)} {time.perf_counter() - t0:.2f} s "
-          f"(in parallel)", flush=True)
-    for name in sources:
+    build.load_all(build.SOURCES)
+    print(f"build: {', '.join(build.SOURCES)} "
+          f"{time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
+    for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
     rows, max_err = kernel_phase(torch, lstm)
     train_rows, train_errs = train_kernel_phase(torch, lstm)
+    gru_rows, gru_errs = gru_kernel_phase(torch, gru)
     net, train_launches, _ = training_phase(torch, lstm)
     launches = slice_phase(torch, lstm, net)
+    gru_net, gru_launches, _ = gru_training_phase(torch, gru)
+    gru_launches["gru_seq_infer"] = gru_slice_phase(torch, gru, gru_net)
 
     entries = [
-        ("lstm_seq_infer", "lstm_seq_infer.cu", 115, launches, max_err,
-         rows[REPORT_SHAPE])] + [
-        (name, source, line, train_launches[name], train_errs[name],
-         train_rows[name][REPORT_SHAPE])
+        ("lstm_seq_infer", "lstm_seq_infer.cu", "lstm.py:115", launches,
+         max_err, REPORT_SHAPE, rows[REPORT_SHAPE])] + [
+        (name, source, f"lstm.py:{line}", train_launches[name],
+         train_errs[name], REPORT_SHAPE, train_rows[name][REPORT_SHAPE])
         for name, source, line in (("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
-                                   ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))]
+                                   ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
+    ] + [
+        (name, source, f"gru.py:{line}", gru_launches[name], gru_errs[name],
+         shape, gru_rows[name][shape])
+        for name, source, line, shape in (
+            ("gru_seq_infer", "gru_seq.cu", 83, GRU_SERVE_SHAPE),
+            ("gru_seq_fwd", "gru_seq.cu", 63, GRU_TRAIN_SHAPE),
+            ("gru_seq_bwd", "gru_seq_bwd.cu", 159, GRU_TRAIN_SHAPE))]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"deeplearning4j_tpu_torch/csrc/{source}",
-        "replaces": f"deeplearning4j_tpu/kernels/lstm.py:{line}",
-        "shape": list(REPORT_SHAPE),
+        "replaces": f"deeplearning4j_tpu/kernels/{where}",
+        "shape": list(shape),
         "launches": n_launch,
         "max_abs_err": err,
         "ms": rep["ms"],
@@ -592,7 +983,8 @@ def main():
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
-    } for name, source, line, n_launch, err, rep in entries]}), flush=True)
+    } for name, source, where, n_launch, err, shape, rep in entries]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

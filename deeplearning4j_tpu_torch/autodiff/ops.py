@@ -1,16 +1,27 @@
-"""Recurrent ops: ``lstmCell`` and ``lstmLayer``.
+"""Recurrent ops: ``lstmCell``, ``lstmLayer``, ``gruCell`` and
+``gruLayer``.
 
-Counterpart of the LSTM part of ``deeplearning4j_tpu/autodiff/ops.py``
-(the rest of its op registry comes with later slices). Gate order is
-i, f, g(cell), o, as in DL4J's lstmLayer packing, and ``forgetBias`` is
-added to the f pre-activation at every step.
+Counterpart of the LSTM and GRU part of
+``deeplearning4j_tpu/autodiff/ops.py`` (the rest of its op registry comes
+with later slices). LSTM gate order is i, f, g(cell), o, as in DL4J's
+lstmLayer packing, and ``forgetBias`` is added to the f pre-activation at
+every step. GRU gate order is r, u, then the candidate c, as in libnd4j's
+gruCell.
 """
 
 from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.kernels.gru import gru_seq, gru_seq_infer
 from deeplearning4j_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_infer
+from deeplearning4j_tpu_torch.nn.activations import resolve_activation
+
+
+def _needs_grad(*tensors):
+    """Grad mode is on and some input requires grad: the autograd route."""
+    return torch.is_grad_enabled() and any(
+        a is not None and a.requires_grad for a in tensors)
 
 
 def lstmCell(x, h_prev, c_prev, w, r, b=None, forgetBias=0.0):
@@ -59,9 +70,78 @@ def lstmLayer(x, w, r, b=None, h0=None, c0=None, forgetBias=0.0,
         xw = xw + b
     if forgetBias:
         xw[:, :, hsz:2 * hsz] += forgetBias   # xw is a fresh tensor here
-    needs_grad = torch.is_grad_enabled() and any(
-        a is not None and a.requires_grad for a in (x, w, r, b, h0, c0))
-    hs, hT, cT = (lstm_seq if needs_grad else lstm_seq_infer)(xw, r, h0, c0)
+    seq = lstm_seq if _needs_grad(x, w, r, b, h0, c0) else lstm_seq_infer
+    hs, hT, cT = seq(xw, r, h0, c0)
     if not returnFullSequence:
         return hT, hT, cT
     return hs.permute(1, 2, 0), hT, cT   # [N, H, T]
+
+
+def gruCell(x, h_prev, w, r, b=None):
+    """One GRU step (reset-after). x:[N,I], h_prev:[N,H], w:[I,3H],
+    r:[H,3H], b:[6H] (r, u then c; input and recurrent biases separate,
+    as in libnd4j's gruCell)."""
+    hsz = h_prev.shape[-1]
+    wz = x @ w
+    rz = h_prev @ r
+    if b is not None:
+        wz = wz + b[:3 * hsz]
+        rz = rz + b[3 * hsz:]
+    ru = torch.sigmoid(wz[..., :2 * hsz] + rz[..., :2 * hsz])
+    rgate, ugate = ru[..., :hsz], ru[..., hsz:]
+    cand = torch.tanh(wz[..., 2 * hsz:] + rgate * rz[..., 2 * hsz:])
+    return ugate * h_prev + (1 - ugate) * cand
+
+
+def gruLayer(x, w, r, b=None, h0=None, resetAfter=True, activation="tanh"):
+    """x: [N, I, T] (DL4J NCW layout). Returns ([N,H,T], hT).
+
+    The input projection for ALL timesteps is hoisted out of the
+    recurrence as one [T*N, I] x [I, 3H] matmul, with the input bias
+    folded into it; only h.R stays inside the recurrence.
+
+    resetAfter=True (the cuDNN / Keras-v2 convention): cand = act(xw_c +
+    r (h R_c + rb_c)), b holds [3H input || 3H recurrent] (or only the 3H
+    input half, rb then 0). With ``tanh`` in float32 the recurrence runs in
+    ``kernels.gru`` (the CUDA kernels on the GPU, their plain versions on
+    the CPU): ``gru_seq`` when grad mode is on and an input requires grad,
+    ``gru_seq_infer`` otherwise. resetAfter=False (the classic Cho et al.
+    form: cand = act(xw_c + (r h) R_c), b is 3H input-side only), another
+    activation or another dtype runs a plain PyTorch loop over T on any
+    device: the JAX package runs those as a ``lax.scan`` with no Pallas
+    kernel either."""
+    n, _, t = x.shape
+    hsz = r.shape[0]
+    if h0 is None:
+        h0 = torch.zeros((n, hsz), dtype=x.dtype, device=x.device)
+    xw = x.permute(2, 0, 1) @ w     # [T, N, 3H]: one batched matmul
+    if b is not None:
+        xw = xw + b[:3 * hsz]
+    rb = b[3 * hsz:] if b is not None and b.shape[0] > 3 * hsz else None
+
+    if resetAfter and activation == "tanh" and all(
+            a is None or a.dtype == torch.float32 for a in (x, w, r, b, h0)):
+        if rb is None:
+            rb = torch.zeros(3 * hsz, dtype=r.dtype, device=r.device)
+        seq = gru_seq if _needs_grad(x, w, r, b, h0) else gru_seq_infer
+        hs, hT = seq(xw, r, rb, h0)
+        return hs.permute(1, 2, 0), hT   # [N, H, T]
+
+    act = resolve_activation(activation)
+    h = h0
+    hs = []
+    for xw_t in xw:
+        ru_w, c_w = xw_t[:, :2 * hsz], xw_t[:, 2 * hsz:]
+        if resetAfter:
+            rz = h @ r
+            if rb is not None:
+                rz = rz + rb
+            ru = torch.sigmoid(ru_w + rz[:, :2 * hsz])
+            cand = act(c_w + ru[:, :hsz] * rz[:, 2 * hsz:])
+        else:
+            ru = torch.sigmoid(ru_w + h @ r[:, :2 * hsz])
+            cand = act(c_w + (ru[:, :hsz] * h) @ r[:, 2 * hsz:])
+        u = ru[:, hsz:]
+        h = u * h + (1.0 - u) * cand
+        hs.append(h)
+    return torch.stack(hs, dim=2), h

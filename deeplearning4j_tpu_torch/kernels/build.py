@@ -3,9 +3,10 @@
 Each source under ``csrc/`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, loaded with ctypes. The
 library lands in ``_build/<name>-<hash>/`` inside the package (listed in
-.gitignore), keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing is built when a
-module is imported: the first launch builds.
+.gitignore), keyed by a hash of the source, the shared ``*.cuh`` headers
+and the flags, so an edited source or header rebuilds and an unchanged
+one is reused. Nothing is built when a module is imported: the first
+launch builds.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+
+# every source under csrc/, in the order the kernels were ported
+SOURCES = ("lstm_seq_infer", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -43,9 +47,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<name>.cu`` lives (keyed by the
+    source, every header under ``csrc/`` and the flags)."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 

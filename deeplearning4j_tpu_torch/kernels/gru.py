@@ -1,0 +1,231 @@
+"""GRU (reset-after) recurrence as hand-written CUDA kernels, with its
+gradient.
+
+Counterpart of ``deeplearning4j_tpu/kernels/gru.py``. Its three Pallas
+kernels become CUDA C++ (design and bounds are in each file's header):
+
+- ``_fwd_infer_kernel`` -> ``gru_seq_infer`` (``csrc/gru_seq.cu``, entry
+  ``gru_seq_infer_f32``): the inference recurrence;
+- ``_fwd_kernel`` -> ``gru_seq_fwd`` (the same source built with its
+  residual-saving flag, entry ``gru_seq_fwd_f32``): the training forward,
+  which also writes ru, rz_c and cand;
+- ``_bwd_kernel`` -> ``gru_seq_bwd`` (``csrc/gru_seq_bwd.cu``): the
+  reverse sweep through time and the dR, drb reduction.
+
+``gru_seq`` binds the last two into a ``torch.autograd.Function``, the
+counterpart of the JAX package's ``jax.custom_vjp``.
+
+Layouts as in the JAX package: xw [T, N, 3H] (input projection with the
+input bias folded in), R [H, 3H], rb [3H] (the recurrent bias, added
+inside the recurrence because the reset gate multiplies its candidate
+part), h0 [N, H]. Gate packing r, u, then the candidate c:
+
+    rz = h R + rb;  r, u = sigmoid(xw_ru + rz_ru)
+    cand = tanh(xw_c + r rz_c);  h' = u h + (1 - u) cand
+
+Each wrapper takes its plain version only for tensors on the CPU. On a
+CUDA tensor it launches its kernel, or raises: a build or launch failure is
+an error, never a silent reroute. Each counts its launches in
+``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_tpu_torch.kernels.lstm import _count, _cuda_f32, _launch
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and what the kernels are held against)
+# ---------------------------------------------------------------------------
+
+
+def _step(xw_t, rz, hsz, h_prev):
+    """One step of the JAX package's ``_step``: (ru, rz_c, cand, h)."""
+    ru = torch.sigmoid(xw_t[:, :2 * hsz] + rz[:, :2 * hsz])
+    rz_c = rz[:, 2 * hsz:]
+    cand = torch.tanh(xw_t[:, 2 * hsz:] + ru[:, :hsz] * rz_c)
+    u = ru[:, hsz:]
+    h = u * h_prev + (1.0 - u) * cand
+    return ru, rz_c, cand, h
+
+
+def gru_seq_infer_reference(xw, r, rb, h0):
+    """The plain version of ``gru_seq_infer``: a loop over T with the
+    kernel's math. Returns (hs, hT)."""
+    hsz = r.shape[0]
+    h = h0
+    hs = []
+    for t in range(xw.shape[0]):
+        *_, h = _step(xw[t], h @ r + rb, hsz, h)
+        hs.append(h)
+    return torch.stack(hs), h
+
+
+def gru_seq_fwd_reference(xw, r, rb, h0):
+    """The plain version of ``gru_seq_fwd``: (hs, ru [T,N,2H], rz_c, cand
+    [T,N,H])."""
+    hsz = r.shape[0]
+    h = h0
+    hs, rus, rzcs, cands = [], [], [], []
+    for t in range(xw.shape[0]):
+        ru, rz_c, cand, h = _step(xw[t], h @ r + rb, hsz, h)
+        hs.append(h)
+        rus.append(ru)
+        rzcs.append(rz_c)
+        cands.append(cand)
+    return (torch.stack(hs), torch.stack(rus), torch.stack(rzcs),
+            torch.stack(cands))
+
+
+def gru_seq_bwd_reference(dhs, dhT, ru, rzc, cand, hs, r, h0):
+    """The plain version of ``gru_seq_bwd``: an explicit reverse loop with
+    the math of the JAX package's ``_bwd_kernel`` (not autograd through a
+    forward loop). Returns (dxw, dR, drb, dh0).
+
+    The input side gets dz = [dr, du, dc_pre]; the recurrent side, and so
+    dR, drb and the carry, gets drz = [dr, du, dc_pre * r]."""
+    hsz = r.shape[0]
+    dh_rec = dhT
+    dxw = torch.empty(ru.shape[:2] + (3 * hsz,), dtype=ru.dtype,
+                      device=ru.device)
+    dr = torch.zeros_like(r)
+    drb = torch.zeros(3 * hsz, dtype=r.dtype, device=r.device)
+    for t in reversed(range(dhs.shape[0])):
+        rgate, u = ru[t, :, :hsz], ru[t, :, hsz:]
+        h_prev = hs[t - 1] if t else h0
+        dh = dhs[t] + dh_rec
+        dcand = dh * (1.0 - u)
+        du = dh * (h_prev - cand[t])
+        dc_pre = dcand * (1.0 - cand[t] * cand[t])
+        dru_r = dc_pre * rzc[t] * rgate * (1.0 - rgate)
+        dru_u = du * u * (1.0 - u)
+        dxw[t] = torch.cat([dru_r, dru_u, dc_pre], dim=1)
+        drz = torch.cat([dru_r, dru_u, dc_pre * rgate], dim=1)
+        dh_rec = dh * u + drz @ r.T
+        dr += h_prev.T @ drz
+        drb += drz.sum(dim=0)
+    return dxw, dr, drb, dh_rec
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_shapes(what, xw, r, rb, h0):
+    if xw.dim() != 3 or min(xw.shape) < 1:
+        raise ValueError(f"xw must be [T>=1, N>=1, 3H>=3], got "
+                         f"{tuple(xw.shape)}")
+    _, n, three_h = xw.shape
+    hsz = r.shape[0]
+    if three_h != 3 * hsz or tuple(r.shape) != (hsz, 3 * hsz):
+        raise ValueError(f"xw {tuple(xw.shape)} and R {tuple(r.shape)} do "
+                         f"not agree on H")
+    if tuple(rb.shape) != (3 * hsz,):
+        raise ValueError(f"rb must be [{3 * hsz}], got {tuple(rb.shape)}")
+    if tuple(h0.shape) != (n, hsz):
+        raise ValueError(f"h0 must be [{n}, {hsz}], got {tuple(h0.shape)}")
+    for a in (r, rb, h0):
+        if a.device != xw.device:
+            raise ValueError(f"{what} inputs lie on different devices")
+
+
+def gru_seq_infer(xw, r, rb, h0):
+    """Full GRU recurrence without residuals: (hs [T,N,H], hT).
+
+    The inference route: its outputs carry no graph on the GPU, so it
+    refuses inputs that require grad while grad mode is on (``gru_seq``
+    is the differentiable route)."""
+    _check_shapes("gru_seq_infer", xw, r, rb, h0)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (xw, r, rb, h0)):
+        raise RuntimeError(
+            "gru_seq_infer has no gradient: call gru_seq for inputs that "
+            "require grad, or run under torch.no_grad()/inference_mode()")
+    if xw.device.type == "cpu":
+        return gru_seq_infer_reference(xw, r, rb, h0)
+    xw, r, rb, h0 = _cuda_f32("gru_seq_infer", [xw, r, rb, h0])
+    t, n, three_h = xw.shape
+    hsz = three_h // 3
+    hs = xw.new_empty((t, n, hsz))
+    hT = xw.new_empty((n, hsz))
+    _launch("gru_seq", "gru_seq_infer_f32", "gru_seq_infer",
+            [xw, r, rb, h0, hs, hT], t, n, hsz, xw.device)
+    _count(gru_seq_infer)
+    return hs, hT
+
+
+def gru_seq_fwd(xw, r, rb, h0):
+    """The training forward: (hs [T,N,H], ru [T,N,2H], rz_c [T,N,H],
+    cand [T,N,H])."""
+    _check_shapes("gru_seq_fwd", xw, r, rb, h0)
+    if xw.device.type == "cpu":
+        return gru_seq_fwd_reference(xw, r, rb, h0)
+    xw, r, rb, h0 = _cuda_f32("gru_seq_fwd", [xw, r, rb, h0])
+    t, n, three_h = xw.shape
+    hsz = three_h // 3
+    hs = xw.new_empty((t, n, hsz))
+    ru = xw.new_empty((t, n, 2 * hsz))
+    rzc = xw.new_empty((t, n, hsz))
+    cand = xw.new_empty((t, n, hsz))
+    _launch("gru_seq", "gru_seq_fwd_f32", "gru_seq_fwd",
+            [xw, r, rb, h0, hs, ru, rzc, cand], t, n, hsz, xw.device)
+    _count(gru_seq_fwd)
+    return hs, ru, rzc, cand
+
+
+def gru_seq_bwd(dhs, dhT, ru, rzc, cand, hs, r, h0):
+    """The backward through time: (dxw [T,N,3H], dR [H,3H], drb [3H],
+    dh0 [N,H])."""
+    t, n, hsz = dhs.shape
+    want = {"dhT": (n, hsz), "ru": (t, n, 2 * hsz), "rzc": (t, n, hsz),
+            "cand": (t, n, hsz), "hs": (t, n, hsz), "r": (hsz, 3 * hsz),
+            "h0": (n, hsz)}
+    args = dict(dhT=dhT, ru=ru, rzc=rzc, cand=cand, hs=hs, r=r, h0=h0)
+    for name, shape in want.items():
+        if tuple(args[name].shape) != shape:
+            raise ValueError(f"gru_seq_bwd: {name} must be {list(shape)}, "
+                             f"got {list(args[name].shape)}")
+        if args[name].device != dhs.device:
+            raise ValueError("gru_seq_bwd inputs lie on different devices")
+    if dhs.device.type == "cpu":
+        return gru_seq_bwd_reference(dhs, dhT, ru, rzc, cand, hs, r, h0)
+    ins = _cuda_f32("gru_seq_bwd", [dhs, dhT, ru, rzc, cand, hs, r, h0])
+    dxw = ru.new_empty((t, n, 3 * hsz))
+    drz = ru.new_empty((t, n, 3 * hsz))   # scratch: the recurrent-side dz
+    dr = ru.new_empty((hsz, 3 * hsz))
+    drb = ru.new_empty((3 * hsz,))
+    dh0 = ru.new_empty((n, hsz))
+    _launch("gru_seq_bwd", "gru_seq_bwd_f32", "gru_seq_bwd",
+            ins + [dxw, drz, dr, drb, dh0], t, n, hsz, dhs.device)
+    _count(gru_seq_bwd)
+    return dxw, dr, drb, dh0
+
+
+for _fn in (gru_seq_infer, gru_seq_fwd, gru_seq_bwd):
+    _fn.launches = 0
+
+
+class _GruSeq(torch.autograd.Function):
+    """(xw, R, rb, h0) -> (hs, hT), with the gradient of all four."""
+
+    @staticmethod
+    def forward(ctx, xw, r, rb, h0):
+        hs, ru, rzc, cand = gru_seq_fwd(xw, r, rb, h0)
+        ctx.save_for_backward(ru, rzc, cand, hs, r, h0)
+        # a copy, so that no output is a view of another
+        return hs, hs[-1].clone()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dhs, dhT):
+        ru, rzc, cand, hs, r, h0 = ctx.saved_tensors
+        return gru_seq_bwd(dhs, dhT, ru, rzc, cand, hs, r, h0)
+
+
+def gru_seq(xw, r, rb, h0):
+    """Full GRU recurrence (hs [T,N,H], hT) that autograd can
+    differentiate: ``gru_seq_fwd`` forward, ``gru_seq_bwd`` backward (on
+    the CPU their plain versions)."""
+    _check_shapes("gru_seq", xw, r, rb, h0)
+    return _GruSeq.apply(xw, r, rb, h0)

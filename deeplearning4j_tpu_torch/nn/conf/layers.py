@@ -1,8 +1,9 @@
 """Layer configuration classes.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py`` for the layers the
-char-RNN trains and serves through: DenseLayer, LSTM, GravesLSTM,
-OutputLayer and RnnOutputLayer. As in the JAX package a layer config IS the
+char-RNNs train and serve through: DenseLayer, EmbeddingLayer,
+EmbeddingSequenceLayer, LSTM, GravesLSTM, GRU, OutputLayer and
+RnnOutputLayer. As in the JAX package a layer config IS the
 runtime:
 
     param_shapes()                          -> {name: shape}
@@ -26,7 +27,7 @@ import copy
 
 import torch
 
-from deeplearning4j_tpu_torch.autodiff.ops import lstmLayer
+from deeplearning4j_tpu_torch.autodiff.ops import gruLayer, lstmLayer
 from deeplearning4j_tpu_torch.nn.activations import resolve_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType, RecurrentType
 from deeplearning4j_tpu_torch.nn.losses import resolve_loss
@@ -232,6 +233,72 @@ class DenseLayer(BaseLayer):
         return self._act(self._linear(params, x)), state
 
 
+@_register
+class EmbeddingLayer(BaseLayer):
+    """Int indices [N] or [N, 1] (or one-hot [N, nIn]) -> [N, nOut]. The
+    lookup is a gather; indices held as floats are cast with ``.long()``,
+    where the JAX package uses ``astype(int32)``."""
+
+    def __init__(self, nIn=None, nOut=None, hasBias=False, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        self.hasBias = hasBias
+
+    def infer(self, input_type):
+        self.nIn = self.nIn or input_type.arrayElementsPerExample()
+        return InputType.feedForward(self.nOut)
+
+    def param_shapes(self):
+        shapes = {"W": (self.nIn, self.nOut)}
+        if self.hasBias:
+            shapes["b"] = (self.nOut,)
+        return shapes
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        p = {"W": init_weight(self.weightInit, generator,
+                              (self.nIn, self.nOut), self.nIn, self.nOut,
+                              dtype, device)}
+        if self.hasBias:
+            p["b"] = torch.full((self.nOut,), float(self.biasInit),
+                                dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, state, x, training=False, generator=None):
+        if x.is_floating_point() and x.dim() == 2 and \
+                x.shape[-1] == self.nIn:
+            y = x @ params["W"]   # one-hot path
+        else:
+            idx = x.long()
+            if idx.dim() == 2 and idx.shape[-1] == 1:
+                idx = idx[:, 0]
+            y = params["W"][idx]
+        if self.hasBias:
+            y = y + params["b"]
+        return self._act(y), state
+
+
+@_register
+class EmbeddingSequenceLayer(EmbeddingLayer):
+    """Token ids [N, T] or [N, 1, T] (ints, or the same ids held as floats)
+    -> [N, nOut, T] (recurrent layout)."""
+
+    def infer(self, input_type):
+        if self.nIn is None and isinstance(input_type, RecurrentType):
+            self.nIn = input_type.size
+        t = getattr(input_type, "timeSeriesLength", None)
+        return InputType.recurrent(self.nOut, t)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        idx = x.long()
+        if idx.dim() == 3:   # [N, 1, T]
+            idx = idx[:, 0, :]
+        y = params["W"][idx]              # [N, T, nOut]
+        if self.hasBias:
+            y = y + params["b"]
+        return self._act(y.permute(0, 2, 1)), state   # [N, nOut, T]
+
+
 # ---------------------------------------------------------------------------
 # recurrent layers
 # ---------------------------------------------------------------------------
@@ -296,6 +363,63 @@ class LSTM(BaseLayer):
 class GravesLSTM(LSTM):
     """Kept for config parity; peephole connections are dropped, as in the
     JAX package."""
+
+
+@_register
+class GRU(BaseLayer):
+    """Gated recurrent unit; the recurrence runs in
+    ``autodiff.ops.gruLayer``. resetAfter=False (the default, the classic
+    Cho et al. reset-before form, b of 3H) runs a plain loop; True is the
+    cuDNN/Keras-v2 convention (b holds [3H input || 3H recurrent]), which
+    runs the hand-written CUDA kernels on the GPU. Input/output layout
+    [N, C, T]."""
+
+    IS_RECURRENT = True
+
+    def __init__(self, nIn=None, nOut=None, resetAfter=False, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        self.resetAfter = resetAfter
+        if self.activation is None:
+            self.activation = "tanh"
+
+    def infer(self, input_type):
+        self.nIn = self.nIn or input_type.size
+        t = getattr(input_type, "timeSeriesLength", None)
+        return InputType.recurrent(self.nOut, t)
+
+    def param_shapes(self):
+        h = self.nOut
+        nb = 6 * h if self.resetAfter else 3 * h
+        return {"W": (self.nIn, 3 * h), "R": (h, 3 * h), "b": (nb,)}
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        shapes = self.param_shapes()
+        h = self.nOut
+        return {
+            "W": init_weight(self.weightInit, generator, shapes["W"],
+                             self.nIn, h, dtype, device),
+            "R": init_weight(self.weightInit, generator, shapes["R"], h, h,
+                             dtype, device),
+            "b": torch.zeros(shapes["b"], dtype=dtype, device=device),
+        }
+
+    def apply(self, params, state, x, training=False, generator=None):
+        """As ``LSTM.apply``, with the carried state {"h"}."""
+        x = self._dropout(x, training, generator)
+        h0 = state.get("h") if isinstance(state, dict) else None
+        out, hT = gruLayer(x, params["W"], params["R"], params["b"], h0=h0,
+                           resetAfter=self.resetAfter,
+                           activation=self.activation)
+        if h0 is not None:
+            return out, {"h": hT}
+        return out, state
+
+    def streaming_state(self, batch_size, dtype=torch.float32, device="cpu"):
+        """Zero carried state for rnnTimeStep."""
+        return {"h": torch.zeros((batch_size, self.nOut), dtype=dtype,
+                                 device=device)}
 
 
 # ---------------------------------------------------------------------------
