@@ -6,8 +6,8 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), holds each against its plain PyTorch version
 at the shapes the training and serving paths give it (the GRU kernels also
 against torch.nn.GRU on cuDNN, which is only timed and checked, never
-called by the port), then drives two full-width models with random
-weights from a numpy seed:
+called by the port), then drives full-width models with random weights
+from a numpy seed:
 
 - the GravesLSTM char-RNN (TextGenerationLSTM: vocab 77, hidden 256,
   seqLength 100, batch 32, Adam(2e-3)): ``gradients`` and 5 ``fit`` steps
@@ -20,7 +20,22 @@ weights from a numpy seed:
   Adam(1e-3)), with token ids as input: the same training checks, exactly
   one GRU forward and one backward launch per step; then a burst of token
   requests through InferenceSession and 20 tokens of ``rnnTimeStep``
-  generation at N=1 against ``net.output``.
+  generation at N=1 against ``net.output``;
+- the step route (csrc/rnn_step.cu) at the widths the persistent LSTM and
+  GRU kernels refuse (LSTM H=512 and 1024, GRU H=2048), which
+  kernels/rnn_step.py must choose by shape there, against the plain
+  versions and cuDNN; then TextGenerationLSTM(hidden=512) and a GRU(2048)
+  char-RNN each serving a burst and taking a ``fit`` step through it;
+- the flash-attention kernels (csrc/flash_attn_fwd.cu,
+  csrc/flash_attn_bwd.cu) against their plain versions at five shapes in
+  float32 and bfloat16, beside SDPA (only timed, never called by the
+  port); then BERT-base (768/12/12, T=512, batch 16, lr 1e-4) trained 5
+  steps by BertTrainer with the flash kernels against the dense attention
+  path, in float32 and in bfloat16 (the main path: 12 forward and 12 + 12
+  backward flash launches a step), with step times and a torch.profiler
+  breakdown; and the trained encoder served through InferenceSession and
+  FnServable (N = 1..16 at T=512, 12 flash inference launches a
+  dispatch) against a direct forward.
 
 Each main path sets its kernels' launch counters to 0 just before it runs
 and reads them just after.
@@ -37,6 +52,7 @@ last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -208,6 +224,11 @@ def kernel_phase(torch, lstm):
               f"cuDNN LSTM layer {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
     return rows, max_err
+
+
+def _abs_err(got, want):
+    """max |got - want|, in float32."""
+    return float((got.float() - want.float()).abs().max())
 
 
 def _rel_err(got, want):
@@ -854,6 +875,12 @@ def gru_slice_phase(torch, gru, net):
 
     requests = [ids(int(rng.integers(1, 5)), seq) for _ in range(12)]
     requests += [ids(32, seq), ids(1, 37)]   # 37 pads to 50
+    # ids outside [0, vocab) take the reference's rows (a negative id wraps
+    # once, then ids clamp) on the card as on the CPU, with no device
+    # assert: the requests and the generation after it still run
+    wild = ids(2, seq)
+    wild[:, 0, :4] = [vocab + 5, -1, -7, -3 * vocab]
+    requests.append(wild)
 
     gru.gru_seq_infer.launches = 0
     t0 = time.perf_counter()
@@ -922,6 +949,820 @@ def gru_slice_phase(torch, gru, net):
     return served + generated
 
 
+# ---------------------------------------------------------------------------
+# the step route of the LSTM and GRU kernels (kernels/rnn_step.py)
+# ---------------------------------------------------------------------------
+
+# (cell, T, N, H): widths the persistent kernels refuse. The LSTM at
+# TextGenerationLSTM(hidden=512)'s batch and at N=1, and at H=1024; the GRU
+# at H=2048 at a training batch and at N=1.
+STEP_SHAPES = [("lstm", 100, 32, 512), ("lstm", 100, 1, 512),
+               ("lstm", 100, 64, 1024), ("gru", 100, 64, 2048),
+               ("gru", 100, 1, 2048)]
+# (kind, N, H): the char-RNNs' shapes, which keep the persistent kernels
+PERSISTENT_SHAPES = [("lstm_infer", 32, 256), ("lstm_fwd", 32, 256),
+                     ("lstm_bwd", 32, 256), ("lstm_fwd", 1024, 256),
+                     ("lstm_bwd", 1024, 256), ("gru_infer", 1, 1024),
+                     ("gru_infer", 64, 1024), ("gru_fwd", 64, 1024),
+                     ("gru_bwd", 64, 1024)]
+STEP_REPORT = {"lstm": (100, 32, 512), "gru": (100, 64, 2048)}
+STEP_NAMES = {"lstm": ("lstm_step_infer", "lstm_step_fwd", "lstm_step_bwd"),
+              "gru": ("gru_step_infer", "gru_step_fwd", "gru_step_bwd")}
+
+
+def step_route_phase(torch, lstm, gru, rnn_step):
+    """The step-route kernels vs the plain versions at every STEP_SHAPES
+    row, through the public wrappers (lstm_seq_*, gru_seq_*), which must
+    choose the step route there by shape; the backward's determinism; times
+    of each kernel, its plain version and cuDNN's layer."""
+    names = STEP_NAMES["lstm"] + STEP_NAMES["gru"]
+    rows = {name: {} for name in names}
+    errs = dict.fromkeys(names, 0.0)
+    dev_ = torch.device("cuda", torch.cuda.current_device())
+    for kind, n, h in PERSISTENT_SHAPES:
+        if not rnn_step.takes_persistent(kind, n, h, dev_):
+            fail(f"{kind} N={n} H={h}: the step route was chosen where the "
+                 f"persistent kernel launched before")
+    for cell, t, n, h in STEP_SHAPES:
+        g = 4 if cell == "lstm" else 3
+        mod = lstm if cell == "lstm" else gru
+        rng = np.random.default_rng([SEED, 9, g, t, n, h])
+
+        def dev(*shape, scale=1.0):
+            return torch.tensor((rng.normal(size=shape) * scale).astype(
+                np.float32), device="cuda")
+
+        x = dev(t, n, h)
+        w, r = dev(h, g * h, scale=h ** -0.5), dev(h, g * h, scale=h ** -0.5)
+        b = dev(g * h, scale=0.1)
+        h0, c0, rb = dev(n, h, scale=0.2), dev(n, h, scale=0.2), \
+            dev(g * h, scale=0.1)
+        dhs, dhT, dcT = dev(t, n, h), dev(n, h), dev(n, h)
+        xw = torch.matmul(x, w) + b
+        route = {k: rnn_step.takes_persistent(f"{cell}_{k}", n, h, dev_)
+                 for k in ("infer", "fwd", "bwd")}
+        if any(route.values()):
+            fail(f"{cell} T={t} N={n} H={h}: the persistent route was "
+                 f"chosen {route}; this shape must take the step route")
+        steps = [getattr(rnn_step, name) for name in STEP_NAMES[cell]]
+        persist = [getattr(mod, f"{cell}_seq_{k}")
+                   for k in ("infer", "fwd", "bwd")]
+        before = [fn.launches for fn in steps + persist]
+        state = (h0, c0) if cell == "lstm" else (rb, h0)
+        with torch.no_grad():
+            got_i = persist[0](xw, r, *state)
+        got_f = persist[1](xw, r, *state)
+        if cell == "lstm":
+            hs, gates, cs = got_f
+            bwd_args = (dhs, dhT, dcT, gates, cs, hs, r, h0, c0)
+        else:
+            hs, ru, rzc, cand = got_f
+            bwd_args = (dhs, dhT, ru, rzc, cand, hs, r, h0)
+        got_b = persist[2](*bwd_args)
+        torch.cuda.synchronize()
+        after = [fn.launches for fn in steps + persist]
+        if after != [k + 1 for k in before[:3]] + before[3:]:
+            fail(f"{cell} T={t} N={n} H={h}: launches (step route, then "
+                 f"persistent) went {before} -> {after}")
+        want_i = getattr(mod, f"{cell}_seq_infer_reference")(xw, r, *state)
+        want_f = getattr(mod, f"{cell}_seq_fwd_reference")(xw, r, *state)
+        want_b = getattr(mod, f"{cell}_seq_bwd_reference")(*bwd_args)
+        if not all(bool(torch.isfinite(a).all())
+                   for a in (*got_i, *got_f, *got_b)):
+            fail(f"non-finite step-route output at {cell} {(t, n, h)}")
+        err_i = max(float((a - e).abs().max()) for a, e in zip(got_i, want_i))
+        err_f = max(float((a - e).abs().max()) for a, e in zip(got_f, want_f))
+        rel_b = max(_rel_err(a, e) for a, e in zip(got_b, want_b))
+        err_b = max(float((a - e).abs().max()) for a, e in zip(got_b, want_b))
+        if max(err_i, err_f) > KERNEL_TOL:
+            fail(f"{cell} step route vs plain max|d|={max(err_i, err_f):.3e}"
+                 f" > {KERNEL_TOL} at {(t, n, h)}")
+        if rel_b > GRAD_TOL:
+            fail(f"{cell} step backward vs plain max|d|/max={rel_b:.3e} > "
+                 f"{GRAD_TOL} at {(t, n, h)}")
+        again = persist[2](*bwd_args)
+        if not all(torch.equal(a, e) for a, e in zip(again, got_b)):
+            fail(f"{cell} step backward gave other bits on a second run at "
+                 f"{(t, n, h)}")
+        for name, err in zip(STEP_NAMES[cell], (err_i, err_f, err_b)):
+            errs[name] = max(errs[name], err)
+
+        layer = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(h, h)
+        layer = layer.cuda()
+        with torch.no_grad():
+            layer.weight_ih_l0.copy_(w.t())
+            layer.weight_hh_l0.copy_(r.t())
+            layer.bias_ih_l0.copy_(b)
+            layer.bias_hh_l0.copy_(rb if cell == "gru" else 0 * b)
+        hc = (h0[None], c0[None]) if cell == "lstm" else h0[None]
+        with torch.inference_mode():
+            cudnn_err = float((layer(x, hc)[0] - got_i[0]).abs().max())
+        if cudnn_err > KERNEL_TOL:
+            fail(f"{cell} step route vs cuDNN max|d|={cudnn_err:.3e} at "
+                 f"{(t, n, h)}")
+        x_g = x.clone().requires_grad_()
+        wrt = [x_g, *layer.parameters()]
+
+        def lib_fwd():
+            return layer(x_g, hc)[0]
+
+        lib_hs = lib_fwd()
+        plain = [getattr(mod, f"{cell}_seq_{k}_reference")
+                 for k in ("infer", "fwd", "bwd")]
+        reps, plain_reps = 10, 3
+        with torch.inference_mode():
+            i_ms = time_ms(lambda: persist[0](xw, r, *state), reps)
+            pi_ms = time_ms(lambda: plain[0](xw, r, *state), plain_reps)
+            li_ms = time_ms(lambda: layer(x, hc), reps)
+        f_ms = time_ms(lambda: persist[1](xw, r, *state), reps)
+        b_ms = time_ms(lambda: persist[2](*bwd_args), reps)
+        pf_ms = time_ms(lambda: plain[1](xw, r, *state), plain_reps)
+        pb_ms = time_ms(lambda: plain[2](*bwd_args), plain_reps)
+        lf_ms = time_ms(lib_fwd, reps)
+        lb_ms = time_ms(lambda: torch.autograd.grad(
+            lib_hs, wrt, dhs, retain_graph=True), reps)
+        del lib_hs
+        bounds = ((lstm_bound, fwd_bound, bwd_bound) if cell == "lstm" else
+                  (gru_infer_bound, gru_fwd_bound, gru_bwd_bound))
+        for name, ms, p_ms, l_ms, bound, err, lib in zip(
+                STEP_NAMES[cell], (i_ms, f_ms, b_ms), (pi_ms, pf_ms, pb_ms),
+                (li_ms, lf_ms, lb_ms), (bd(t, n, h) for bd in bounds),
+                (f"{err_i:.3e}", f"{err_f:.3e}",
+                 f"{err_b:.3e} ({rel_b:.3e} of the largest)"),
+                ("layer", "training forward", "autograd backward")):
+            rows[name][(t, n, h)] = dict(ms=ms, plain_ms=p_ms,
+                                         library_ms=l_ms, bound_ms=bound[0],
+                                         bound_by=bound[1])
+            print(f"{name} T={t} N={n} H={h} (step route): max|d| {err}; "
+                  f"kernel {ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN "
+                  f"{cell.upper()} {lib} {l_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return rows, errs
+
+
+def _serve_burst(torch, name, model, example_shape, requests, ladder,
+                 counters):
+    """Serve ``requests`` through a fresh InferenceSession (ladder warmup
+    first); returns (answers, warmed shapes, dispatch shapes, the counters'
+    launches over warmup and burst, seconds of the burst)."""
+    from deeplearning4j_tpu_torch.serving import InferenceSession
+
+    for fn in counters:
+        fn.launches = 0
+    session = InferenceSession()
+    entry = session.register(name, model, example_shape=example_shape,
+                             warmup=True, ladder=ladder)
+    dispatches = []
+    infer = entry.servable.infer
+
+    def counting_infer(x):
+        dispatches.append(x.shape)
+        return infer(x)
+
+    entry.servable.infer = counting_infer
+    t0 = time.perf_counter()
+    futures = [session.predict_async(name, x) for x in requests]
+    answers = [fu.result(timeout=600) for fu in futures]
+    serve_s = time.perf_counter() - t0
+    session.close()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    return (answers, entry.servable.warmed_shapes, dispatches, launches,
+            serve_s)
+
+
+def wide_rnn_phase(torch, lstm, gru, rnn_step):
+    """TextGenerationLSTM(hidden=512) and a GRU(2048) char-RNN, the widths
+    the persistent kernels refuse: each serves one burst through
+    InferenceSession and takes one fit step on the card, against the same
+    on the CPU (the plain versions); every launch must take the step
+    route. Returns the step-route kernels' launches in these main paths."""
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.serving import (
+        DEFAULT_BATCH_BUCKETS, BucketLadder)
+
+    counters = [getattr(rnn_step, n) for n in
+                STEP_NAMES["lstm"] + STEP_NAMES["gru"]] + [
+        lstm.lstm_seq_infer, lstm.lstm_seq_fwd, lstm.lstm_seq_bwd,
+        gru.gru_seq_infer, gru.gru_seq_fwd, gru.gru_seq_bwd]
+    launches = {}
+    vocab, seq = 77, 100
+    lstm_conf = TextGenerationLSTM(vocabSize=vocab, hidden=512,
+                                   seqLength=seq).conf()
+    gru_conf = gru_char_rnn_conf(hidden=2048)
+    for cell, conf, batch in (("lstm", lstm_conf, 32), ("gru", gru_conf,
+                                                        16)):
+        rng = np.random.default_rng([SEED, 11, batch])
+        arrays = [{k: (rng.normal(size=sh) * (sh[0] ** -0.5 if len(sh) == 2
+                                              else 0.05)).astype(np.float32)
+                   for k, sh in lr_.param_shapes().items()}
+                  for lr_ in conf.layers]
+        v = conf.layers[-1].nOut
+        if cell == "lstm":
+            f, l = next_char_batch(rng, batch, v, seq)
+            requests = [one_hot_batch(rng, n, v, seq) for n in (1, 3, 8)]
+            shape = (v, seq)
+        else:
+            f, l = token_batch(rng, batch, v, seq)
+            requests = [rng.integers(0, v, size=(n, 1, seq)).astype(
+                np.float32) for n in (1, 3, 8)]
+            shape = (1, seq)
+        gpu, cpu = _net_pair(conf.to_json(), arrays)
+        answers, warmed, dispatches, served, serve_s = _serve_burst(
+            torch, f"{cell}-wide", gpu, shape, requests,
+            BucketLadder(DEFAULT_BATCH_BUCKETS[:4]), counters)
+        worst = 0.0
+        for x, y in zip(requests, answers):
+            if y.shape != (x.shape[0], v, seq) or not np.isfinite(y).all():
+                fail(f"{cell} wide: answer {y.shape} for {x.shape}")
+            worst = max(worst, float(np.abs(
+                y - gpu.output(x).cpu().numpy()).max()))
+        for fn in counters:
+            fn.launches = 0
+        gpu.fit(f, l)
+        torch.cuda.synchronize()
+        fitted = {fn.__name__: fn.launches for fn in counters}
+        cpu.fit(f, l)
+        rel = abs(gpu.score() - cpu.score()) / abs(cpu.score())
+        h = conf.layers[1 if cell == "gru" else 0].nOut
+        print(f"wide {cell.upper()} H={h}: warmup {len(warmed)} shapes, "
+              f"{len(requests)} requests in {len(dispatches)} dispatches "
+              f"{serve_s:.4f} s, served vs net.output max|d| {worst:.3e}; "
+              f"launches serving {served}, fit step {fitted}; fit loss card "
+              f"{gpu.score()} CPU {cpu.score()} (rel {rel:.3e})", flush=True)
+        names = STEP_NAMES[cell]
+        n_layers = 2 if cell == "lstm" else 1
+        n_disp = len(warmed) + len(dispatches)
+        want_serve = {names[0]: n_layers * n_disp}
+        want_fit = {names[1]: n_layers, names[2]: n_layers}
+        for got, want in ((served, want_serve), (fitted, want_fit)):
+            if {k: c for k, c in got.items() if c} != want:
+                fail(f"{cell} wide launches {got}, want only {want}")
+        if worst > SERVE_TOL:
+            fail(f"{cell} wide: served vs net.output {worst:.3e}")
+        if rel > TRAIN_LOSS_TOL:
+            fail(f"{cell} wide: fit losses differ by {rel:.3e}")
+        _compare_trained(gpu, cpu, f"wide {cell} fit step",
+                         conf.defaults["updater"].learningRate, 1)
+        for name in names:
+            launches[name] = served.get(name, 0) + fitted.get(name, 0)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# row 7: flash attention, and BERT-base served and trained
+# ---------------------------------------------------------------------------
+
+# (B, H, T, D): the BERT-base path (16, 12, 512, 64), one request, a long
+# sequence, a ragged T and the other head size
+FLASH_SHAPES = [(16, 12, 512, 64), (1, 12, 512, 64), (2, 4, 2048, 64),
+                (2, 2, 200, 64), (1, 2, 256, 128)]
+FLASH_REPORT = (16, 12, 512, 64)
+FLASH_NAMES = ("flash_fwd", "flash_attention_infer", "flash_bwd_dkv",
+               "flash_bwd_dq")
+# relative to each output's largest element. float32: another summation
+# order over T keys (forward) or T queries (dk, dv). bfloat16: o, dq, dk
+# and dv are written in bf16 (2^-8 relative), and p is rounded before p.v
+# at each key tile's running max, where the plain version rounds it once
+# at the row's final max.
+FLASH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 2e-2)}
+PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor rate (NVIDIA data sheet)
+
+
+def flash_bounds(shape, dtype_name):
+    """(name -> (bound ms, what bounds it)) for the four flash kernels:
+    each input read once, each output written once, against the
+    operations each function needs (4 B H T^2 D for the forward; 8 for dk
+    and dv, which recompute s and dp; 6 for dq), at the bf16 tensor rate
+    for bf16 and the plain f32 rate for f32."""
+    b, h, t, d = shape
+    el = 2 if dtype_name == "bfloat16" else 4
+    peak = PEAK_BF16 if dtype_name == "bfloat16" else PEAK_F32
+    x = b * h * t * d * el      # one [B, H, T, D] tensor
+    row = b * h * t * 4         # one [B, H, T] f32 tensor
+    work = b * h * t * t * d
+    out = {}
+    for name, nbytes, ops in (
+            ("flash_fwd", 4 * x + 2 * row, 4 * work),
+            ("flash_attention_infer", 4 * x, 4 * work),
+            ("flash_bwd_dkv", 7 * x + 3 * row, 8 * work),
+            ("flash_bwd_dq", 5 * x + 3 * row, 6 * work)):
+        by_bytes, by_ops = nbytes / PEAK_BYTES, ops / peak
+        out[name] = (max(by_bytes, by_ops) * 1e3,
+                     "bytes" if by_bytes >= by_ops else "operations")
+    return out
+
+
+def flash_phase(torch, flash):
+    """The flash kernels vs their plain versions at every FLASH_SHAPES row
+    in float32 and bfloat16 (checked relative to each output's largest
+    element, FLASH_TOL; the largest absolute differences are returned);
+    m, l and di too; the backward's determinism; times of each kernel,
+    its plain version and SDPA (the yardstick, never called by the
+    port)."""
+    import torch.nn.functional as F
+
+    rows = {name: {} for name in FLASH_NAMES}
+    errs = dict.fromkeys(FLASH_NAMES, 0.0)
+    fns = [getattr(flash, name) for name in FLASH_NAMES]
+    for shape in FLASH_SHAPES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            rng = np.random.default_rng([SEED, 7, *shape])
+            q, k, v, do = (torch.tensor(rng.normal(size=shape).astype(
+                np.float32), device="cuda").to(dtype) for _ in range(4))
+            scale = 1.0 / math.sqrt(shape[-1])
+            before = [fn.launches for fn in fns]
+            o, m, l = flash.flash_fwd(q, k, v, scale)
+            oi = flash.flash_attention_infer(q, k, v, scale)
+            dk, dv, di = flash.flash_bwd_dkv(q, k, v, o, do, m, l, scale)
+            dq = flash.flash_bwd_dq(q, k, v, do, m, l, di, scale)
+            torch.cuda.synchronize()
+            if [fn.launches for fn in fns] != [c + 1 for c in before]:
+                fail(f"flash launch counters did not rise at {shape}")
+            ro, rm, rl = flash.flash_fwd_reference(q, k, v, scale)
+            rdq, rdk, rdv = flash.flash_bwd_reference(q, k, v, o, do, m, l,
+                                                      scale)
+            if not all(bool(torch.isfinite(a).all())
+                       for a in (o, m, l, oi, dk, dv, di, dq)):
+                fail(f"non-finite flash output at {shape} {dname}")
+            tol_f, tol_b = FLASH_TOL[dname]
+            e = {"flash_fwd": max(_rel_err(o.float(), ro.float()),
+                                  _rel_err(m, rm), _rel_err(l, rl)),
+                 "flash_attention_infer": _rel_err(oi.float(), ro.float()),
+                 "flash_bwd_dkv": max(
+                     _rel_err(dk.float(), rdk.float()),
+                     _rel_err(dv.float(), rdv.float()),
+                     _rel_err(di, flash.flash_di_reference(o, do))),
+                 "flash_bwd_dq": _rel_err(dq.float(), rdq.float())}
+            absolute = {
+                "flash_fwd": max(_abs_err(o, ro), _abs_err(m, rm),
+                                 _abs_err(l, rl)),
+                "flash_attention_infer": _abs_err(oi, ro),
+                "flash_bwd_dkv": max(_abs_err(dk, rdk), _abs_err(dv, rdv),
+                                     _abs_err(di, flash.flash_di_reference(
+                                         o, do))),
+                "flash_bwd_dq": _abs_err(dq, rdq)}
+            for name, err in e.items():
+                tol = tol_f if name in FLASH_NAMES[:2] else tol_b
+                if err > tol:
+                    fail(f"{name} vs plain max|d|/max={err:.3e} > {tol} at "
+                         f"{shape} {dname}")
+                errs[name] = max(errs[name], absolute[name])
+            dk2, dv2, di2 = flash.flash_bwd_dkv(q, k, v, o, do, m, l, scale)
+            dq2 = flash.flash_bwd_dq(q, k, v, do, m, l, di2, scale)
+            if not all(torch.equal(a, b) for a, b in
+                       ((dk, dk2), (dv, dv2), (di, di2), (dq, dq2))):
+                fail(f"flash backward gave other bits on a second run at "
+                     f"{shape} {dname}")
+
+            qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
+            o_sdpa = F.scaled_dot_product_attention(qg, kg, vg)
+            sdpa_err = _rel_err(o_sdpa.detach().float(), ro.float())
+            reps = 10
+            t_k = {
+                "flash_fwd": time_ms(lambda: flash.flash_fwd(q, k, v, scale),
+                                     reps),
+                "flash_attention_infer": time_ms(
+                    lambda: flash.flash_attention_infer(q, k, v, scale),
+                    reps),
+                "flash_bwd_dkv": time_ms(lambda: flash.flash_bwd_dkv(
+                    q, k, v, o, do, m, l, scale), reps),
+                "flash_bwd_dq": time_ms(lambda: flash.flash_bwd_dq(
+                    q, k, v, do, m, l, di, scale), reps)}
+            p_fwd = time_ms(lambda: flash.flash_fwd_reference(q, k, v,
+                                                              scale), 3)
+            p_inf = time_ms(lambda: flash.flash_attention_reference(
+                q, k, v, scale), 3)
+            p_bwd = time_ms(lambda: flash.flash_bwd_reference(
+                q, k, v, o, do, m, l, scale), 3)
+            with torch.inference_mode():
+                l_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v), reps)
+            l_bwd = time_ms(lambda: torch.autograd.grad(
+                o_sdpa, (qg, kg, vg), do, retain_graph=True), reps)
+            del o_sdpa
+            bounds = flash_bounds(shape, dname)
+            plain = {"flash_fwd": p_fwd, "flash_attention_infer": p_inf,
+                     "flash_bwd_dkv": p_bwd, "flash_bwd_dq": p_bwd}
+            lib = {"flash_fwd": l_fwd, "flash_attention_infer": l_fwd,
+                   "flash_bwd_dkv": l_bwd, "flash_bwd_dq": None}
+            for name in FLASH_NAMES:
+                rows[name][(shape, dname)] = dict(
+                    ms=t_k[name], plain_ms=plain[name],
+                    library_ms=lib[name], bound_ms=bounds[name][0],
+                    bound_by=bounds[name][1])
+            print(f"flash {shape} {dname}: max|d|/max fwd "
+                  f"{e['flash_fwd']:.3e} infer "
+                  f"{e['flash_attention_infer']:.3e} dkv "
+                  f"{e['flash_bwd_dkv']:.3e} dq {e['flash_bwd_dq']:.3e} "
+                  f"(SDPA vs plain {sdpa_err:.3e}); ms fwd "
+                  f"{t_k['flash_fwd']:.4f} infer "
+                  f"{t_k['flash_attention_infer']:.4f} dkv "
+                  f"{t_k['flash_bwd_dkv']:.4f} dq "
+                  f"{t_k['flash_bwd_dq']:.4f}; plain fwd {p_fwd:.4f} bwd "
+                  f"{p_bwd:.4f}; SDPA fwd {l_fwd:.4f} bwd {l_bwd:.4f}; "
+                  f"bound fwd {bounds['flash_fwd'][0]:.4f} "
+                  f"({bounds['flash_fwd'][1]}) dkv "
+                  f"{bounds['flash_bwd_dkv'][0]:.4f} dq "
+                  f"{bounds['flash_bwd_dq'][0]:.4f}", flush=True)
+    return rows, errs
+
+
+BERT_BASE = dict(vocab_size=30522, hidden=768, num_layers=12, num_heads=12,
+                 ffn=3072, max_len=512)
+BERT_BATCH, BERT_T, BERT_LR = 16, 512, 1e-4
+# BERT-base trained 5 steps, flash vs the dense path (chip runs on an
+# H100, 700 W). float32: weights where m is above MOMENT_FLOOR agree to
+# BERT_F32_PARAM_TOL of lr*steps. Read: flash 1.43% of lr*steps, SDPA (a
+# library attention, the same inputs) 1.80-1.97%; dense vs a rerun of
+# itself 0. BERT's 12 layers carry more summation-order rounding than the
+# char-RNNs' PARAM_TOL (1%) allows; Adam divides it by |m|.
+BERT_F32_PARAM_TOL = 3e-2
+# bfloat16 compute (the dense path rounds the scores and the softmax to
+# bf16, the flash kernels keep them in f32): losses per step to
+# BERT_BF16_LOSS_TOL relative (read: 1.96e-5), Adam m and v to
+# BERT_BF16_MOMENT_TOL of their tensor's largest element (read: 2.40e-2).
+# Weights are only printed: bf16 rounding moves a weight by up to
+# 1.18 lr*steps.
+BERT_BF16_LOSS_TOL = 1e-3
+BERT_BF16_MOMENT_TOL = 5e-2
+# At random initialisation attention moves BERT's loss little, so in both
+# dtypes every flash call of the first step (12 layers) is also held, on
+# the main path's own tensors, against the plain versions at FLASH_TOL.
+# The control: the flash path with its softmax scale 10% off. In float32
+# the end-to-end checks above must catch it, or they could not see a
+# wrong kernel; in bfloat16 what they see of it is printed.
+BERT_CONTROL_SCALE = 0.9
+# served rows vs a direct forward of the same request, bf16 hidden states
+# of unit scale: the dispatch's batch may lead cuBLAS to other kernels,
+# whose bf16 roundings differ by an ulp (1/64 near 2) and carry on
+BERT_SERVE_TOL = 0.125
+
+
+def bert_numpy_params(rng):
+    """BERT-base parameters in the JAX package's layout, drawn from a numpy
+    generator as its init_params draws them (normal * 0.02, zero biases,
+    unit LayerNorm gains)."""
+    c = BERT_BASE
+    h, f, v = c["hidden"], c["ffn"], c["vocab_size"]
+
+    def norm(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            0.02)
+
+    def ln():
+        return {"g": np.ones(h, np.float32), "b": np.zeros(h, np.float32)}
+
+    return {"tok_emb": norm(v, h), "pos_emb": norm(c["max_len"], h),
+            "type_emb": norm(2, h), "emb_ln": ln(),
+            "mlm_bias": np.zeros(v, np.float32),
+            "layers": [{"qkv_w": norm(h, 3 * h),
+                        "qkv_b": np.zeros(3 * h, np.float32),
+                        "out_w": norm(h, h), "out_b": np.zeros(h, np.float32),
+                        "ln1": ln(), "ln2": ln(),
+                        "ffn_in_w": norm(h, f),
+                        "ffn_in_b": np.zeros(f, np.float32),
+                        "ffn_out_w": norm(f, h),
+                        "ffn_out_b": np.zeros(h, np.float32)}
+                       for _ in range(c["num_layers"])]}
+
+
+def _bert_leaf_names(params):
+    """Names of bert.param_leaves(params), in its order."""
+    names = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], f"{path}.{key}" if path else key)
+        elif isinstance(node, list):
+            for i, item in enumerate(node):
+                walk(item, f"{path}[{i}]")
+        else:
+            names.append(path)
+
+    walk(params, "")
+    return names
+
+
+def _compare_bert(a, b, what):
+    """Weights and Adam moments of two BertTrainers trained alike, as
+    _compare_trained measures them: (the largest weight difference where
+    the first moment is above MOMENT_FLOOR of its tensor's largest, the
+    largest elsewhere, the largest m or v difference over its tensor's
+    largest), each printed with its tensor's name."""
+    from deeplearning4j_tpu_torch.models import bert
+
+    lr_steps = BERT_LR * a._step
+    names = _bert_leaf_names(a.params)
+    above = below = moments = (0.0, "")
+    for i, (pa, pb) in enumerate(zip(bert.param_leaves(a.params),
+                                     bert.param_leaves(b.params))):
+        mb = b.opt["m"][i]
+        moments = max(moments, (max(_rel_err(a.opt["m"][i], mb), _rel_err(
+            a.opt["v"][i], b.opt["v"][i])), names[i]))
+        tiny = mb.abs() < MOMENT_FLOOR * mb.abs().max()
+        d = (pa - pb).abs()
+        if (~tiny).any():
+            above = max(above, (float(d[~tiny].max()), names[i]))
+        if tiny.any():
+            below = max(below, (float(d[tiny].max()), names[i]))
+    print(f"bert train: {what}: params max|d| {above[0]:.3e} = "
+          f"{above[0] / lr_steps:.3e} of lr*steps where m is above the "
+          f"floor ({above[1]}), {below[0]:.3e} below it ({below[1]}); Adam "
+          f"m/v max|d|/max {moments[0]:.3e} ({moments[1]})", flush=True)
+    return above[0], below[0], moments[0]
+
+
+class FlashRecorder:
+    """Stands in for flash.flash_attention while a BERT trainer runs
+    (bert._attention calls it through the module): calls the kernels'
+    autograd Function as before, with the softmax scale times ``factor``
+    (1, or the control's), and keeps the first ``keep`` calls' q, k, v,
+    scale and o, and through tensor hooks their do, dq, dk and dv."""
+
+    def __init__(self, flash, keep, factor=1.0):
+        self.flash, self.keep, self.factor = flash, keep, factor
+        self.calls = []
+
+    def __enter__(self):
+        self.exact = self.flash.flash_attention
+        self.flash.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.flash.flash_attention = self.exact
+
+    def __call__(self, q, k, v, scale):
+        o = self.exact(q, k, v, self.factor * scale)
+        if len(self.calls) < self.keep:
+            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(),
+                   "scale": scale, "o": o.detach()}
+
+            def keeper(name):
+                def hook(grad):
+                    rec[name] = grad.detach()
+                return hook
+
+            for name, a in (("do", o), ("dq", q), ("dk", k), ("dv", v)):
+                a.register_hook(keeper(name))
+            self.calls.append(rec)
+        return o
+
+    def errors(self):
+        """max |kernel - plain| / max |plain| over the kept calls: of o,
+        and of dq, dk and dv (the plain backward from the kernel's o)."""
+        fwd = bwd = 0.0
+        for i, rec in enumerate(self.calls):
+            if not {"do", "dq", "dk", "dv"} <= set(rec):
+                fail(f"flash call {i} of the first step got no gradient")
+            q, k, v, scale = rec["q"], rec["k"], rec["v"], rec["scale"]
+            ro, rm, rl = self.flash.flash_fwd_reference(q, k, v, scale)
+            fwd = max(fwd, _rel_err(rec["o"].float(), ro.float()))
+            want = self.flash.flash_bwd_reference(q, k, v, rec["o"],
+                                                  rec["do"], rm, rl, scale)
+            for name, w in zip(("dq", "dk", "dv"), want):
+                bwd = max(bwd, _rel_err(rec[name].float(), w.float()))
+        return fwd, bwd
+
+
+def _bert_step_ms(torch, trainer, tokens, labels, n=5):
+    """Median host-clock ms of a train_step ending in a synchronize, after
+    two warm-up steps."""
+    times = []
+    for k in range(n + 2):
+        t0 = time.perf_counter()
+        trainer.train_step(tokens, labels)
+        torch.cuda.synchronize()
+        if k >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def _profile_bert(torch, trainer, tokens, labels):
+    """Device time by kernel over two steps (torch.profiler), per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            trainer.train_step(tokens, labels)
+        torch.cuda.synchronize()
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total = sum(dev_us(e) for e in events) / 2e3
+    if total <= 0:
+        print("bert profile: no device time in the trace: not measured",
+              flush=True)
+        return
+    flash_ms = sum(dev_us(e) for e in events if "flash_" in e.key) / 2e3
+    print(f"bert profile: device time {total:.3f} ms a step, flash kernels "
+          f"{flash_ms:.3f} ms ({100 * flash_ms / total:.1f}%); top kernels "
+          f"(ms a step, calls a step):", flush=True)
+    for e in sorted(events, key=lambda e: -dev_us(e))[:14]:
+        print(f"  {dev_us(e) / 2e3:9.3f}  {e.count // 2:5d}  "
+              f"{e.key[:110]}", flush=True)
+
+
+def bert_training_phase(torch, flash):
+    """BERT-base (768/12/12, T=512) trained by BertTrainer at batch 16 for
+    STEPS steps from one numpy draw of parameters, flash kernels vs the
+    dense attention path, dropout 0: in float32 on one repeated batch
+    (losses, weights, moments held to the LSTM rules, weights to
+    BERT_F32_PARAM_TOL) and in bfloat16 on STEPS batches (the default, the
+    main path: its launches are counted; losses and moments held to
+    BERT_BF16_*); a control that those checks must catch; step times; a
+    profile. Returns a
+    dict with the bf16 flash trainer, its launches and step times."""
+    from deeplearning4j_tpu_torch.models import bert
+    from deeplearning4j_tpu_torch.utils.convert import bert_params_from_numpy
+
+    t0 = time.perf_counter()
+    tree = bert_numpy_params(np.random.default_rng(SEED + 5))
+    batches = [bert.synthetic_mlm_batch(bert.BertConfig(**BERT_BASE),
+                                        BERT_BATCH, BERT_T, seed=s)
+               for s in range(STEPS)]
+    tokens_k = np.stack([b_[0] for b_ in batches])
+    labels_k = np.stack([b_[1] for b_ in batches])
+    print(f"bert: parameters and {STEPS} batches drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    fns = [getattr(flash, name) for name in FLASH_NAMES]
+
+    def train(dtype, impl, count=False, factor=1.0):
+        """(trainer, losses, launches, FlashRecorder or None)"""
+        cfg = bert.BertConfig(**BERT_BASE, dropout=0.0, compute_dtype=dtype,
+                              attention_impl=impl)
+        tr = bert.BertTrainer(cfg, lr=BERT_LR,
+                              params=bert_params_from_numpy(tree, "cuda"))
+        if tr.device.type != "cuda":
+            fail(f"BertTrainer defaulted to {tr.device}")
+        if count:
+            for fn in fns:
+                fn.launches = 0
+        # the float32 parity check repeats one batch, as the LSTM and GRU
+        # training checks do: its weight rules assume gradients that keep
+        # their sign from step to step
+        toks, labs = ((tokens_k, labels_k) if dtype == "bfloat16" else
+                      (tokens_k[:1].repeat(STEPS, 0),
+                       labels_k[:1].repeat(STEPS, 0)))
+        rec = FlashRecorder(flash, cfg.num_layers if impl == "flash" else 0,
+                            factor)
+        with rec:
+            losses = tr.train_steps(toks, labs).cpu().numpy()
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in fns}
+        if not np.isfinite(losses).all():
+            fail(f"bert {dtype} {impl}: non-finite losses {losses}")
+        return tr, losses, launches, rec if impl == "flash" else None
+
+    def faults(losses_a, losses_b, a, b, rec, dtype, what):
+        """The checks a flash trainer a (its first step's flash calls in
+        rec) is held to against the dense trainer b: (those it fails end
+        to end, those it fails in situ)."""
+        worst = float(np.max(np.abs(losses_a - losses_b)
+                             / np.abs(losses_b)))
+        print(f"bert train {dtype}: {what}: {STEPS} steps, losses "
+              f"{losses_a.tolist()} vs dense {losses_b.tolist()} (max rel "
+              f"{worst:.3e})", flush=True)
+        above, below, moments = _compare_bert(a, b, f"{dtype} {what}")
+        lr_steps = BERT_LR * STEPS
+        if dtype == "float32":
+            limits = ((worst, TRAIN_LOSS_TOL, "losses"),
+                      (above, BERT_F32_PARAM_TOL * lr_steps, "params"),
+                      (moments, MOMENT_TOL, "Adam moments"),
+                      (below, 2 * lr_steps * (1 + 1e-3),
+                       "params below the floor"))
+        else:
+            limits = ((worst, BERT_BF16_LOSS_TOL, "losses"),
+                      (moments, BERT_BF16_MOMENT_TOL, "Adam moments"))
+        fwd, bwd = rec.errors()
+        print(f"bert train {dtype}: {what}: the first step's "
+              f"{len(rec.calls)} flash calls vs plain, max|d|/max o "
+              f"{fwd:.3e}, dq/dk/dv {bwd:.3e}", flush=True)
+        in_situ = ((fwd, FLASH_TOL[dtype][0], "flash outputs vs plain"),
+                   (bwd, FLASH_TOL[dtype][1], "flash gradients vs plain"))
+        return tuple([f"{name} differ by {got:.3e} > {tol:.3e}"
+                      for got, tol, name in checks if got > tol]
+                     for checks in (limits, in_situ))
+
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        main = dtype == "bfloat16"
+        tr_f, losses_f, launches, rec = train(dtype, "flash", count=main)
+        tr_d, losses_d, _, _ = train(dtype, "dense")
+        print(f"bert train {dtype}: flash launches {launches}", flush=True)
+        bad = sum(faults(losses_f, losses_d, tr_f, tr_d, rec, dtype,
+                         "flash vs dense"), [])
+        del rec
+        if bad:
+            fail(f"bert {dtype}: flash vs dense: {'; '.join(bad)}")
+        if not main:
+            # a yardstick, printed: a library attention's distance
+            tr_s, _, _, _ = train(dtype, "dpa")
+            _compare_bert(tr_s, tr_d, f"{dtype} SDPA vs dense (yardstick)")
+            del tr_s
+        tr_c, losses_c, _, rec_c = train(dtype, "flash",
+                                         factor=BERT_CONTROL_SCALE)
+        end_to_end, in_situ = faults(losses_c, losses_d, tr_c, tr_d, rec_c,
+                                     dtype, f"control (scale "
+                                     f"x{BERT_CONTROL_SCALE})")
+        del tr_c, rec_c
+        print(f"bert train {dtype}: the control is caught end to end by "
+              f"{end_to_end}, in situ by {in_situ}", flush=True)
+        if not (end_to_end if dtype == "float32" else in_situ):
+            fail(f"bert {dtype}: the control with its scale "
+                 f"{BERT_CONTROL_SCALE}x off passed the checks: they cannot "
+                 f"see a wrong attention")
+        if main:
+            want = {"flash_fwd": 12 * STEPS, "flash_attention_infer": 0,
+                    "flash_bwd_dkv": 12 * STEPS, "flash_bwd_dq": 12 * STEPS}
+            if launches != want:
+                fail(f"bert launches in {STEPS} steps {launches}, want "
+                     f"{want}")
+            results["launches"] = launches
+            results["trainer"] = tr_f
+            tok, lab = tokens_k[0], labels_k[0]
+            for name, tr in (("flash", tr_f), ("dense", tr_d)):
+                med, lo, hi = _bert_step_ms(torch, tr, tok, lab)
+                results[f"{name}_ms"] = med
+                print(f"bert train bf16 {name}: step median {med:.3f} ms "
+                      f"(min {lo:.3f}, max {hi:.3f}) at batch {BERT_BATCH}, "
+                      f"T={BERT_T}", flush=True)
+            del tr_d
+            torch.cuda.empty_cache()
+            cfg = bert.BertConfig(**BERT_BASE, dropout=0.0,
+                                  attention_impl="dpa")
+            tr_s = bert.BertTrainer(
+                cfg, lr=BERT_LR, params=bert_params_from_numpy(tree, "cuda"))
+            med, lo, hi = _bert_step_ms(torch, tr_s, tok, lab)
+            print(f"bert train bf16 SDPA (yardstick): step median "
+                  f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f})", flush=True)
+            del tr_s
+            _profile_bert(torch, tr_f, tok, lab)
+        else:
+            del tr_f, tr_d
+        torch.cuda.empty_cache()
+    return results
+
+
+def bert_serving_phase(torch, flash, trainer):
+    """The trained BERT-base encoder served through InferenceSession and
+    FnServable: [N, 512] token ids held as floats, N = 1..16 in one burst
+    over a batch-only ladder; rows against a direct forward of the same
+    request; exactly 12 flash inference launches per dispatch."""
+    from deeplearning4j_tpu_torch.models import bert
+    from deeplearning4j_tpu_torch.serving import BucketLadder, FnServable
+
+    cfg, params = trainer.cfg, trainer.params
+
+    def encode(x):
+        return bert.forward(params, cfg, x.long()).float()
+
+    servable = FnServable(encode, (BERT_T,))
+    if servable.device.type != "cuda":
+        fail(f"FnServable defaulted to {servable.device}")
+    rng = np.random.default_rng(SEED + 6)
+    requests = [rng.integers(0, cfg.vocab_size, size=(n, BERT_T)).astype(
+        np.float32) for n in range(1, 17)]
+    # ids outside the vocabulary take the reference's rows, no device assert
+    requests[2][1, :3] = [cfg.vocab_size + 5, -1, -7]
+    fns = [getattr(flash, name) for name in FLASH_NAMES]
+    t0 = time.perf_counter()
+    answers, warmed, dispatches, launches, serve_s = _serve_burst(
+        torch, "bert", servable, (BERT_T,), requests,
+        BucketLadder((1, 2, 4, 8, 16)), fns)
+    total_s = time.perf_counter() - t0
+    n_disp = len(warmed) + len(dispatches)
+    rows = sum(len(x) for x in requests)
+    print(f"bert serve: warmup {len(warmed)} shapes, {len(requests)} "
+          f"requests ({rows} rows) in {len(dispatches)} dispatches "
+          f"{sorted(set(dispatches))}, burst {serve_s:.4f} s "
+          f"({rows / serve_s:.1f} rows/s), with warmup {total_s:.3f} s; "
+          f"launches {launches}", flush=True)
+    if launches != {"flash_fwd": 0, "flash_attention_infer": 12 * n_disp,
+                    "flash_bwd_dkv": 0, "flash_bwd_dq": 0}:
+        fail(f"bert serving launches {launches} for {n_disp} dispatches")
+    worst = mean = 0.0
+    with torch.inference_mode():
+        for x, y in zip(requests, answers):
+            if y.shape != (x.shape[0], BERT_T, cfg.hidden) or \
+                    not np.isfinite(y).all():
+                fail(f"bert answer {y.shape} for {x.shape}")
+            direct = encode(torch.tensor(x, device="cuda")).cpu().numpy()
+            d = np.abs(y - direct)
+            worst, mean = max(worst, float(d.max())), max(mean,
+                                                          float(d.mean()))
+    print(f"bert serve: served vs direct forward max|d| {worst:.3e}, worst "
+          f"mean|d| {mean:.3e}", flush=True)
+    if worst > BERT_SERVE_TOL:
+        fail(f"bert served rows differ from a direct forward by {worst:.3e}")
+    return launches["flash_attention_infer"]
+
+
 def main():
     import torch
 
@@ -929,7 +1770,8 @@ def main():
         print("chip_smoke: CUDA is not available; this smoke run needs a "
               "GPU", file=sys.stderr)
         return 2
-    from deeplearning4j_tpu_torch.kernels import build, gru, lstm
+    from deeplearning4j_tpu_torch.kernels import (
+        build, flash, gru, lstm, rnn_step)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -955,26 +1797,55 @@ def main():
     launches = slice_phase(torch, lstm, net)
     gru_net, gru_launches, _ = gru_training_phase(torch, gru)
     gru_launches["gru_seq_infer"] = gru_slice_phase(torch, gru, gru_net)
+    del net, gru_net
+    step_rows, step_errs = step_route_phase(torch, lstm, gru, rnn_step)
+    step_launches = wide_rnn_phase(torch, lstm, gru, rnn_step)
+    flash_rows, flash_errs = flash_phase(torch, flash)
+    bert = bert_training_phase(torch, flash)
+    flash_launches = dict(bert["launches"])
+    flash_launches["flash_attention_infer"] = bert_serving_phase(
+        torch, flash, bert["trainer"])
 
+    pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
+              "(via deeplearning4j_tpu/models/bert.py:197)")
     entries = [
-        ("lstm_seq_infer", "lstm_seq_infer.cu", "lstm.py:115", launches,
-         max_err, REPORT_SHAPE, rows[REPORT_SHAPE])] + [
-        (name, source, f"lstm.py:{line}", train_launches[name],
+        ("lstm_seq_infer", "lstm_seq_infer.cu", "kernels/lstm.py:115",
+         launches, max_err, REPORT_SHAPE, rows[REPORT_SHAPE])] + [
+        (name, source, f"kernels/lstm.py:{line}", train_launches[name],
          train_errs[name], REPORT_SHAPE, train_rows[name][REPORT_SHAPE])
         for name, source, line in (("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
                                    ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
     ] + [
-        (name, source, f"gru.py:{line}", gru_launches[name], gru_errs[name],
-         shape, gru_rows[name][shape])
+        (name, source, f"kernels/gru.py:{line}", gru_launches[name],
+         gru_errs[name], shape, gru_rows[name][shape])
         for name, source, line, shape in (
             ("gru_seq_infer", "gru_seq.cu", 83, GRU_SERVE_SHAPE),
             ("gru_seq_fwd", "gru_seq.cu", 63, GRU_TRAIN_SHAPE),
-            ("gru_seq_bwd", "gru_seq_bwd.cu", 159, GRU_TRAIN_SHAPE))]
+            ("gru_seq_bwd", "gru_seq_bwd.cu", 159, GRU_TRAIN_SHAPE))
+    ] + [
+        (name, "rnn_step.cu", f"kernels/{cell}.py:{line}",
+         step_launches[name], step_errs[name], STEP_REPORT[cell],
+         step_rows[name][STEP_REPORT[cell]])
+        for cell, lines in (("lstm", (115, 97, 200)), ("gru", (83, 63, 159)))
+        for name, line in zip(STEP_NAMES[cell], lines)
+    ] + [
+        (name, source, pallas.format(line), flash_launches[name],
+         flash_errs[name], FLASH_REPORT,
+         flash_rows[name][(FLASH_REPORT, "bfloat16")])
+        for name, source, line in (
+            ("flash_fwd", "flash_attn_fwd.cu", 758),
+            ("flash_attention_infer", "flash_attn_fwd.cu", 758),
+            ("flash_bwd_dkv", "flash_attn_bwd.cu", 1121),
+            ("flash_bwd_dq", "flash_attn_bwd.cu", 1456))]
+    for name, _, _, n_launch, *_ in entries:
+        if not n_launch:
+            fail(f"{name} was not launched on its main path")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"deeplearning4j_tpu_torch/csrc/{source}",
-        "replaces": f"deeplearning4j_tpu/kernels/{where}",
+        "replaces": (where if where.startswith("jax/") else
+                     f"deeplearning4j_tpu/{where}"),
         "shape": list(shape),
         "launches": n_launch,
         "max_abs_err": err,

@@ -239,10 +239,12 @@ size_t smem_bytes(int H, int rows) {
   return ((size_t)3 * kUnits * H + (size_t)rows * H) * sizeof(float);
 }
 
+// With `dry`, only the checks: 0 where the launch would go ahead.
 template <int ROWS, bool kSave>
 int launch(const float* xw, const float* r, const float* rb, const float* h0,
            float* hs, float* hT, float* ru, float* rzc, float* cand, int T,
-           int N, int H, int sms, int smem_optin, cudaStream_t stream) {
+           int N, int H, int sms, int smem_optin, cudaStream_t stream,
+           bool dry) {
   const size_t smem = smem_bytes(H, ROWS);
   if (smem > (size_t)smem_optin) return -1;
   auto kernel = gru_seq_kernel<ROWS, kSave>;
@@ -259,6 +261,7 @@ int launch(const float* xw, const float* r, const float* rb, const float* h0,
   if (capacity < unit_tiles) return -2;
   int row_groups = capacity / unit_tiles;
   if (row_groups > row_tiles) row_groups = row_tiles;
+  if (dry) return 0;
   void* args[] = {(void*)&xw, (void*)&r, (void*)&rb, (void*)&h0,
                   (void*)&hs, (void*)&hT, (void*)&ru, (void*)&rzc,
                   (void*)&cand, (void*)&T, (void*)&N, (void*)&H,
@@ -275,7 +278,7 @@ int launch(const float* xw, const float* r, const float* rb, const float* h0,
 template <bool kSave>
 int run(const float* xw, const float* r, const float* rb, const float* h0,
         float* hs, float* hT, float* ru, float* rzc, float* cand, int T,
-        int N, int H, cudaStream_t st) {
+        int N, int H, cudaStream_t st, bool dry) {
   if (T < 1 || N < 1 || H < 1) return -3;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -291,7 +294,7 @@ int run(const float* xw, const float* r, const float* rb, const float* h0,
   while (rows > 1 && smem_bytes(H, rows) > (size_t)smem_optin) rows /= 2;
 #define GRU_LAUNCH(R_)                                                      \
   launch<R_, kSave>(xw, r, rb, h0, hs, hT, ru, rzc, cand, T, N, H, sms,     \
-                    smem_optin, st)
+                    smem_optin, st, dry)
   switch (rows) {
     case 16: return GRU_LAUNCH(16);
     case 8: return GRU_LAUNCH(8);
@@ -313,7 +316,7 @@ extern "C" int gru_seq_infer_f32(const float* xw, const float* r,
                                  float* hs, float* hT, int T, int N, int H,
                                  void* stream) {
   return run<false>(xw, r, rb, h0, hs, hT, nullptr, nullptr, nullptr, T, N,
-                    H, (cudaStream_t)stream);
+                    H, (cudaStream_t)stream, false);
 }
 
 // The training forward: hs, ru [T,N,2H], rz_c and cand [T,N,H]; same
@@ -323,7 +326,20 @@ extern "C" int gru_seq_fwd_f32(const float* xw, const float* r,
                                float* ru, float* rzc, float* cand, int T,
                                int N, int H, void* stream) {
   return run<true>(xw, r, rb, h0, hs, nullptr, ru, rzc, cand, T, N, H,
-                   (cudaStream_t)stream);
+                   (cudaStream_t)stream, false);
+}
+
+// Whether gru_seq_infer_f32 (save = 0) or gru_seq_fwd_f32 (save = 1) would
+// launch at batch N and width H on the current device: the same checks,
+// and nothing launched. 0 if it would, else the code it would return. The
+// wrappers choose the route with it, before any launch.
+extern "C" int gru_seq_fits(int N, int H, int save) {
+  return save ? run<true>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, nullptr, 1, N, H,
+                          nullptr, true)
+              : run<false>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, nullptr, 1, N, H,
+                           nullptr, true);
 }
 
 extern "C" const char* gru_seq_error_string(int code) {

@@ -317,12 +317,13 @@ size_t sweep_smem_bytes(int H) {
   return (size_t)3 * H * kUnits * sizeof(float);
 }
 
+// With `dry`, only the checks: 0 where the launch would go ahead.
 template <int RW, int VEC>
 int launch_sweep(const float* dhs, const float* dhT, const float* ru,
                  const float* rzc, const float* cand, const float* hs,
                  const float* r, const float* h0, float* dxw, float* drz,
                  float* dh0, int T, int N, int H, int sms, int smem_optin,
-                 cudaStream_t st) {
+                 cudaStream_t st, bool dry) {
   const size_t smem = sweep_smem_bytes(H);
   if (smem > (size_t)smem_optin) return -1;
   auto kernel = gru_bwd_sweep_kernel<RW, VEC>;
@@ -340,6 +341,7 @@ int launch_sweep(const float* dhs, const float* dhT, const float* ru,
   if (capacity < unit_tiles) return -2;
   int row_groups = capacity / unit_tiles;
   if (row_groups > row_tiles) row_groups = row_tiles;
+  if (dry) return 0;
   void* args[] = {(void*)&dhs, (void*)&dhT, (void*)&ru, (void*)&rzc,
                   (void*)&cand, (void*)&hs, (void*)&r, (void*)&h0,
                   (void*)&dxw, (void*)&drz, (void*)&dh0,
@@ -359,10 +361,10 @@ int run_sweep(const float* dhs, const float* dhT, const float* ru,
               const float* rzc, const float* cand, const float* hs,
               const float* r, const float* h0, float* dxw, float* drz,
               float* dh0, int T, int N, int H, int sms, int smem_optin,
-              cudaStream_t st) {
+              cudaStream_t st, bool dry) {
 #define GRU_SWEEP(RW_)                                                      \
   launch_sweep<RW_, VEC>(dhs, dhT, ru, rzc, cand, hs, r, h0, dxw, drz, dh0, \
-                         T, N, H, sms, smem_optin, st)
+                         T, N, H, sms, smem_optin, st, dry)
   if (N <= kWarps) return GRU_SWEEP(1);
   if (N <= 2 * kWarps) return GRU_SWEEP(2);
   return GRU_SWEEP(4);
@@ -375,6 +377,28 @@ void launch_dr(const float* hs, const float* h0, const float* drz,
   dim3 grid((3 * H + kDrBN - 1) / kDrBN, (H + kDrBM - 1) / kDrBM);
   gru_bwd_dr_kernel<<<grid, kDrThreads, 0, st>>>(hs, h0, drz, dr, drb,
                                                   T * N, N, H);
+}
+
+// The reverse sweep, or with `dry` only its checks; codes as below.
+int sweep(const float* dhs, const float* dhT, const float* ru,
+          const float* rzc, const float* cand, const float* hs,
+          const float* r, const float* h0, float* dxw, float* drz,
+          float* dh0, int T, int N, int H, cudaStream_t st, bool dry) {
+  if (T < 1 || N < 1 || H < 1) return -3;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int smem_optin = 0, sms = 0, coop = 0;
+  cudaDeviceGetAttribute(&smem_optin,
+                         cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return -2;
+  return H % 4 == 0
+             ? run_sweep<4>(dhs, dhT, ru, rzc, cand, hs, r, h0, dxw, drz,
+                            dh0, T, N, H, sms, smem_optin, st, dry)
+             : run_sweep<1>(dhs, dhT, ru, rzc, cand, hs, r, h0, dxw, drz,
+                            dh0, T, N, H, sms, smem_optin, st, dry);
 }
 
 }  // namespace
@@ -390,26 +414,22 @@ extern "C" int gru_seq_bwd_f32(const float* dhs, const float* dhT,
                                float* drz, float* dr, float* drb,
                                float* dh0, int T, int N, int H,
                                void* stream) {
-  if (T < 1 || N < 1 || H < 1) return -3;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int smem_optin = 0, sms = 0, coop = 0;
-  cudaDeviceGetAttribute(&smem_optin,
-                         cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return -2;
   cudaStream_t st = (cudaStream_t)stream;
-  const int rc =
-      H % 4 == 0
-          ? run_sweep<4>(dhs, dhT, ru, rzc, cand, hs, r, h0, dxw, drz, dh0,
-                         T, N, H, sms, smem_optin, st)
-          : run_sweep<1>(dhs, dhT, ru, rzc, cand, hs, r, h0, dxw, drz, dh0,
-                         T, N, H, sms, smem_optin, st);
+  const int rc = sweep(dhs, dhT, ru, rzc, cand, hs, r, h0, dxw, drz, dh0, T,
+                       N, H, st, false);
   if (rc != 0) return rc;
   launch_dr(hs, h0, drz, dr, drb, T, N, H, st);
   return cudaGetLastError();
+}
+
+// Whether gru_seq_bwd_f32 would launch at batch N and width H on the
+// current device: the sweep's checks, and nothing launched. 0 if it
+// would, else the code it would return. The wrappers choose the route
+// with it, before any launch.
+extern "C" int gru_seq_bwd_fits(int N, int H) {
+  return sweep(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr, nullptr, nullptr, nullptr, nullptr, 1, N, H, nullptr,
+               true);
 }
 
 // The dR, drb pass alone, from a drz that gru_seq_bwd_f32 wrote: lets a

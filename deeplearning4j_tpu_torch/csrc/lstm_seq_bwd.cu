@@ -255,13 +255,14 @@ size_t sweep_smem_bytes(int H, int ksplit) {
 constexpr int kNotOneWave = -4;
 
 // Launch the KSPLIT sweep. Unless `force`, only when all its row tiles fit
-// in one co-resident wave (else kNotOneWave, and nothing runs).
+// in one co-resident wave (else kNotOneWave, and nothing runs). With `dry`,
+// only the checks: 0 where the launch would go ahead.
 template <int KSPLIT>
 int launch_sweep(const float* dhs, const float* dhT, const float* dcT,
                  const float* gates, const float* cs, const float* r,
                  const float* c0, float* dxw, float* dh0, float* dc0, int T,
                  int N, int H, int sms, int smem_optin, cudaStream_t stream,
-                 bool force) {
+                 bool force, bool dry) {
   const size_t smem = sweep_smem_bytes(H, KSPLIT);
   if (smem > (size_t)smem_optin) return -1;
   auto kernel = lstm_bwd_sweep_kernel<KSPLIT>;
@@ -280,6 +281,7 @@ int launch_sweep(const float* dhs, const float* dhT, const float* dcT,
   if (capacity < unit_tiles) return -2;
   int row_groups = capacity / unit_tiles;
   if (row_groups > row_tiles) row_groups = row_tiles;
+  if (dry) return 0;
   void* args[] = {(void*)&dhs, (void*)&dhT, (void*)&dcT, (void*)&gates,
                   (void*)&cs, (void*)&r, (void*)&c0,
                   (void*)&dxw, (void*)&dh0, (void*)&dc0,
@@ -290,6 +292,37 @@ int launch_sweep(const float* dhs, const float* dhT, const float* dcT,
                                     dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The reverse sweep, or with `dry` only its checks; codes as below.
+int sweep(const float* dhs, const float* dhT, const float* dcT,
+          const float* gates, const float* cs, const float* r,
+          const float* c0, float* dxw, float* dh0, float* dc0, int T, int N,
+          int H, cudaStream_t st, bool dry) {
+  if (T < 1 || N < 1 || H < 1) return -3;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int smem_optin = 0, sms = 0, coop = 0;
+  cudaDeviceGetAttribute(&smem_optin,
+                         cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return -2;
+  // the largest split whose row tiles all fit in one co-resident wave;
+  // KSPLIT=1 otherwise, looping over row tiles
+  int rc = launch_sweep<8>(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0,
+                           T, N, H, sms, smem_optin, st, false, dry);
+  if (rc == kNotOneWave)
+    rc = launch_sweep<4>(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0, T,
+                         N, H, sms, smem_optin, st, false, dry);
+  if (rc == kNotOneWave)
+    rc = launch_sweep<2>(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0, T,
+                         N, H, sms, smem_optin, st, false, dry);
+  if (rc == kNotOneWave)
+    rc = launch_sweep<1>(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0, T,
+                         N, H, sms, smem_optin, st, true, dry);
+  return rc;
 }
 
 }  // namespace
@@ -305,34 +338,35 @@ extern "C" int lstm_seq_bwd_f32(const float* dhs, const float* dhT,
                                 const float* c0, float* dxw, float* dr,
                                 float* dh0, float* dc0, int T, int N, int H,
                                 void* stream) {
-  if (T < 1 || N < 1 || H < 1) return -3;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int smem_optin = 0, sms = 0, coop = 0;
-  cudaDeviceGetAttribute(&smem_optin,
-                         cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return -2;
   cudaStream_t st = (cudaStream_t)stream;
-  // the largest split whose row tiles all fit in one co-resident wave;
-  // KSPLIT=1 otherwise, looping over row tiles
-  int rc = launch_sweep<8>(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0,
-                           T, N, H, sms, smem_optin, st, false);
-  if (rc == kNotOneWave)
-    rc = launch_sweep<4>(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0, T,
-                         N, H, sms, smem_optin, st, false);
-  if (rc == kNotOneWave)
-    rc = launch_sweep<2>(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0, T,
-                         N, H, sms, smem_optin, st, false);
-  if (rc == kNotOneWave)
-    rc = launch_sweep<1>(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0, T,
-                         N, H, sms, smem_optin, st, true);
+  const int rc = sweep(dhs, dhT, dcT, gates, cs, r, c0, dxw, dh0, dc0, T, N,
+                       H, st, false);
   if (rc != 0) return rc;
   const int M = T * N;
   dim3 grid((4 * H + kDrBN - 1) / kDrBN, (H + kDrBM - 1) / kDrBM);
   lstm_bwd_dr_kernel<<<grid, kDrThreads, 0, st>>>(hs, h0, dxw, dr, M, N, H);
+  return cudaGetLastError();
+}
+
+// Whether lstm_seq_bwd_f32 would launch at batch N and width H on the
+// current device: the sweep's checks, and nothing launched. 0 if it
+// would, else the code it would return. The wrappers choose the route
+// with it, before any launch.
+extern "C" int lstm_seq_bwd_fits(int N, int H) {
+  return sweep(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr, nullptr, nullptr, nullptr, 1, N, H, nullptr, true);
+}
+
+// The dR pass alone, from a dxw that a reverse sweep wrote (the step
+// route's, csrc/rnn_step.cu, for the widths this sweep does not take).
+// Same codes.
+extern "C" int lstm_seq_bwd_dr_f32(const float* hs, const float* h0,
+                                   const float* dxw, float* dr, int T, int N,
+                                   int H, void* stream) {
+  if (T < 1 || N < 1 || H < 1) return -3;
+  dim3 grid((4 * H + kDrBN - 1) / kDrBN, (H + kDrBM - 1) / kDrBM);
+  lstm_bwd_dr_kernel<<<grid, kDrThreads, 0, (cudaStream_t)stream>>>(
+      hs, h0, dxw, dr, T * N, N, H);
   return cudaGetLastError();
 }
 

@@ -215,12 +215,13 @@ size_t smem_bytes(int H, int ksplit) {
 constexpr int kNotOneWave = -4;
 
 // Launch the KSPLIT variant. Unless `force`, only when all its row tiles
-// fit in one co-resident wave (else kNotOneWave, and nothing runs).
+// fit in one co-resident wave (else kNotOneWave, and nothing runs). With
+// `dry`, only the checks: 0 where the launch would go ahead.
 template <int KSPLIT, bool kSave>
 int launch(const float* xw, const float* r, const float* h0,
            const float* c0, float* hs, float* hT, float* cT, float* gates,
            float* cs, int T, int N, int H, int sms, int smem_optin,
-           cudaStream_t stream, bool force) {
+           cudaStream_t stream, bool force, bool dry) {
   const size_t smem = smem_bytes(H, KSPLIT);
   if (smem > (size_t)smem_optin) return -1;
   auto kernel = lstm_seq_kernel<KSPLIT, kSave>;
@@ -239,6 +240,7 @@ int launch(const float* xw, const float* r, const float* h0,
   if (capacity < unit_tiles) return -2;
   int row_groups = capacity / unit_tiles;
   if (row_groups > row_tiles) row_groups = row_tiles;
+  if (dry) return 0;
   void* args[] = {(void*)&xw, (void*)&r, (void*)&h0, (void*)&c0,
                   (void*)&hs, (void*)&hT, (void*)&cT,
                   (void*)&gates, (void*)&cs,
@@ -256,7 +258,7 @@ int launch(const float* xw, const float* r, const float* h0,
 template <bool kSave>
 int run(const float* xw, const float* r, const float* h0, const float* c0,
         float* hs, float* hT, float* cT, float* gates, float* cs, int T,
-        int N, int H, cudaStream_t st) {
+        int N, int H, cudaStream_t st, bool dry) {
   if (T < 1 || N < 1 || H < 1) return -3;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -268,16 +270,16 @@ int run(const float* xw, const float* r, const float* h0, const float* c0,
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return -2;
   int rc = launch<8, kSave>(xw, r, h0, c0, hs, hT, cT, gates, cs, T, N, H,
-                            sms, smem_optin, st, false);
+                            sms, smem_optin, st, false, dry);
   if (rc == kNotOneWave)
     rc = launch<4, kSave>(xw, r, h0, c0, hs, hT, cT, gates, cs, T, N, H,
-                          sms, smem_optin, st, false);
+                          sms, smem_optin, st, false, dry);
   if (rc == kNotOneWave)
     rc = launch<2, kSave>(xw, r, h0, c0, hs, hT, cT, gates, cs, T, N, H,
-                          sms, smem_optin, st, false);
+                          sms, smem_optin, st, false, dry);
   if (rc == kNotOneWave)
     rc = launch<1, kSave>(xw, r, h0, c0, hs, hT, cT, gates, cs, T, N, H,
-                          sms, smem_optin, st, true);
+                          sms, smem_optin, st, true, dry);
   return rc;
 }
 
@@ -292,7 +294,7 @@ extern "C" int lstm_seq_infer_f32(const float* xw, const float* r,
                                   float* hs, float* hT, float* cT,
                                   int T, int N, int H, void* stream) {
   return run<false>(xw, r, h0, c0, hs, hT, cT, nullptr, nullptr, T, N, H,
-                    (cudaStream_t)stream);
+                    (cudaStream_t)stream, false);
 }
 
 // The training forward: hs, gates [T,N,4H] and cs [T,N,H]; same codes.
@@ -301,7 +303,20 @@ extern "C" int lstm_seq_fwd_f32(const float* xw, const float* r,
                                 float* hs, float* gates, float* cs,
                                 int T, int N, int H, void* stream) {
   return run<true>(xw, r, h0, c0, hs, nullptr, nullptr, gates, cs, T, N, H,
-                   (cudaStream_t)stream);
+                   (cudaStream_t)stream, false);
+}
+
+// Whether lstm_seq_infer_f32 (save = 0) or lstm_seq_fwd_f32 (save = 1)
+// would launch at batch N and width H on the current device: the same
+// checks, and nothing launched. 0 if it would, else the code it would
+// return. The wrappers choose the route with it, before any launch.
+extern "C" int lstm_seq_fits(int N, int H, int save) {
+  return save ? run<true>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, nullptr, 1, N, H,
+                          nullptr, true)
+              : run<false>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, nullptr, 1, N, H,
+                           nullptr, true);
 }
 
 extern "C" const char* lstm_seq_infer_error_string(int code) {

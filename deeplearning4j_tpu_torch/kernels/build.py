@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -26,7 +28,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 # every source under csrc/, in the order the kernels were ported
-SOURCES = ("lstm_seq_infer", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd")
+SOURCES = ("lstm_seq_infer", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd",
+           "rnn_step", "flash_attn_fwd", "flash_attn_bwd")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -110,3 +113,53 @@ def load_all(names) -> list[ctypes.CDLL]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     return load_all([name])[0]
+
+
+def _entry(name: str, entry: str, args, stream: bool):
+    """``entry`` of the loaded ``csrc/<name>.cu``, its argument types
+    declared from ``args`` on the first call (ctypes would cut 64-bit
+    pointers otherwise): tensors (None for a null pointer) go as pointers,
+    ints as int, floats as float, then a stream where ``stream``."""
+    lib = load(name)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_float if isinstance(a, float) else
+                       ctypes.c_int if isinstance(a, int) else
+                       ctypes.c_void_p for a in args] + (
+                           [ctypes.c_void_p] if stream else [])
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _error(lib, name: str, what: str, rc: int) -> RuntimeError:
+    msg = getattr(lib, f"{name}_error_string")(rc).decode() if rc > 0 else ""
+    return RuntimeError(f"{what} failed: {msg} ({rc})")
+
+
+def call(name: str, entry: str, what: str, args, device) -> None:
+    """Launch ``entry(*args, stream)`` of ``csrc/<name>.cu`` on the current
+    stream of ``device``. A non-zero return code raises RuntimeError, with
+    the runtime's message where the code is a cudaError_t."""
+    lib, fn = _entry(name, entry, args, stream=True)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args), stream)
+    if rc != 0:
+        raise _error(lib, name, f"{what} launch", rc)
+
+
+def query(name: str, entry: str, what: str, args, device) -> int:
+    """``entry(*args)`` of ``csrc/<name>.cu``, a host-side question that
+    launches nothing, asked on ``device``: its return code when 0 or
+    negative (the source's own codes); a positive one, a cudaError_t,
+    raises RuntimeError."""
+    lib, fn = _entry(name, entry, args, stream=False)
+    with torch.cuda.device(device):
+        rc = fn(*args)
+    if rc > 0:
+        raise _error(lib, name, what, rc)
+    return rc

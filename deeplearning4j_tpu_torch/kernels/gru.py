@@ -26,14 +26,17 @@ part), h0 [N, H]. Gate packing r, u, then the candidate c:
 Each wrapper takes its plain version only for tensors on the CPU. On a
 CUDA tensor it launches its kernel, or raises: a build or launch failure is
 an error, never a silent reroute. Each counts its launches in
-``.launches``.
+``.launches``. Widths whose persistent kernel cannot launch on the card
+(about H > 1,056) take the step route of ``kernels/rnn_step.py``, chosen
+by shape before the launch, which counts its own launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from deeplearning4j_tpu_torch.kernels.lstm import _count, _cuda_f32, _launch
+from deeplearning4j_tpu_torch.kernels.lstm import (
+    _count, _cuda_f32, _launch, _route)
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held against)
@@ -147,6 +150,8 @@ def gru_seq_infer(xw, r, rb, h0):
     xw, r, rb, h0 = _cuda_f32("gru_seq_infer", [xw, r, rb, h0])
     t, n, three_h = xw.shape
     hsz = three_h // 3
+    if not _route().takes_persistent("gru_infer", n, hsz, xw.device):
+        return _route().gru_step_infer(xw, r, rb, h0)
     hs = xw.new_empty((t, n, hsz))
     hT = xw.new_empty((n, hsz))
     _launch("gru_seq", "gru_seq_infer_f32", "gru_seq_infer",
@@ -164,6 +169,8 @@ def gru_seq_fwd(xw, r, rb, h0):
     xw, r, rb, h0 = _cuda_f32("gru_seq_fwd", [xw, r, rb, h0])
     t, n, three_h = xw.shape
     hsz = three_h // 3
+    if not _route().takes_persistent("gru_fwd", n, hsz, xw.device):
+        return _route().gru_step_fwd(xw, r, rb, h0)
     hs = xw.new_empty((t, n, hsz))
     ru = xw.new_empty((t, n, 2 * hsz))
     rzc = xw.new_empty((t, n, hsz))
@@ -191,6 +198,8 @@ def gru_seq_bwd(dhs, dhT, ru, rzc, cand, hs, r, h0):
     if dhs.device.type == "cpu":
         return gru_seq_bwd_reference(dhs, dhT, ru, rzc, cand, hs, r, h0)
     ins = _cuda_f32("gru_seq_bwd", [dhs, dhT, ru, rzc, cand, hs, r, h0])
+    if not _route().takes_persistent("gru_bwd", n, hsz, dhs.device):
+        return _route().gru_step_bwd(*ins)
     dxw = ru.new_empty((t, n, 3 * hsz))
     drz = ru.new_empty((t, n, 3 * hsz))   # scratch: the recurrent-side dz
     dr = ru.new_empty((hsz, 3 * hsz))

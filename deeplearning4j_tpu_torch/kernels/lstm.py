@@ -21,12 +21,14 @@ o.
 Each wrapper takes its plain version only for tensors on the CPU. On a
 CUDA tensor it launches its kernel, or raises: a build or launch failure is
 an error, never a silent reroute. Each counts its launches in
-``.launches``.
+``.launches``. Widths whose persistent kernel cannot launch on the card
+(about H > 435 for the forward, H > 300 for the backward) take the step
+route of ``kernels/rnn_step.py``, chosen by shape before the launch, which
+counts its own launches.
 """
 
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import torch
@@ -39,6 +41,14 @@ _count_lock = threading.Lock()
 def _count(fn):
     with _count_lock:
         fn.launches += 1
+
+
+def _route():
+    """``kernels/rnn_step.py``, which picks the persistent kernel or the
+    step route by shape (imported here: it imports this module)."""
+    from deeplearning4j_tpu_torch.kernels import rnn_step
+
+    return rnn_step
 
 
 # ---------------------------------------------------------------------------
@@ -111,34 +121,12 @@ def lstm_seq_bwd_reference(dhs, dhT, dcT, gates, cs, hs, r, h0, c0):
 # kernel bindings
 # ---------------------------------------------------------------------------
 
-def _bind(name, entry, n_ptr):
-    """``entry`` of ``csrc/<name>.cu``: n_ptr pointers, T, N, H, stream."""
-    lib = build.load(name)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:   # declare once: pointers are 64-bit
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-    return lib, fn
-
-
 def _launch(name, entry, what, tensors, t, n, hsz, device):
-    lib, fn = _bind(name, entry, len(tensors))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*(a.data_ptr() for a in tensors), t, n, hsz, stream)
-    if rc == -1:
-        raise ValueError(f"{what}: H={hsz} is too large for the kernel's "
-                         f"shared-memory R slice on this device")
-    if rc == -2:
-        raise ValueError(f"{what}: the cooperative grid for H={hsz} cannot "
-                         f"be co-resident on this device")
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+    """``entry(*tensors, T, N, H, stream)`` of ``csrc/<name>.cu``. The
+    route was chosen by shape (``_route().takes_persistent``, the
+    source's own checks), so a persistent kernel that still finds no room
+    (-1) or no co-resident grid (-2) is a fault, and raises."""
+    build.call(name, entry, what, [*tensors, t, n, hsz], device)
 
 
 def _check_shapes(what, xw, r, h0, c0):
@@ -188,6 +176,8 @@ def lstm_seq_infer(xw, r, h0, c0):
     xw, r, h0, c0 = _cuda_f32("lstm_seq_infer", [xw, r, h0, c0])
     t, n, four_h = xw.shape
     hsz = four_h // 4
+    if not _route().takes_persistent("lstm_infer", n, hsz, xw.device):
+        return _route().lstm_step_infer(xw, r, h0, c0)
     hs = xw.new_empty((t, n, hsz))
     hT = xw.new_empty((n, hsz))
     cT = xw.new_empty((n, hsz))
@@ -205,6 +195,8 @@ def lstm_seq_fwd(xw, r, h0, c0):
     xw, r, h0, c0 = _cuda_f32("lstm_seq_fwd", [xw, r, h0, c0])
     t, n, four_h = xw.shape
     hsz = four_h // 4
+    if not _route().takes_persistent("lstm_fwd", n, hsz, xw.device):
+        return _route().lstm_step_fwd(xw, r, h0, c0)
     hs = xw.new_empty((t, n, hsz))
     gates = xw.new_empty((t, n, four_h))
     cs = xw.new_empty((t, n, hsz))
@@ -233,6 +225,8 @@ def lstm_seq_bwd(dhs, dhT, dcT, gates, cs, hs, r, h0, c0):
                                       c0)
     ins = _cuda_f32("lstm_seq_bwd",
                     [dhs, dhT, dcT, gates, cs, hs, r, h0, c0])
+    if not _route().takes_persistent("lstm_bwd", n, hsz, dhs.device):
+        return _route().lstm_step_bwd(*ins)
     dxw = gates.new_empty((t, n, 4 * hsz))
     dr = gates.new_empty((hsz, 4 * hsz))
     dh0 = gates.new_empty((n, hsz))

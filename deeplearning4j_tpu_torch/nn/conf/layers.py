@@ -42,6 +42,18 @@ def _register(cls):
     return cls
 
 
+def take_rows(w, idx):
+    """``w[idx]`` with the JAX package's index rule: ids (ints, or floats
+    truncated toward zero) below 0 wrap once by ``len(w)``, then every id
+    is clamped to [0, len(w) - 1]. A 4-row ``w`` indexed by [0, 5, -1, -7]
+    gives rows 0, 3, 3, 0. No id can reach past ``w``, so a bad request
+    never becomes a device-side assert on CUDA."""
+    n = w.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+    return w[idx]
+
+
 class _Builder:
     """Generic DL4J-style builder: any method call sets the same-named config
     field (e.g. .nIn(784).nOut(100).activation("relu")); build() constructs
@@ -272,7 +284,7 @@ class EmbeddingLayer(BaseLayer):
             idx = x.long()
             if idx.dim() == 2 and idx.shape[-1] == 1:
                 idx = idx[:, 0]
-            y = params["W"][idx]
+            y = take_rows(params["W"], idx)
         if self.hasBias:
             y = y + params["b"]
         return self._act(y), state
@@ -293,7 +305,7 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
         idx = x.long()
         if idx.dim() == 3:   # [N, 1, T]
             idx = idx[:, 0, :]
-        y = params["W"][idx]              # [N, T, nOut]
+        y = take_rows(params["W"], idx)   # [N, T, nOut]
         if self.hasBias:
             y = y + params["b"]
         return self._act(y.permute(0, 2, 1)), state   # [N, nOut, T]

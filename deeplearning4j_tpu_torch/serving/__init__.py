@@ -10,11 +10,11 @@ from deeplearning4j_tpu_torch.serving.buckets import (
 from deeplearning4j_tpu_torch.serving.registry import (
     ModelNotFound, ModelRegistry)
 from deeplearning4j_tpu_torch.serving.servable import (
-    NetworkServable, Servable, as_servable)
+    FnServable, NetworkServable, Servable, as_servable)
 from deeplearning4j_tpu_torch.serving.session import InferenceSession
 
 __all__ = [
-    "BucketLadder", "DEFAULT_BATCH_BUCKETS", "DynamicBatcher",
+    "BucketLadder", "DEFAULT_BATCH_BUCKETS", "DynamicBatcher", "FnServable",
     "InferenceSession", "ModelNotFound", "ModelRegistry", "NetworkServable",
     "QueueFullError", "Servable", "ServingShutdown", "ServingTimeout",
     "as_servable", "execute_plan", "pad_batch", "pad_rows", "pad_time",

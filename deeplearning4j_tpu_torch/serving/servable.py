@@ -15,6 +15,8 @@ import threading
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.backend import resolve_device
+
 
 def _model_dtype(model) -> np.dtype:
     """The serving-boundary dtype a model's configuration implies."""
@@ -96,13 +98,39 @@ class NetworkServable(Servable):
         return (self.net._params, self.net._states)
 
 
+class FnServable(Servable):
+    """A plain ``fn(x) -> y`` over tensors, served like any network: the
+    escape hatch for custom pipelines (BERT's ``forward`` over token ids,
+    for one). ``fn`` runs under ``torch.inference_mode()`` on the
+    servable's device ("cuda" unless named) and returns a tensor numpy
+    can hold (float32, not bfloat16)."""
+
+    def __init__(self, fn, example_shape, dtype=None, device=None):
+        super().__init__(example_shape, resolve_device(device),
+                         np.float32 if dtype is None else dtype)
+        self.fn = fn
+
+    def _run(self, x):
+        with torch.inference_mode():
+            return self.fn(x)
+
+    def _infer_fn(self):
+        return self._run
+
+    def _call_args(self):
+        return ()
+
+
 def as_servable(model, example_shape=None, dtype=None) -> Servable:
     """Wrap a supported model type in its Servable adapter. dtype=None
-    takes the serving-boundary dtype from the model's dataType."""
+    takes the serving-boundary dtype from the model's dataType (float32
+    for a plain function)."""
     if isinstance(model, Servable):
         return model
     kind = type(model).__name__
     if kind == "MultiLayerNetwork":
         return NetworkServable(model, example_shape, dtype)
+    if callable(model):
+        return FnServable(model, example_shape, dtype)
     raise TypeError(f"cannot serve a {kind} (the port serves "
-                    f"MultiLayerNetwork so far)")
+                    f"MultiLayerNetwork and plain functions so far)")

@@ -9,6 +9,8 @@ configuration's shapes. Both packages then compute the same function.
 package's ``net._opt_states`` as numpy: per layer ``()`` or nested dicts
 such as Adam's ``{"m": {...}, "v": {...}}``), and ``opt_states_to_numpy``
 is its inverse, so both packages can start from the same state.
+``bert_params_from_numpy`` and ``bert_params_to_numpy`` carry a BERT
+parameter tree (``models/bert.py``) between the two packages.
 """
 
 from __future__ import annotations
@@ -67,3 +69,34 @@ def opt_states_to_numpy(states):
     copies)."""
     return [_tree_map(lambda t: t.detach().cpu().numpy(), st)
             for st in states]
+
+
+_BERT_TOP = {"tok_emb", "pos_emb", "type_emb", "emb_ln", "layers",
+             "mlm_bias"}
+_BERT_LAYER = {"qkv_w", "qkv_b", "out_w", "out_b", "ln1", "ln2",
+               "ffn_in_w", "ffn_in_b", "ffn_out_w", "ffn_out_b"}
+
+
+def bert_params_from_numpy(tree, device):
+    """A BERT parameter tree in the JAX package's layout (nested dicts,
+    ``layers`` a list of dicts, numpy leaves) as float32 tensors on
+    ``device`` (copies), for ``deeplearning4j_tpu_torch.models.bert``."""
+    if set(tree) != _BERT_TOP:
+        raise ValueError(f"BERT params have {sorted(_BERT_TOP)}, got "
+                         f"{sorted(tree)}")
+    for i, layer in enumerate(tree["layers"]):
+        if "moe" in layer:
+            raise NotImplementedError(
+                "MoE BERT layers are not ported yet (ROADMAP queue 1, "
+                "the parallel tier)")
+        if set(layer) != _BERT_LAYER:
+            raise ValueError(f"BERT layer {i} has {sorted(_BERT_LAYER)}, "
+                             f"got {sorted(layer)}")
+    return _tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
+                                            device=device), tree)
+
+
+def bert_params_to_numpy(params):
+    """The inverse of ``bert_params_from_numpy``: numpy leaves (host
+    copies), in the JAX package's layout."""
+    return _tree_map(lambda t: t.detach().cpu().numpy(), params)
