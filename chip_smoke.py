@@ -35,7 +35,15 @@ from a numpy seed:
   backward flash launches a step), with step times and a torch.profiler
   breakdown; and the trained encoder served through InferenceSession and
   FnServable (N = 1..16 at T=512, 12 flash inference launches a
-  dispatch) against a direct forward.
+  dispatch) against a direct forward;
+- the tool probes' bf16 tensor-core kernels (csrc/probe_matmul.cu,
+  csrc/fused_bottleneck.cu) against their plain versions: matmul_bf16 at
+  the 9 probe shapes where the reference ran Pallas, the six bottleneck
+  variants at ResNet-50's four stage widths (batch 256, g = 1 and 4), a
+  control the check must catch, times beside cuBLAS and the cuBLAS +
+  cuDNN block; then the three probe entry points at full width
+  (probe_matmul, probe_fused_block --stage s2 --batch 256 --check,
+  probe_fused_parts), each launching its kernels.
 
 Each main path sets its kernels' launch counters to 0 just before it runs
 and reads them just after.
@@ -1763,6 +1771,242 @@ def bert_serving_phase(torch, flash, trainer):
     return launches["flash_attention_infer"]
 
 
+PROBE_BATCH = 256          # ResNet-50's stage widths at batch 256
+PROBE_GS = (1, 4)          # images per TPU grid step, in the reference
+PROBE_REPORT = ("s2", 4)   # probe_fused_parts' shape and the sweep's g
+MATMUL_REPORT = (50176, 1024, 256)
+# kernels vs plain versions in bf16, per output: max |d| over the largest
+# element (one bf16 ulp is up to 2^-7 of it) and mean |d| over mean |ref|.
+# At full width the two sides' float32 sums in other orders flip bf16
+# roundings of y1, y2 and out in up to 17% of the elements (block_pad at
+# s3 on an H100), each by about one ulp: the mean stays near a tenth of
+# an ulp, while a wrong tap, mask or epilogue moves it by orders of
+# magnitude (the control below).
+PROBE_TOL = 1e-2
+PROBE_MEAN_TOL = 1e-3
+PROBE_NAMES = ("matmul_bf16", "fused_block", "fused_block2d",
+               "block_matmuls", "block_pad", "block_mask", "block_folded")
+PROBE_SOURCES = {"matmul_bf16": "probe_matmul.cu"}
+PROBE_REPLACES = {
+    "matmul_bf16": "tools/probe_matmul.py:56",
+    "fused_block": "tools/probe_fused_block.py:62",
+    "fused_block2d": "tools/probe_fused_block.py:123",
+    "block_matmuls": "tools/probe_fused_parts.py:38",
+    "block_pad": "tools/probe_fused_parts.py:47",
+    "block_mask": "tools/probe_fused_parts.py:62",
+    "block_folded": "tools/probe_fused_parts.py:82"}
+
+
+def _bf16_errs(got, want):
+    """(max |d| / max |want|, mean |d| / mean |want|, share of elements
+    that differ, max |d|) in float32."""
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    return (float(d.max()) / max(float(w.max()), 1e-30),
+            float(d.mean()) / max(float(w.mean()), 1e-30),
+            float((d > 0).float().mean()), float(d.max()))
+
+
+def _bf16_bound(nbytes, flops):
+    """(ms, what bounds it) against the bf16 tensor rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def matmul_bound(m, k, n):
+    """a and b read once and out written once in bf16; 2MKN operations."""
+    return _bf16_bound(2 * (m * k + k * n + m * n), 2.0 * m * k * n)
+
+
+def bottleneck_bound(name, n, h, c, f):
+    """x read and out written once in bf16, the weights once, the affines
+    the variant reads once in float32; 2 n h^2 (CF + 9F^2 + FC)
+    operations (block_matmuls too: its 9 taps multiply unshifted rows)."""
+    affines = {"fused_block": 4 * f + 2 * c, "fused_block2d": 4 * f + 2 * c,
+               "block_folded": 2 * f + c}.get(name, 0)
+    nbytes = 2 * (2 * n * h * h * c + c * f + 9 * f * f + f * c) + 4 * affines
+    return _bf16_bound(nbytes, 2.0 * n * h * h * (c * f + 9 * f * f + f * c))
+
+
+def _bottleneck_calls(bn, x, p, h, g):
+    """name -> (kernel call, plain call) of the six variants on x."""
+    x2 = x.reshape(-1, x.shape[-1])
+    w = (p["w1"], p["w2"], p["w3"])
+    folded = (p["w1"], p["b1"], p["w2"], p["b2"], p["w3"], p["b3"])
+    calls = {}
+    for name in bn.VARIANTS:
+        fn, ref = getattr(bn, name), getattr(bn, name + "_reference")
+        if name.startswith("fused"):
+            calls[name] = (lambda fn=fn: fn(x, p, g),
+                           lambda ref=ref: ref(x, p, g))
+        else:
+            args = folded if name == "block_folded" else w
+            calls[name] = (lambda fn=fn, a=args: fn(x2, *a, h=h, g=g),
+                           lambda ref=ref, a=args: ref(x2, *a, h=h, g=g))
+    return calls
+
+
+def _gate(name, where, errs):
+    rel, mean, _, _ = errs
+    if rel > PROBE_TOL or mean > PROBE_MEAN_TOL:
+        fail(f"{name} vs plain at {where}: max|d|/max {rel:.3e} "
+             f"(<= {PROBE_TOL}), mean|d|/mean {mean:.3e} "
+             f"(<= {PROBE_MEAN_TOL})")
+
+
+def probe_kernel_phase(torch, pm, bn):
+    """The probe kernels vs their plain versions on the card: matmul_bf16
+    at the 9 probe shapes where the reference ran Pallas, the six
+    bottleneck variants at ResNet-50's four stages (batch 256) with g = 1
+    and 4, non-zero affines and biases; a control that the gate must
+    catch; times of each kernel, its plain version and the library
+    yardstick (cuBLAS; the cuBLAS + cuDNN block) at the report shapes."""
+    from deeplearning4j_tpu_torch.tools import probe_fused_block as pfb
+    from deeplearning4j_tpu_torch.tools import probe_matmul as pmt
+    from deeplearning4j_tpu_torch.utils.convert import (
+        bottleneck_params_from_numpy)
+
+    rows, errs = {}, dict.fromkeys(PROBE_NAMES, 0.0)
+    fns = [pm.matmul_bf16] + [getattr(bn, name) for name in bn.VARIANTS]
+    for (m, k, n) in [s for s in pmt.SHAPES if pmt.kernel_runs(*s)]:
+        a, b = pmt.inputs(m, k, n, "cuda")
+        before = pm.matmul_bf16.launches
+        got = pm.matmul_bf16(a, b)
+        torch.cuda.synchronize()
+        if pm.matmul_bf16.launches != before + 1:
+            fail(f"matmul_bf16 launch counter did not rise at {(m, k, n)}")
+        e = _bf16_errs(got, pm.matmul_bf16_reference(a, b))
+        _gate("matmul_bf16", (m, k, n), e)
+        errs["matmul_bf16"] = max(errs["matmul_bf16"], e[3])
+        line = (f"matmul_bf16 {(m, k, n)}: max|d|/max {e[0]:.3e}, "
+                f"mean|d|/mean {e[1]:.3e}, differing {e[2]:.2e}")
+        if (m, k, n) == MATMUL_REPORT:
+            bound_ms, bound_by = matmul_bound(m, k, n)
+            rows["matmul_bf16"] = dict(
+                ms=time_ms(lambda: pm.matmul_bf16(a, b), 30),
+                plain_ms=time_ms(lambda: pm.matmul_bf16_reference(a, b), 5),
+                library_ms=time_ms(lambda: torch.matmul(a, b), 30),
+                bound_ms=bound_ms, bound_by=bound_by)
+            line += "; " + ", ".join(
+                f"{key} {v:.4f}" for key, v in rows["matmul_bf16"].items()
+                if key != "bound_by")
+        print(line, flush=True)
+        del a, b, got
+
+    for stage, (h, c, f) in pfb.STAGES.items():
+        rng = np.random.default_rng([SEED, 9, h])
+        tree = pfb.make_params(int(rng.integers(1 << 30)), c, f)
+        for key in ("s1", "b1", "s2", "b2", "s3", "b3"):
+            tree[key] = (tree[key] + rng.normal(size=tree[key].shape) * 0.1
+                         ).astype(np.float32)
+        p = bottleneck_params_from_numpy(tree, "cuda")
+        x = pfb.make_input(int(rng.integers(1 << 30)), PROBE_BATCH, h, c,
+                           "cuda")
+        for g in PROBE_GS:
+            calls = _bottleneck_calls(bn, x, p, h, g)
+            parts = []
+            for name, (kernel, plain) in calls.items():
+                fn = getattr(bn, name)
+                before = fn.launches
+                got = kernel()
+                torch.cuda.synchronize()
+                if fn.launches != before + 1:
+                    fail(f"{name} launch counter did not rise at {stage}")
+                e = _bf16_errs(got, plain())
+                _gate(name, f"{stage} g={g}", e)
+                errs[name] = max(errs[name], e[3])
+                parts.append(f"{name} {e[0]:.2e}/{e[1]:.2e}/{e[2]:.2e}")
+                del got
+            print(f"bottleneck {stage} (h, C, F = {h}, {c}, {f}) n="
+                  f"{PROBE_BATCH} g={g}, max|d|/max / mean|d|/mean / "
+                  f"differing: {'; '.join(parts)}", flush=True)
+            if (stage, g) != PROBE_REPORT:
+                continue
+            # control: block_pad (taps wrap across image edges) held
+            # against block_mask's plain version must fail the gate
+            e = _bf16_errs(calls["block_pad"][0](),
+                           calls["block_mask"][1]())
+            print(f"bottleneck control (block_pad vs block_mask's plain "
+                  f"version): max|d|/max {e[0]:.3e}, mean|d|/mean "
+                  f"{e[1]:.3e}", flush=True)
+            if e[0] <= PROBE_TOL and e[1] <= PROBE_MEAN_TOL:
+                fail("the bottleneck gate did not catch the control")
+            lib_ms = time_ms(lambda: pfb.library_block(x, p), 10)
+            conv_ms = time_ms(lambda: pfb.library_block_conv(x, p), 10)
+            for name, (kernel, plain) in calls.items():
+                bound_ms, bound_by = bottleneck_bound(name, PROBE_BATCH, h,
+                                                      c, f)
+                rows[name] = dict(ms=time_ms(kernel, 20),
+                                  plain_ms=time_ms(plain, 3),
+                                  library_ms=lib_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by)
+            plans = {name: bn.plan(name, PROBE_BATCH, h, c, f, g)
+                     for name in ("fused_block2d", "block_matmuls")}
+            print(f"bottleneck {stage} g={g} ms: " + ", ".join(
+                f"{name} {r['ms']:.4f} (plain {r['plain_ms']:.2f})"
+                for name, r in rows.items() if name != "matmul_bf16") +
+                  f"; cuBLAS+cuDNN block {lib_ms:.4f}, three cuDNN convs "
+                  f"{conv_ms:.4f}; bound {bound_ms:.4f} ({bound_by}); "
+                  f"plans {plans}", flush=True)
+        # every stage's time at the sweep's g, beside the library block
+        g = PROBE_REPORT[1]
+        plan = bn.plan("fused_block2d", PROBE_BATCH, h, c, f, g)
+        k_ms = time_ms(lambda: bn.fused_block2d(x, p, g), 10)
+        lib_ms = time_ms(lambda: pfb.library_block(x, p), 10)
+        bound_ms, bound_by = bottleneck_bound("fused_block2d", PROBE_BATCH,
+                                              h, c, f)
+        print(f"bottleneck {stage} g={g}: fused_block2d {k_ms:.4f} ms, "
+              f"cuBLAS+cuDNN block {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); band {plan['band_rows']} rows, y1 for "
+              f"{plan['y1_rows']} ({plan['y1_rows'] / plan['band_rows']:.3f}"
+              f"x of conv1), {plan['smem_bytes']} B shared", flush=True)
+        del x, p, calls
+        torch.cuda.empty_cache()
+    if not all(fn.launches for fn in fns):
+        fail("a probe kernel was never launched in its comparison")
+    return rows, errs
+
+
+def probe_main_phase(torch, pm, bn):
+    """The three probe entry points at full width, as a user runs them:
+    probe_matmul (its 11 shapes), probe_fused_block --stage s2 --batch 256
+    --check (the g sweep 2..16) and probe_fused_parts (14/1024/256, N=256,
+    G=4); each kernel's launch counter set to 0 just before its probe and
+    read just after. Every record must hold a time and a share of the
+    peak, the check must pass and no g may be skipped."""
+    from deeplearning4j_tpu_torch.tools import (
+        probe_fused_block, probe_fused_parts, probe_matmul)
+
+    launches = {}
+    for probe, argv, names in (
+            (probe_matmul, [], ("matmul_bf16",)),
+            (probe_fused_block, ["--stage", "s2", "--batch",
+                                 str(PROBE_BATCH), "--check"],
+             ("fused_block", "fused_block2d")),
+            (probe_fused_parts, [], ("block_matmuls", "block_pad",
+                                     "block_mask", "block_folded"))):
+        fns = [pm.matmul_bf16 if name == "matmul_bf16" else
+               getattr(bn, name) for name in names]
+        for fn in fns:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        records = probe.main(argv)
+        torch.cuda.synchronize()
+        launches.update({name: fn.launches for name, fn in zip(names, fns)})
+        label = probe.__name__.rsplit(".", 1)[1]
+        print(f"probe {label} {' '.join(argv)}: {len(records)} records in "
+              f"{time.perf_counter() - t0:.2f} s; launches "
+              f"{ {n: launches[n] for n in names} }", flush=True)
+        for rec in records:
+            if "skipped" in rec or rec.get("ok") is False:
+                fail(f"probe {label}: {rec}")
+            if "ms" in rec and not (rec["ms"] > 0 and math.isfinite(
+                    rec["frac_of_peak"])):
+                fail(f"probe {label}: no time or share in {rec}")
+    return launches
+
+
 def main():
     import torch
 
@@ -1771,7 +2015,8 @@ def main():
               "GPU", file=sys.stderr)
         return 2
     from deeplearning4j_tpu_torch.kernels import (
-        build, flash, gru, lstm, rnn_step)
+        bottleneck, build, flash, gru, lstm, probe_matmul, rnn_step)
+    from deeplearning4j_tpu_torch.tools.probe_fused_block import STAGES
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1805,6 +2050,11 @@ def main():
     flash_launches = dict(bert["launches"])
     flash_launches["flash_attention_infer"] = bert_serving_phase(
         torch, flash, bert["trainer"])
+    del bert
+    torch.cuda.empty_cache()
+    probe_rows, probe_errs = probe_kernel_phase(torch, probe_matmul,
+                                                bottleneck)
+    probe_launches = probe_main_phase(torch, probe_matmul, bottleneck)
 
     pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(via deeplearning4j_tpu/models/bert.py:197)")
@@ -1836,7 +2086,12 @@ def main():
             ("flash_fwd", "flash_attn_fwd.cu", 758),
             ("flash_attention_infer", "flash_attn_fwd.cu", 758),
             ("flash_bwd_dkv", "flash_attn_bwd.cu", 1121),
-            ("flash_bwd_dq", "flash_attn_bwd.cu", 1456))]
+            ("flash_bwd_dq", "flash_attn_bwd.cu", 1456))] + [
+        (name, PROBE_SOURCES.get(name, "fused_bottleneck.cu"),
+         PROBE_REPLACES[name], probe_launches[name], probe_errs[name],
+         MATMUL_REPORT if name == "matmul_bf16" else
+         (PROBE_BATCH, *STAGES[PROBE_REPORT[0]], PROBE_REPORT[1]),
+         probe_rows[name]) for name in PROBE_NAMES]
     for name, _, _, n_launch, *_ in entries:
         if not n_launch:
             fail(f"{name} was not launched on its main path")
@@ -1844,7 +2099,7 @@ def main():
         "name": name,
         "route": "cuda",
         "source": f"deeplearning4j_tpu_torch/csrc/{source}",
-        "replaces": (where if where.startswith("jax/") else
+        "replaces": (where if where.startswith(("jax/", "tools/")) else
                      f"deeplearning4j_tpu/{where}"),
         "shape": list(shape),
         "launches": n_launch,

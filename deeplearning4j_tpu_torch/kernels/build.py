@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every source under csrc/, in the order the kernels were ported
 SOURCES = ("lstm_seq_infer", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd",
-           "rnn_step", "flash_attn_fwd", "flash_attn_bwd")
+           "rnn_step", "flash_attn_fwd", "flash_attn_bwd", "probe_matmul",
+           "fused_bottleneck")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -154,12 +155,14 @@ def call(name: str, entry: str, what: str, args, device) -> None:
 
 def query(name: str, entry: str, what: str, args, device) -> int:
     """``entry(*args)`` of ``csrc/<name>.cu``, a host-side question that
-    launches nothing, asked on ``device``: its return code when 0 or
+    launches nothing, asked on ``device`` (a tensor goes as its pointer: a
+    CPU tensor takes an answer): its return code when 0 or
     negative (the source's own codes); a positive one, a cudaError_t,
     raises RuntimeError."""
     lib, fn = _entry(name, entry, args, stream=False)
     with torch.cuda.device(device):
-        rc = fn(*args)
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args))
     if rc > 0:
         raise _error(lib, name, what, rc)
     return rc

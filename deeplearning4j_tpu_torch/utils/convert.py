@@ -10,7 +10,9 @@ package's ``net._opt_states`` as numpy: per layer ``()`` or nested dicts
 such as Adam's ``{"m": {...}, "v": {...}}``), and ``opt_states_to_numpy``
 is its inverse, so both packages can start from the same state.
 ``bert_params_from_numpy`` and ``bert_params_to_numpy`` carry a BERT
-parameter tree (``models/bert.py``) between the two packages.
+parameter tree (``models/bert.py``) between the two packages, and
+``bottleneck_params_from_numpy`` the bottleneck probe's parameters
+(``kernels/bottleneck.py``).
 """
 
 from __future__ import annotations
@@ -100,3 +102,24 @@ def bert_params_to_numpy(params):
     """The inverse of ``bert_params_from_numpy``: numpy leaves (host
     copies), in the JAX package's layout."""
     return _tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+_BOTTLENECK = {"w1": torch.bfloat16, "w2": torch.bfloat16,
+               "w3": torch.bfloat16, "s1": torch.float32,
+               "b1": torch.float32, "s2": torch.float32,
+               "b2": torch.float32, "s3": torch.float32,
+               "b3": torch.float32}
+
+
+def bottleneck_params_from_numpy(tree, device):
+    """The bottleneck probe's parameters (the reference's ``make_params``
+    dict, numpy leaves: w1 (C, F), w2 (9, F, F), w3 (F, C) in bf16; s1, b1,
+    s2, b2 (1, F) and s3, b3 (1, C)) as tensors on ``device`` (copies):
+    bf16 weights, float32 affines, for ``kernels/bottleneck.py``. Leaves in
+    a numpy bf16 dtype go through float32, which holds them exactly."""
+    if set(tree) != set(_BOTTLENECK):
+        raise ValueError(f"bottleneck params have {sorted(_BOTTLENECK)}, "
+                         f"got {sorted(tree)}")
+    return {k: torch.tensor(np.asarray(tree[k], np.float32),
+                            device=device).to(dtype)
+            for k, dtype in _BOTTLENECK.items()}

@@ -58,6 +58,13 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/datasets/iterator.py",
                  "deeplearning4j_tpu_torch/autodiff/samediff.py",
                  "deeplearning4j_tpu_torch/utils/serializer.py",
+                 "deeplearning4j_tpu_torch/kernels/probe_matmul.py",
+                 "deeplearning4j_tpu_torch/kernels/bottleneck.py",
+                 "deeplearning4j_tpu_torch/tools/__init__.py",
+                 "deeplearning4j_tpu_torch/tools/common.py",
+                 "deeplearning4j_tpu_torch/tools/probe_matmul.py",
+                 "deeplearning4j_tpu_torch/tools/probe_fused_block.py",
+                 "deeplearning4j_tpu_torch/tools/probe_fused_parts.py",
                  "chip_smoke.py"):
         assert want in names
     bad = tmp_path / "bad.py"

@@ -1,0 +1,355 @@
+"""The port's probe kernels (``kernels/probe_matmul.py``,
+``kernels/bottleneck.py``) and probe entry points against the JAX package's
+tool probes.
+
+The plain versions (what the wrappers run for CPU tensors, and what the
+CUDA kernels are held against on the card by chip_smoke.py) against the
+Pallas kernel bodies of ``tools/``, run in TPU interpret mode on the CPU:
+
+- row 8: ``kern`` of ``tools/probe_matmul.py`` (nested in
+  ``bench_pallas``);
+- row 9: ``fused_block`` and ``fused_block2d`` of
+  ``tools/probe_fused_block.py``, and its ``xla_block``;
+- row 10: ``k_matmuls``, ``k_pad``, ``k_mask`` and ``k_folded`` of
+  ``tools/probe_fused_parts.py``, launched by its own ``build`` and
+  ``build2``.
+
+``tools/probe_matmul.py`` and ``tools/probe_fused_parts.py`` run their
+benchmark at import, so their kernel bodies (and the launch helpers) are
+taken out of the source with ``ast`` and run in a namespace that sets the
+module constants (H, C, F, N, G, M) small. Inputs come from numpy seeds,
+with non-zero affines and biases so that every epilogue counts.
+
+Tolerance, per output: max |d| <= 1e-2 of its largest element (about one
+bf16 ulp) and at most 1e-3 of its elements differing: the two sides sum in
+float32 in other orders, which flips a bf16 rounding now and then.
+"""
+
+import ast
+import functools
+import importlib
+import io
+from contextlib import redirect_stdout
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from deeplearning4j_tpu_torch.kernels import bottleneck, probe_matmul
+from deeplearning4j_tpu_torch.utils.convert import (
+    bottleneck_params_from_numpy)
+from tools import probe_fused_block as jblock
+
+ROOT = Path(__file__).resolve().parent.parent
+MAX_TOL = 1e-2
+DIFF_FRAC = 1e-3
+N = 4
+PORT_PROBES = ("probe_matmul", "probe_fused_block", "probe_fused_parts")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread is as fast, and leaves the cores
+    to the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _close(got, want):
+    """The file's tolerance, on bf16 (or float) arrays of one shape."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    d = np.abs(got - want)
+    assert d.max() <= MAX_TOL * np.abs(want).max(), d.max()
+    assert (d > 0).mean() <= DIFF_FRAC, (d > 0).mean()
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+def _bf(a):
+    return torch.tensor(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _source_nodes(path, names):
+    """The top-level (or nested) function definitions and assignments of
+    ``names`` in the source at ``path``, in source order."""
+    tree = ast.parse((ROOT / path).read_text())
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name in names:
+            found.append(node)
+        elif isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) in names for t in node.targets):
+            found.append(node)
+    return sorted(found, key=lambda n: n.lineno)
+
+
+def _exec_nodes(path, names, **constants):
+    ns = dict(jax=jax, jnp=jnp, lax=lax, pl=pl, pltpu=pltpu,
+              functools=functools, **constants)
+    module = ast.Module(body=_source_nodes(path, names), type_ignores=[])
+    exec(compile(module, str(ROOT / path), "exec"), ns)
+    return ns
+
+
+# ---------------------------------------------------------------------------
+# row 8: tools/probe_matmul.py kern
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,bm", [(64, 32, 16, 16), (112, 64, 48, 56)])
+def test_matmul_plain_version_matches_pallas_kern(m, k, n, bm):
+    kern = _exec_nodes("tools/probe_matmul.py", {"kern"})["kern"]
+    rng = np.random.default_rng([m, k, n])
+    a = jnp.asarray(rng.normal(size=(m, k)) * 0.1, jnp.bfloat16)
+    b = jnp.asarray(rng.normal(size=(k, n)) * 0.1, jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want = pl.pallas_call(
+            kern, grid=(m // bm,),
+            in_specs=[pl.BlockSpec((bm, k), lambda i: (i, 0)),
+                      pl.BlockSpec((k, n), lambda i: (0, 0))],
+            out_specs=pl.BlockSpec((bm, n), lambda i: (i, 0)),
+            out_shape=jax.ShapeDtypeStruct((m, n), jnp.bfloat16))(a, b)
+    ta, tb = _bf(a), _bf(b)
+    _close(_np(probe_matmul.matmul_bf16_reference(ta, tb)), want)
+    got = probe_matmul.matmul_bf16(ta, tb)       # the CPU route
+    assert got.dtype == torch.bfloat16
+    _close(_np(got), want)
+
+
+def test_matmul_refuses_what_is_not_a_product():
+    a = torch.zeros(4, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do not make"):
+        probe_matmul.matmul_bf16(a, torch.zeros(8, 16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="bfloat16"):
+        probe_matmul.matmul_bf16(a.float(), torch.zeros(16, 16))
+
+
+# ---------------------------------------------------------------------------
+# row 9: tools/probe_fused_block.py
+# ---------------------------------------------------------------------------
+
+def _jax_params(c, f, seed):
+    """The reference's make_params with non-zero affines (numpy)."""
+    p = {k: np.asarray(v, np.float32) for k, v in
+         jblock.make_params(jax.random.key(seed), c, f).items()}
+    rng = np.random.default_rng(seed)
+    for k in ("s1", "b1", "s2", "b2", "s3", "b3"):
+        p[k] = (p[k] + rng.normal(size=p[k].shape) * 0.1).astype(np.float32)
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _block_case(h, c, f, g):
+    """(x, params as numpy, and the reference's outputs: 4d, 2d, xla)."""
+    p = _jax_params(c, f, h + c + f)
+    x = (np.random.default_rng([h, c, f]).normal(size=(N, h, h, c)) * 0.5)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    jp = {k: jnp.asarray(v, jnp.bfloat16 if k[0] == "w" else jnp.float32)
+          for k, v in p.items()}
+    with pltpu.force_tpu_interpret_mode():
+        out4 = np.asarray(jblock.fused_block(jx, jp, g), np.float32)
+        out2 = np.asarray(jblock.fused_block2d(jx, jp, g), np.float32)
+    xla = np.asarray(jblock.xla_block(jx, jp), np.float32)
+    return np.asarray(jx, np.float32), p, out4, out2, xla
+
+
+BLOCK_CASES = [(4, 32, 16, 1), (4, 32, 16, 2), (7, 64, 32, 2),
+               (7, 128, 64, 2)]
+
+
+@pytest.mark.parametrize("h,c,f,g", BLOCK_CASES)
+@pytest.mark.parametrize("name", ["fused_block", "fused_block2d"])
+def test_block_plain_versions_match_the_pallas_kernels(name, h, c, f, g):
+    x, p, out4, out2, xla = _block_case(h, c, f, g)
+    params = bottleneck_params_from_numpy(p, "cpu")
+    want = out4 if name == "fused_block" else out2
+    tx = _bf(x)
+    for fn in (getattr(bottleneck, name),
+               getattr(bottleneck, name + "_reference")):
+        got = _np(fn(tx, params, g))
+        _close(got, want)
+        _close(got, xla)
+
+
+def test_params_from_numpy_types_and_copies():
+    p = {k: np.asarray(v) for k, v in
+         jblock.make_params(jax.random.key(0), 32, 16).items()}
+    t = bottleneck_params_from_numpy(p, "cpu")
+    assert {k: v.dtype for k, v in t.items()} == {
+        k: torch.bfloat16 if k[0] == "w" else torch.float32 for k in p}
+    assert np.array_equal(t["w2"].float().numpy(), np.asarray(p["w2"],
+                                                              np.float32))
+    with pytest.raises(ValueError, match="bottleneck params"):
+        bottleneck_params_from_numpy({"w1": p["w1"]}, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# row 10: tools/probe_fused_parts.py
+# ---------------------------------------------------------------------------
+
+PARTS = ("k_matmuls", "k_pad", "k_mask", "k_folded")
+PORT = {"k_matmuls": "block_matmuls", "k_pad": "block_pad",
+        "k_mask": "block_mask", "k_folded": "block_folded"}
+
+
+@functools.lru_cache(maxsize=None)
+def _parts_inputs(h, c, f):
+    rng = np.random.default_rng([h, c, f, 10])
+    x = rng.normal(size=(N * h * h, c)) * 0.3
+    w1 = rng.normal(size=(c, f)) * c ** -0.5
+    w2 = rng.normal(size=(9, f, f)) * (9 * f) ** -0.5
+    w3 = rng.normal(size=(f, c)) * f ** -0.5
+    b1, b2 = (rng.normal(size=(1, f)) * 0.1 for _ in range(2))
+    b3 = rng.normal(size=(1, c)) * 0.1
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16),  # noqa: E731
+                              np.float32)
+    return ([bf(a) for a in (x, w1, w2, w3)] +
+            [a.astype(np.float32) for a in (b1, b2, b3)])
+
+
+@functools.lru_cache(maxsize=None)
+def _parts_reference(name, h, c, f, g):
+    """The reference's ``name`` body through its own ``build``/``build2``,
+    with the module's constants at this size."""
+    ns = _exec_nodes("tools/probe_fused_parts.py",
+                     {"dot", "CP", "wspec", "xspec", "build", "build2",
+                      *PARTS}, H=h, C=c, F=f, N=N, G=g, M=g * h * h)
+    x, w1, w2, w3, b1, b2, b3 = _parts_inputs(h, c, f)
+    j = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    with pltpu.force_tpu_interpret_mode():
+        if name == "k_folded":
+            out = ns["build2"](ns["k_folded"])(
+                j(x), j(w1), jnp.asarray(b1), j(w2), jnp.asarray(b2),
+                j(w3), jnp.asarray(b3))
+        else:
+            out = ns["build"](ns[name], [(9, f, f), (f, c)],
+                              scratch=name != "k_matmuls")(
+                j(x), j(w1), j(w2), j(w3))
+    return np.asarray(out, np.float32)
+
+
+def _port_parts(name, h, c, f, g, plain):
+    x, w1, w2, w3, b1, b2, b3 = _parts_inputs(h, c, f)
+    fn = getattr(bottleneck, PORT[name] + ("_reference" if plain else ""))
+    tx, tw1, tw2, tw3 = (_bf(a) for a in (x, w1, w2, w3))
+    if name == "k_folded":
+        out = fn(tx, tw1, torch.tensor(b1), tw2, torch.tensor(b2), tw3,
+                 torch.tensor(b3), h=h, g=g)
+    else:
+        out = fn(tx, tw1, tw2, tw3, h=h, g=g)
+    return _np(out)
+
+
+PARTS_CASES = [(4, 32, 16, 1), (4, 32, 16, 2), (7, 64, 32, 2)]
+
+
+@pytest.mark.parametrize("h,c,f,g", PARTS_CASES)
+@pytest.mark.parametrize("name", PARTS)
+def test_parts_plain_versions_match_the_pallas_bodies(name, h, c, f, g):
+    want = _parts_reference(name, h, c, f, g)
+    for plain in (True, False):
+        _close(_port_parts(name, h, c, f, g, plain), want)
+
+
+@pytest.mark.parametrize("name,leaks", [("k_pad", True), ("k_folded", True),
+                                        ("k_mask", False)])
+def test_group_size_changes_the_flat_variants_only(name, leaks):
+    """At g > 1 the flat padding lets an image's edge rows read the
+    neighbouring image (k_pad also wraps at x edges): the reference's
+    k_pad and k_folded give other numbers at g = 1 and g = 2, and the port
+    the same; k_mask does not."""
+    h, c, f = 4, 32, 16
+    ref1, ref2 = (_parts_reference(name, h, c, f, g) for g in (1, 2))
+    port1, port2 = (_port_parts(name, h, c, f, g, True) for g in (1, 2))
+    assert (not np.array_equal(ref1, ref2)) == leaks
+    assert (not np.array_equal(port1, port2)) == leaks
+    if leaks:   # the rows that differ are the same rows on both sides
+        assert np.array_equal(np.any(ref1 != ref2, axis=1),
+                              np.any(port1 != port2, axis=1))
+
+
+def test_fused_block2d_does_not_depend_on_g():
+    x, p, _, _, _ = _block_case(4, 32, 16, 1)
+    params = bottleneck_params_from_numpy(p, "cpu")
+    outs = [_np(bottleneck.fused_block2d(_bf(x), params, g))
+            for g in (1, 2, 4)]
+    assert all(np.array_equal(outs[0], o) for o in outs[1:])
+    _, _, _, ref1, _ = _block_case(4, 32, 16, 1)
+    _, _, _, ref2, _ = _block_case(4, 32, 16, 2)
+    assert np.array_equal(ref1, ref2)
+
+
+@pytest.mark.parametrize("name", bottleneck.VARIANTS)
+def test_a_group_that_does_not_divide_the_batch_is_refused(name):
+    x, p, _, _, _ = _block_case(4, 32, 16, 1)
+    params = bottleneck_params_from_numpy(p, "cpu")
+    fn = getattr(bottleneck, name)
+    with pytest.raises(ValueError, match="must divide the batch"):
+        if name.startswith("fused"):
+            fn(_bf(x), params, 3)
+        elif name == "block_folded":
+            fn(_bf(x).reshape(-1, 32), params["w1"], params["b1"],
+               params["w2"], params["b2"], params["w3"], params["b3"],
+               h=4, g=3)
+        else:
+            fn(_bf(x).reshape(-1, 32), params["w1"], params["w2"],
+               params["w3"], h=4, g=3)
+
+
+# ---------------------------------------------------------------------------
+# the entry points
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("probe", PORT_PROBES)
+def test_importing_a_probe_runs_nothing(probe):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        mod = importlib.reload(importlib.import_module(
+            f"deeplearning4j_tpu_torch.tools.{probe}"))
+    assert buf.getvalue() == ""
+    assert callable(mod.main)
+
+
+@pytest.mark.parametrize("probe", PORT_PROBES)
+def test_a_probe_without_cuda_and_no_device_raises(probe, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"deeplearning4j_tpu_torch.tools.{probe}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
+
+
+@pytest.mark.parametrize("probe,argv,small", [
+    ("probe_matmul", [], dict(SHAPES=[(784, 32, 16), (100, 32, 16)],
+                              K_ITERS=1)),
+    ("probe_fused_block", ["--stage", "s3", "--batch", "4", "--g", "4",
+                           "--k", "1", "--check"], {}),
+    ("probe_fused_parts", [], dict(H=4, C=32, F=16, N=4, G=2, K=1)),
+])
+def test_probes_run_on_the_cpu_when_named(probe, argv, small, capsys,
+                                          monkeypatch):
+    mod = importlib.import_module(f"deeplearning4j_tpu_torch.tools.{probe}")
+    for name, value in small.items():
+        monkeypatch.setattr(mod, name, value)
+    records = mod.main(argv + ["--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(records)
+    timed = [r for r in records if "ms" in r]
+    assert timed and all(r["device"] == "cpu" and r["ms"] > 0 and
+                         "frac_of_peak" not in r for r in timed)
+    if probe == "probe_matmul":   # the kernel only where bm divides m
+        assert [r["path"] for r in records] == ["torch_cpu", "kernel",
+                                                "torch_cpu"]
+    if probe == "probe_fused_block":
+        assert [r["ok"] for r in records if "check" in r] == [True, True]
