@@ -26,22 +26,27 @@ from a numpy seed:
   kernels/rnn_step.py must choose by shape there, against the plain
   versions and cuDNN; then TextGenerationLSTM(hidden=512) and a GRU(2048)
   char-RNN each serving a burst and taking a ``fit`` step through it;
-- the flash-attention kernels (csrc/flash_attn_fwd.cu,
-  csrc/flash_attn_bwd.cu) against their plain versions at five shapes in
-  float32 and bfloat16, beside SDPA (only timed, never called by the
-  port); then BERT-base (768/12/12, T=512, batch 16, lr 1e-4) trained 5
-  steps by BertTrainer with the flash kernels against the dense attention
-  path, in float32 and in bfloat16 (the main path: 12 forward and 12 + 12
-  backward flash launches a step), with step times and a torch.profiler
-  breakdown; and the trained encoder served through InferenceSession and
-  FnServable (N = 1..16 at T=512, 12 flash inference launches a
-  dispatch) against a direct forward;
-- the tool probes' bf16 tensor-core kernels (csrc/probe_matmul.cu,
-  csrc/fused_bottleneck.cu) against their plain versions: matmul_bf16 at
-  the 9 probe shapes where the reference ran Pallas, the six bottleneck
-  variants at ResNet-50's four stage widths (batch 256, g = 1 and 4), a
-  control the check must catch, times beside cuBLAS and the cuBLAS +
-  cuDNN block; then the three probe entry points at full width
+- the flash-attention kernels (csrc/flash_attn_fwd.cu, whose bf16
+  forward runs on the tensor cores, csrc/flash_attn_bwd.cu) against their
+  plain versions at five shapes in float32 and bfloat16, beside SDPA (only
+  timed, never called by the port), the forward's launch plan against its
+  Python mirror, and at BERT's shape the bf16 forward's and SDPA's times
+  back to back as well as single; then BERT-base (768/12/12, T=512,
+  batch 16, lr 1e-4) trained 5 steps by BertTrainer with the flash
+  kernels against the dense attention path, in float32 and in bfloat16
+  (the main path: 12 forward and 12 + 12 backward flash launches a
+  step), with step times and a torch.profiler breakdown; and the trained
+  encoder served through InferenceSession and FnServable (N = 1..16 at
+  T=512, 12 flash inference launches a dispatch) against a direct
+  forward;
+- the tool probes' bf16 tensor-core kernels (csrc/probe_matmul.cu on
+  wgmma fed by TMA, csrc/fused_bottleneck.cu) against their plain
+  versions: matmul_bf16 at the 9 probe shapes where the reference ran
+  Pallas (its launch plan against its Python mirror; at the report shape
+  its and cuBLAS's times back to back as well as single), the six
+  bottleneck variants at ResNet-50's four stage widths (batch 256, g = 1
+  and 4), a control the check must catch, times beside cuBLAS and the
+  cuBLAS + cuDNN block; then the three probe entry points at full width
   (probe_matmul, probe_fused_block --stage s2 --batch 256 --check,
   probe_fused_parts), each launching its kernels.
 
@@ -127,6 +132,25 @@ def time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_b2b_ms(fn, n=50):
+    """Milliseconds a call of ``fn()`` when calls follow one another: one
+    CUDA-event window over ``n`` back-to-back calls after three warm-up
+    calls, over ``n`` (a single call's time also holds the host's
+    enqueue, which back-to-back calls hide behind the device's work)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def _bound(nbytes, flops):
@@ -1264,9 +1288,11 @@ def flash_phase(torch, flash):
     """The flash kernels vs their plain versions at every FLASH_SHAPES row
     in float32 and bfloat16 (checked relative to each output's largest
     element, FLASH_TOL; the largest absolute differences are returned);
-    m, l and di too; the backward's determinism; times of each kernel,
-    its plain version and SDPA (the yardstick, never called by the
-    port)."""
+    m, l and di too; the backward's determinism; the forward's launch plan
+    as the source gives it against its Python mirror; times of each
+    kernel, its plain version and SDPA (the yardstick, never called by the
+    port), and at the report shape in bf16 the forward's and SDPA's
+    back-to-back times too."""
     import torch.nn.functional as F
 
     rows = {name: {} for name in FLASH_NAMES}
@@ -1275,6 +1301,11 @@ def flash_phase(torch, flash):
     for shape in FLASH_SHAPES:
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
+            at = (shape[0] * shape[1], shape[2], shape[3], dtype)
+            plan = flash.fwd_source_plan(*at)
+            if plan != flash.fwd_plan(*at):
+                fail(f"flash forward plan at {shape} {dname}: the source "
+                     f"gives {plan}, the mirror {flash.fwd_plan(*at)}")
             rng = np.random.default_rng([SEED, 7, *shape])
             q, k, v, do = (torch.tensor(rng.normal(size=shape).astype(
                 np.float32), device="cuda").to(dtype) for _ in range(4))
@@ -1359,6 +1390,16 @@ def flash_phase(torch, flash):
                     ms=t_k[name], plain_ms=plain[name],
                     library_ms=lib[name], bound_ms=bounds[name][0],
                     bound_by=bounds[name][1])
+            b2b = ""
+            if (shape, dname) == (FLASH_REPORT, "bfloat16"):
+                with torch.inference_mode():
+                    b2b = "; back to back " + ", ".join(
+                        f"{label} {time_b2b_ms(fn):.4f}" for label, fn in (
+                            ("fwd", lambda: flash.flash_fwd(q, k, v, scale)),
+                            ("infer", lambda: flash.flash_attention_infer(
+                                q, k, v, scale)),
+                            ("SDPA fwd", lambda:
+                             F.scaled_dot_product_attention(q, k, v))))
             print(f"flash {shape} {dname}: max|d|/max fwd "
                   f"{e['flash_fwd']:.3e} infer "
                   f"{e['flash_attention_infer']:.3e} dkv "
@@ -1372,7 +1413,8 @@ def flash_phase(torch, flash):
                   f"bound fwd {bounds['flash_fwd'][0]:.4f} "
                   f"({bounds['flash_fwd'][1]}) dkv "
                   f"{bounds['flash_bwd_dkv'][0]:.4f} dq "
-                  f"{bounds['flash_bwd_dq'][0]:.4f}", flush=True)
+                  f"{bounds['flash_bwd_dq'][0]:.4f}{b2b}; plan {plan}",
+                  flush=True)
     return rows, errs
 
 
@@ -1857,7 +1899,9 @@ def _gate(name, where, errs):
 
 def probe_kernel_phase(torch, pm, bn):
     """The probe kernels vs their plain versions on the card: matmul_bf16
-    at the 9 probe shapes where the reference ran Pallas, the six
+    at the 9 probe shapes where the reference ran Pallas (its launch plan
+    as the source gives it against its Python mirror; at the report shape
+    also back-to-back times, its and cuBLAS's), the six
     bottleneck variants at ResNet-50's four stages (batch 256) with g = 1
     and 4, non-zero affines and biases; a control that the gate must
     catch; times of each kernel, its plain version and the library
@@ -1869,7 +1913,12 @@ def probe_kernel_phase(torch, pm, bn):
 
     rows, errs = {}, dict.fromkeys(PROBE_NAMES, 0.0)
     fns = [pm.matmul_bf16] + [getattr(bn, name) for name in bn.VARIANTS]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (m, k, n) in [s for s in pmt.SHAPES if pmt.kernel_runs(*s)]:
+        plan = pm.source_plan(m, k, n)
+        if plan != pm.plan(m, k, n, sms):
+            fail(f"matmul_bf16 plan at {(m, k, n)}: the source gives {plan}, "
+                 f"the mirror {pm.plan(m, k, n, sms)}")
         a, b = pmt.inputs(m, k, n, "cuda")
         before = pm.matmul_bf16.launches
         got = pm.matmul_bf16(a, b)
@@ -1891,7 +1940,10 @@ def probe_kernel_phase(torch, pm, bn):
             line += "; " + ", ".join(
                 f"{key} {v:.4f}" for key, v in rows["matmul_bf16"].items()
                 if key != "bound_by")
-        print(line, flush=True)
+            k_b2b = time_b2b_ms(lambda: pm.matmul_bf16(a, b))
+            lib_b2b = time_b2b_ms(lambda: torch.matmul(a, b))
+            line += f"; back to back {k_b2b:.4f}, cuBLAS {lib_b2b:.4f}"
+        print(f"{line}; plan {plan}", flush=True)
         del a, b, got
 
     for stage, (h, c, f) in pfb.STAGES.items():

@@ -11,37 +11,65 @@
 //   o = (exp(s - m) rounded to v's type) v / l
 //
 // Two entries per type: flash_attn_fwd_{f32,bf16} with save = 1 writes m
-// and l (the training forward), save = 0 only o (inference).
+// and l (the training forward), save = 0 only o (inference). m and l are
+// what csrc/flash_attn_bwd.cu recomputes p = exp(s - m) / l from, so m is
+// stored in the natural units of s whatever base the kernel exponentiates
+// in. flash_attn_fwd_plan gives a launch's plan without launching.
 //
 // What bounds it on this card. 4*B*H*T^2*D operations against the bytes
 // of q, k, v and o: at BERT-base's B=16, H=12, T=512, D=64 that is 12.9
 // GFLOP against 50 MB in bf16, 0.013 ms on the bf16 tensor cores (989
-// TFLOP/s) and 0.015 ms at 3.35 TB/s. This kernel multiplies on the
-// plain f32 pipe (67 TFLOP/s, 0.19 ms), so operations and shared-memory
-// reads bound it: a first, simple kernel; wgmma and TMA are later work.
+// TFLOP/s) and 0.015 ms at 3.35 TB/s.
 //
-// Design. The TPU kernel walks the key blocks in a sequential grid axis,
-// carrying the running max, sum and accumulator in VMEM scratch. Here one
-// block owns one (b*h, tile of 64 query rows) and loops over 64-key tiles
-// itself (blocks run in any order, so nothing carries between them):
+// bf16: the tensor-core kernel (FlashAttention-2's loop on wgmma). The
+// first, SIMT kernel multiplied on the f32 pipe (67 TFLOP/s, 0.19 ms at
+// least) and ran at 0.51 ms back to back at BERT's shape. Here:
+// - a block of two warpgroups owns 128 query rows of one b*h, 64 rows a
+//   warpgroup; each k and v tile it stages feeds both. At BERT's shape
+//   (192 heads, T = 512) that makes 768 blocks of 65 KB (D=64).
+// - q's tile stays in shared memory as wgmma's A operand; k and v tiles
+//   of 64 keys come through a three-stage cp.async ring (rows past T
+//   arrive as zeros), in the 128-byte-swizzle layout that wgmma's
+//   descriptors read (hopper_bf16.cuh), behind a proxy fence.
+// - s = q k^T is wgmma m64n64k16 (bf16 in, f32 sums in registers), k the
+//   K-major B operand; the online softmax runs on the accumulator
+//   registers, base 2 with the scale folded by log2(e): the row max and
+//   sum are shuffles among the 4 lanes of a quad. Key columns from T on
+//   are -inf before the max.
+// - p never goes through shared memory: two neighbouring n8 blocks of the
+//   s accumulator are one A-fragment, so p, rounded to bf16 at the tile's
+//   running max, is wgmma's register A operand for o += p v, v the
+//   MN-major B operand (transpose-B). l sums the unrounded f32 p, as the
+//   reference does.
+// - o is written once, acc * (1/l) rounded to bf16, staged through the
+//   warp's own rows of q's tile for 16-byte stores; rows from T on are not
+//   written.
+// Measured on the H100 back to back at 16/12/512/64
+// (scripts/flash_matmul_ab.py): 0.0535 ms. The same loop on mma.sync
+// (8 warps of 16 rows, k and v read through ldmatrix by every warp) ran
+// 0.0667 with a three-stage ring and 8 warps, 0.0725 with two stages and
+// 4 warps; SDPA 0.039. What bounds it now, by estimate: each warpgroup
+// waits for its products before its softmax and the softmax before its
+// next products (FlashAttention-3 overlaps the two across warpgroups);
+// the exponentials (50 M, ~0.014 ms on the SFU) are in that chain.
+//
+// f32: the SIMT kernel, unchanged. The reference computes in float32, and
+// a tensor-core f32 product would be TF32. One block owns one (b*h, tile
+// of 64 query rows) and loops over 64-key tiles:
 // - q's tile stays in shared memory (transposed, as float); each key tile
 //   stages k (transposed) and v (row-major) beside it.
 // - 256 threads as 16 x 16: thread (ty, tx) owns query rows 4ty..4ty+3,
-//   score columns tx + 16c (c < 4) and output columns tx + 16c (c < D/16),
-//   so its 4 x 4 score tile reads one float4 of q and four words of k per
-//   d, and the row max and sum need shuffles among the 16 lanes of a row.
-// - Online softmax in f32: m_new = max(m, tile max), alpha = exp(m -
-//   m_new), l = rowsum p + alpha l; the accumulator is scaled by alpha and
-//   takes p v, with p rounded to v's type first, as the reference rounds p
-//   before its p.v product. o is written from the f32 accumulator once, at
-//   the end (acc * (1/l)).
-// - Key columns from T on are masked to -inf before the max; q, k and v
-//   rows from T on are staged as zeros. Any T >= 1; D is 64 or 128.
+//   score columns tx + 16c (c < 4) and output columns tx + 16c (c < D/16).
+// - Online softmax in f32 (natural base), p rounded to v's type before
+//   p v, as the reference rounds p before its p.v product.
+// Any T >= 1; D is 64 or 128.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper_bf16.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -160,30 +188,289 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool kSave>
-int launch(const T* q, const T* k, const T* v, T* o, float* m, float* l,
-           int BH, int Tn, float scale, cudaStream_t st) {
-  auto kernel = flash_fwd_kernel<T, D, kSave>;
-  const size_t smem = fwd_smem_floats<D>() * sizeof(float);
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using mma_bf16::bf16;
+using mma_bf16::cp_async16;
+using mma_bf16::cp_async_commit;
+using mma_bf16::cp_async_wait;
+
+constexpr int kWgs = 2;                  // warpgroups of a block
+constexpr int kRows = 64 * kWgs;         // query rows of a block
+constexpr int kThreadsTc = 128 * kWgs;
+constexpr int kKeys = 64;                // keys of a tile
+constexpr int kStages = 3;               // k and v tiles in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// q's tile and the ring, 1 KB to align them to 1024 bytes
+template <int D>
+constexpr int smem_bytes() {
+  return (kRows * D + kStages * 2 * kKeys * D) * (int)sizeof(bf16) + 1024;
+}
+
+// Element offset of 16-byte chunk c of row r in a [R][D] bf16 tile kept as
+// D/64 column blocks of [R][64]: 128-byte rows whose chunks are XOR-ed
+// with the row mod 8, the 128-byte-swizzle layout of wgmma's descriptors
+// (and conflict-free for the epilogue's 4- and 16-byte accesses).
+template <int R>
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (c / 8) * R * 64 + r * 64 + (((c % 8) ^ (r & 7)) << 3);
+}
+
+// rows r0 .. r0 + R - 1 of src [T, D] into dst, zeros from row T on
+template <int D, int R>
+__device__ __forceinline__ void load_rows(bf16* dst,
+                                          const bf16* __restrict__ src,
+                                          int r0, int Tn) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreadsTc) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < Tn;
+    cp_async16(dst + sw128<R>(r, c),
+               ok ? src + (size_t)(r0 + r) * D + c * 8 : src, ok);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 2^x on the SFU (ex2.approx, relative error ~2^-22; results below 2^-126
+// flush to 0, far under what bf16 p or the f32 sum l can hold)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// A warpgroup owns 64 query rows. The m64n64 accumulator of s and the
+// m64nD accumulator of o hold, in lane l of the warpgroup's warp w, rows
+// 16w + l/4 and + 8 and columns 8n + 2(l%4), +1: s[4n], s[4n+1] and
+// s[4n+2], s[4n+3]. Two neighbouring n8 blocks of s are one A-fragment of
+// m16n8k16 for the warp's rows, which is what the register-A wgmma takes.
+template <int D, bool kSave>
+__global__ void __launch_bounds__(kThreadsTc)
+flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ m_out, float* __restrict__ l_out, int Tn,
+             float scale) {
+  using namespace hopper;
+  constexpr int ND = D / 8;    // n8 column blocks of o
+  extern __shared__ uint8_t smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* kv_s = q_s + kRows * D;   // stages of k, v [kKeys][D]
+
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t base = (size_t)blockIdx.x * Tn * D;
+  const int q0 = blockIdx.y * kRows;
+  const int tiles = (Tn + kKeys - 1) / kKeys;
+  const float scale2 = scale * kLog2e;
+
+  auto load_kv = [&](int j) {
+    bf16* ks = kv_s + (j % kStages) * 2 * kKeys * D;
+    load_rows<D, kKeys>(ks, k + base, j * kKeys, Tn);
+    load_rows<D, kKeys>(ks + kKeys * D, v + base, j * kKeys, Tn);
+  };
+  load_rows<D, kRows>(q_s, q + base, q0, Tn);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < tiles) load_kv(j);
+    cp_async_commit();
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};
+  const uint32_t q_addr = smem_u32(q_s) + wg * 64 * 128;
+
+  for (int j = 0; j < tiles; ++j) {
+    if (j + kStages - 1 < tiles) load_kv(j + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    fence_proxy_async();   // the tile's cp.async writes, to wgmma's reads
+    __syncthreads();
+    const bf16* ks = kv_s + (j % kStages) * 2 * kKeys * D;
+    const uint32_t k_addr = smem_u32(ks);
+    const uint32_t v_addr = smem_u32(ks + kKeys * D);
+
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16<0>(
+          s,
+          wgmma_desc(q_addr + (kk / 4) * kRows * 128 + (kk % 4) * 32, 16,
+                     1024),
+          wgmma_desc(k_addr + (kk / 4) * kKeys * 128 + (kk % 4) * 32, 16,
+                     1024),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(s);
+
+    const int key0 = j * kKeys + 2 * (lane % 4);
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * n + e];
+        x = key0 + 8 * n + (e & 1) < Tn ? x * scale2 : -INFINITY;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2], ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      alpha[h] = ex2(m_run[h] - mx[h]);
+      m_run[h] = mx[h];
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float p0 = ex2(s[4 * n] - mx[0]), p1 = ex2(s[4 * n + 1] - mx[0]);
+      const float p2 = ex2(s[4 * n + 2] - mx[1]);
+      const float p3 = ex2(s[4 * n + 3] - mx[1]);
+      ps[0] += p0 + p1;
+      ps[1] += p2 + p3;
+      pa[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
+      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      l_run[h] = alpha[h] * l_run[h] + quad_sum(ps[h]);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[4 * n] *= alpha[0];
+      acc[4 * n + 1] *= alpha[0];
+      acc[4 * n + 2] *= alpha[1];
+      acc[4 * n + 3] *= alpha[1];
+    }
+    fence_regs<D / 2>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {   // keys 16 t .. 16 t + 15
+      const uint64_t dv = wgmma_desc(v_addr + t * 2048, kKeys * 128, 1024);
+      if constexpr (D == 64)
+        wgmma_m64n64k16_rs<1>(acc, pa[t], dv, 1);
+      else
+        wgmma_m64n128k16_rs<1>(acc, pa[t], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
+    __syncthreads();   // both warpgroups are done with this stage
+  }
+
+  const float inv[2] = {1.0f / l_run[0], 1.0f / l_run[1]};
+  const int g = warp * 16 + lane / 4;   // rows of the block's 128
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<uint32_t*>(q_s + sw128<kRows>(g, n) +
+                                 2 * (lane % 4)) =
+        pack_bf16(acc[4 * n] * inv[0], acc[4 * n + 1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(q_s + sw128<kRows>(g + 8, n) +
+                                 2 * (lane % 4)) =
+        pack_bf16(acc[4 * n + 2] * inv[1], acc[4 * n + 3] * inv[1]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * ND; i += 32) {
+    const int r = warp * 16 + i / ND, c = i % ND;
+    if (q0 + r < Tn)
+      *reinterpret_cast<uint4*>(o + base + (size_t)(q0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(q_s + sw128<kRows>(r, c));
+  }
+  if (kSave && lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + g + 8 * h;
+      if (row < Tn) {
+        m_out[(size_t)blockIdx.x * Tn + row] = m_run[h] * kLn2;
+        l_out[(size_t)blockIdx.x * Tn + row] = l_run[h];
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
+// A launch's plan: rows of q a block owns, threads, ring stages, dynamic
+// shared bytes and the grid (b*h, query tiles).
+struct Plan {
+  int rows, threads, stages, smem, grid_x, grid_y;
+};
+
+int plan_for(bool tensor_cores, int BH, int Tn, int D, Plan* p) {
+  if (BH < 1 || Tn < 1) return -3;
+  if (D != 64 && D != 128) return -1;
+  if (tensor_cores) {
+    *p = {tc::kRows, tc::kThreadsTc, tc::kStages,
+          D == 64 ? tc::smem_bytes<64>() : tc::smem_bytes<128>(), BH, 0};
+  } else {
+    *p = {kTile, kThreads, 1,
+          (int)((D == 64 ? fwd_smem_floats<64>() : fwd_smem_floats<128>()) *
+                sizeof(float)),
+          BH, 0};
+  }
+  p->grid_y = (Tn + p->rows - 1) / p->rows;
+  return 0;
+}
+
+template <typename Kernel, typename T>
+int launch(Kernel kernel, const Plan& p, const T* q, const T* k, const T* v,
+           T* o, float* m, float* l, int Tn, float scale, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(BH, (Tn + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, st>>>(q, k, v, o, m, l, Tn, scale);
+  kernel<<<dim3(p.grid_x, p.grid_y), p.threads, p.smem, st>>>(
+      q, k, v, o, m, l, Tn, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-int run(const T* q, const T* k, const T* v, T* o, float* m, float* l,
-        int BH, int Tn, int D, float scale, int save, cudaStream_t st) {
-  if (BH < 1 || Tn < 1) return -3;
-  if (D == 64)
-    return save ? launch<T, 64, true>(q, k, v, o, m, l, BH, Tn, scale, st)
-                : launch<T, 64, false>(q, k, v, o, m, l, BH, Tn, scale, st);
-  if (D == 128)
-    return save ? launch<T, 128, true>(q, k, v, o, m, l, BH, Tn, scale, st)
-                : launch<T, 128, false>(q, k, v, o, m, l, BH, Tn, scale, st);
-  return -1;
+int run_f32(const float* q, const float* k, const float* v, float* o,
+            float* m, float* l, int BH, int Tn, int D, float scale, int save,
+            cudaStream_t st) {
+  Plan p;
+  const int rc = plan_for(false, BH, Tn, D, &p);
+  if (rc != 0) return rc;
+  auto kernel = D == 64 ? (save ? flash_fwd_kernel<float, 64, true>
+                                : flash_fwd_kernel<float, 64, false>)
+                        : (save ? flash_fwd_kernel<float, 128, true>
+                                : flash_fwd_kernel<float, 128, false>);
+  return launch(kernel, p, q, k, v, o, m, l, Tn, scale, st);
+}
+
+int run_bf16(const tc::bf16* q, const tc::bf16* k, const tc::bf16* v,
+             tc::bf16* o, float* m, float* l, int BH, int Tn, int D,
+             float scale, int save, cudaStream_t st) {
+  Plan p;
+  const int rc = plan_for(true, BH, Tn, D, &p);
+  if (rc != 0) return rc;
+  auto kernel = D == 64 ? (save ? tc::flash_fwd_tc<64, true>
+                                : tc::flash_fwd_tc<64, false>)
+                        : (save ? tc::flash_fwd_tc<128, true>
+                                : tc::flash_fwd_tc<128, false>);
+  return launch(kernel, p, q, k, v, o, m, l, Tn, scale, st);
 }
 
 }  // namespace
@@ -194,8 +481,8 @@ extern "C" int flash_attn_fwd_f32(const float* q, const float* k,
                                   const float* v, float* o, float* m,
                                   float* l, int BH, int Tn, int D,
                                   float scale, int save, void* stream) {
-  return run<float>(q, k, v, o, m, l, BH, Tn, D, scale, save,
-                    (cudaStream_t)stream);
+  return run_f32(q, k, v, o, m, l, BH, Tn, D, scale, save,
+                 (cudaStream_t)stream);
 }
 
 extern "C" int flash_attn_fwd_bf16(const __nv_bfloat16* q,
@@ -203,8 +490,22 @@ extern "C" int flash_attn_fwd_bf16(const __nv_bfloat16* q,
                                    const __nv_bfloat16* v, __nv_bfloat16* o,
                                    float* m, float* l, int BH, int Tn, int D,
                                    float scale, int save, void* stream) {
-  return run<__nv_bfloat16>(q, k, v, o, m, l, BH, Tn, D, scale, save,
-                            (cudaStream_t)stream);
+  return run_bf16(q, k, v, o, m, l, BH, Tn, D, scale, save,
+                  (cudaStream_t)stream);
+}
+
+// The plan of a launch of the bf16 (bf16 = 1) or f32 entry, nothing
+// launched: out = {rows a block, threads, stages, shared bytes, grid x,
+// grid y}. Return codes as the entries'.
+extern "C" int flash_attn_fwd_plan(int bf16, int BH, int Tn, int D,
+                                   int* out) {
+  Plan p;
+  const int rc = plan_for(bf16 != 0, BH, Tn, D, &p);
+  if (rc != 0) return rc;
+  const int vals[6] = {p.rows, p.threads, p.stages, p.smem, p.grid_x,
+                       p.grid_y};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+  return 0;
 }
 
 extern "C" const char* flash_attn_fwd_error_string(int code) {

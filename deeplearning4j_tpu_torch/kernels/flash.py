@@ -36,6 +36,49 @@ HEAD_DIMS = (64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # ---------------------------------------------------------------------------
+# the forward's launch plan
+# ---------------------------------------------------------------------------
+
+PLAN_FIELDS = ("rows", "threads", "stages", "smem_bytes", "grid_x",
+               "grid_y")
+
+
+def fwd_plan(bh, t, d, dtype):
+    """The forward kernel's launch plan at [B*H, T, D] in ``dtype``, as
+    ``csrc/flash_attn_fwd.cu`` computes it (``flash_attn_fwd_plan``), for
+    the CPU tests: a dict of ``PLAN_FIELDS``. bfloat16 runs the
+    tensor-core kernel (128 query rows and two warpgroups a block, a
+    three-stage ring of 64-key k and v tiles, q's tile beside it, all bf16,
+    and 1 KB to align them); float32 the SIMT kernel (64 rows, 256
+    threads, float tiles)."""
+    if min(bh, t) < 1 or d not in HEAD_DIMS or dtype not in _SUFFIX:
+        raise ValueError(f"flash forward: no plan for B*H={bh}, T={t}, "
+                         f"D={d}, {dtype}")
+    if dtype == torch.bfloat16:
+        rows, threads, stages = 128, 256, 3
+        smem = (rows * d + stages * 2 * 64 * d) * 2 + 1024
+    else:
+        rows, threads, stages = 64, 256, 1
+        pad4 = rows + 4
+        smem = (d * pad4 * 2 + rows * d + rows * pad4) * 4
+    return dict(rows=rows, threads=threads, stages=stages, smem_bytes=smem,
+                grid_x=bh, grid_y=-(-t // rows))
+
+
+def fwd_source_plan(bh, t, d, dtype, device=None):
+    """The same plan asked of the compiled source (nothing launched)."""
+    out = torch.zeros(len(PLAN_FIELDS), dtype=torch.int32)
+    device = torch.device("cuda") if device is None else device
+    rc = build.query("flash_attn_fwd", "flash_attn_fwd_plan",
+                     "flash forward plan",
+                     [int(dtype == torch.bfloat16), bh, t, d, out], device)
+    if rc != 0:
+        raise ValueError(f"flash forward: the source refuses B*H={bh}, "
+                         f"T={t}, D={d} (code {rc})")
+    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
+
+
+# ---------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held against)
 # ---------------------------------------------------------------------------
 

@@ -203,3 +203,154 @@ def test_cuda_kernels_match_plain_versions(cuda, shape, dtype):
                     flash.flash_bwd_reference(q, k, v, o, do, m, l, scale)):
         assert float((g.float() - w.float()).abs().max()) <= \
             bwd_tol * float(w.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core forward's arithmetic, and the forward's launch plan
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+# chip_smoke.py's FLASH_TOL for bfloat16, relative to each output's
+# largest element: forward 1e-2, backward 2e-2
+BF16_FWD_TOL, BF16_BWD_TOL = 1e-2, 2e-2
+# SMs of an H100 SXM; one block's dynamic shared memory on it
+H100_SMS, SMEM_LIMIT = 132, 232448
+
+
+def _tiled_bf16_forward(q, k, v, scale, tile=64):
+    """csrc/flash_attn_fwd.cu's bf16 kernel written out in float32 torch:
+    s in f32 sums, times scale * log2(e) (base 2); key tiles of ``tile``
+    with the running max m2, alpha = 2^(m2_old - m2_new), p = 2^(s - m2)
+    rounded to bf16 for p.v at the tile's running max, l summing the
+    unrounded p; o = acc / l in bf16 and m stored in natural units."""
+    q, k, v = (a.float() for a in (q, k, v))
+    t = q.shape[-2]
+    scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    s_all = (q @ k.transpose(-1, -2)) * scale2
+    m2 = torch.full(q.shape[:-1], -math.inf)
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for j0 in range(0, t, tile):
+        s = s_all[..., j0:j0 + tile]
+        new = torch.maximum(m2, s.amax(-1))
+        alpha = torch.exp2(m2 - new)
+        p = torch.exp2(s - new[..., None])
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ \
+            v[..., j0:j0 + tile, :]
+        m2 = new
+    o = (acc * (1.0 / l)[..., None]).to(torch.bfloat16)
+    return o, m2 * LN2, l
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _bf16_qkv(shape, seed):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(shape, seed)]
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 200, 64), (2, 2, 130, 128),
+                                   (1, 3, 64, 64)])
+def test_tiled_bf16_arithmetic_matches_the_references(shape):
+    """The kernel's tiled arithmetic against the Pallas module's own plain
+    mha_reference (float32 on the same bf16 values) and the port's plain
+    version, at D = 64 and 128 and ragged T."""
+    q, k, v = _bf16_qkv(shape, 7)
+    scale = 1.0 / math.sqrt(shape[-1])
+    o, m, l = _tiled_bf16_forward(q, k, v, scale)
+    jq, jk, jv = (a.float().numpy() for a in (q, k, v))
+    want = jflash.mha_reference(jq, jk, jv, None, sm_scale=scale)
+    _, w_l, w_m = jflash.mha_reference_no_custom_vjp(
+        jq, jk, jv, sm_scale=scale, save_residuals=True)
+    assert _rel(o.float(), want) <= BF16_FWD_TOL
+    assert _rel(m, w_m) <= 1e-5 and _rel(l, w_l) <= 1e-5
+    ro, rm, rl = flash.flash_fwd_reference(q, k, v, scale)
+    assert _rel(o.float(), ro.float()) <= BF16_FWD_TOL
+    assert _rel(m, rm) <= 1e-5 and _rel(l, rl) <= 1e-5
+
+
+def test_tiled_bf16_arithmetic_matches_bert_dense_attention():
+    shape = (2, 4, 96, 64)
+    q, k, v = _bf16_qkv(shape, 8)
+    want = np.asarray(jbert._dense_attention(
+        *(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (q, k, v))),
+        np.float32)
+    o, _, _ = _tiled_bf16_forward(q, k, v, 1.0 / math.sqrt(shape[-1]))
+    np.testing.assert_allclose(o.float().numpy(), want, rtol=0,
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 200, 64), (1, 2, 72, 128)])
+def test_tiled_m_and_l_give_the_reference_gradients(shape):
+    """m (stored in natural units) and l of the tiled arithmetic, fed to
+    the backward's plain version, give the gradients of the reference's
+    VJP (jax.vjp of mha_reference in float32 on the same bf16 values)."""
+    q, k, v = _bf16_qkv(shape, 9)
+    do = torch.from_numpy(_qkv(shape, 10)[0]).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(shape[-1])
+    o, m, l = _tiled_bf16_forward(q, k, v, scale)
+    got = flash.flash_bwd_reference(q, k, v, o, do, m, l, scale)
+    jq, jk, jv = (a.float().numpy() for a in (q, k, v))
+    _, vjp = jax.vjp(lambda a, b, c: jflash.mha_reference_no_custom_vjp(
+        a, b, c, sm_scale=scale), jq, jk, jv)
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for g, w in zip(got, want):
+        assert _rel(g.float(), w) <= BF16_BWD_TOL
+    ro, rm, rl = flash.flash_fwd_reference(q, k, v, scale)
+    for g, w in zip(got, flash.flash_bwd_reference(q, k, v, ro, do, rm, rl,
+                                                   scale)):
+        assert _rel(g.float(), w.float()) <= BF16_BWD_TOL
+
+
+def _flash_shapes():
+    import chip_smoke
+    return chip_smoke.FLASH_SHAPES
+
+
+@pytest.mark.parametrize("shape", _flash_shapes())
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_plan_fits_and_covers_each_row_once(shape, dtype):
+    """At every shape chip_smoke.py drives: the block's shared memory fits
+    an H100, and the grid (b*h, query tiles) covers every row of q once."""
+    b, h, t, d = shape
+    plan = flash.fwd_plan(b * h, t, d, dtype)
+    assert set(plan) == set(flash.PLAN_FIELDS)
+    assert 0 < plan["smem_bytes"] <= SMEM_LIMIT
+    assert plan["threads"] <= 1024 and plan["threads"] % 32 == 0
+    assert plan["grid_x"] == b * h
+    rows = plan["rows"]
+    covered = [q0 + r for q0 in range(0, plan["grid_y"] * rows, rows)
+               for r in range(rows) if q0 + r < t]
+    assert covered == list(range(t))
+    assert (plan["grid_y"] - 1) * rows < t
+    if dtype == torch.bfloat16:
+        assert plan["rows"] == plan["threads"] // 2   # 64 a warpgroup
+        assert plan["stages"] >= 2
+
+
+def test_forward_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        flash.fwd_plan(2, 64, 96, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash.fwd_plan(0, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash.fwd_plan(2, 64, 64, torch.float16)
+    with pytest.raises(ValueError, match="head size"):
+        flash._cuda_args("flash_fwd", (1, 2, 8, 96),
+                         [torch.zeros(1, 2, 8, 96)])
+    with pytest.raises(ValueError, match="dtype"):
+        flash._cuda_args("flash_fwd", (1, 2, 8, 64),
+                         [torch.zeros(1, 2, 8, 64, dtype=torch.float16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_source_plan_matches_its_mirror(cuda, dtype):
+    for b, h, t, d in _flash_shapes():
+        assert flash.fwd_source_plan(b * h, t, d, dtype) == \
+            flash.fwd_plan(b * h, t, d, dtype)

@@ -42,6 +42,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from deeplearning4j_tpu_torch.kernels import bottleneck, probe_matmul
+from deeplearning4j_tpu_torch.tools.probe_matmul import SHAPES as MATMULS
 from deeplearning4j_tpu_torch.utils.convert import (
     bottleneck_params_from_numpy)
 from tools import probe_fused_block as jblock
@@ -134,6 +135,61 @@ def test_matmul_refuses_what_is_not_a_product():
         probe_matmul.matmul_bf16(a, torch.zeros(8, 16, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="bfloat16"):
         probe_matmul.matmul_bf16(a.float(), torch.zeros(16, 16))
+
+
+SMEM_LIMIT = 232448   # one block's dynamic shared memory on an H100
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m,k,n", MATMULS + [(100, 32, 16), (3000, 1040, 272)])
+def test_matmul_plan_fits_and_covers_each_tile_once(m, k, n, sms):
+    """At every probe shape (and two ragged ones), on an H100 SXM's 132
+    SMs and a PCIe card's 114: the ring (at least 3 stages) and the staged
+    out tile fit, the tiles cover out once, and the persistent grid hands
+    every tile to exactly one block."""
+    plan = probe_matmul.plan(m, k, n, sms)
+    assert set(plan) == set(probe_matmul.PLAN_FIELDS)
+    bm, bn = plan["bm"], plan["bn"]
+    assert (bm // 64, bn) in probe_matmul.TILES
+    assert plan["threads"] == 128 * (bm // 64 + 1)
+    assert plan["stages"] >= 3
+    ring = plan["stages"] * (bm + bn) * 64 * 2
+    assert ring + bm * bn * 2 <= plan["smem_bytes"] <= SMEM_LIMIT
+    assert (plan["tiles_m"] - 1) * bm < m <= plan["tiles_m"] * bm
+    assert (plan["tiles_n"] - 1) * bn < n <= plan["tiles_n"] * bn
+    tiles = plan["tiles_m"] * plan["tiles_n"]
+    assert plan["grid"] == min(tiles, sms)
+    taken = sorted(t for blk in range(plan["grid"])
+                   for t in range(blk, tiles, plan["grid"]))
+    assert taken == list(range(tiles))
+
+
+def test_matmul_plan_takes_128_tiles_where_they_fill_a_third_of_the_card():
+    # 128 x 128 tiles where they make at least sms / 3 tiles: the report
+    # shape (784 of them) and (3136, 1024, 256) (50); M = 784 would make 14,
+    # so it takes 64 x 64 tiles (52), and so does N = 48 (narrower than 64)
+    for m, k, n, tile, grid in ((50176, 1024, 256, (128, 128), 132),
+                                (3136, 1024, 256, (128, 128), 50),
+                                (784, 1024, 256, (64, 64), 52),
+                                (1000, 80, 48, (64, 64), 16)):
+        plan = probe_matmul.plan(m, k, n, 132)
+        assert (plan["bm"], plan["bn"], plan["grid"]) == (*tile, grid)
+
+
+def test_matmul_plan_refuses_what_the_kernel_does_not_take():
+    for m, k, n in ((0, 16, 16), (64, 24, 16), (64, 16, 40)):
+        with pytest.raises(ValueError):
+            probe_matmul.plan(m, k, n, 132)
+
+
+@pytest.mark.cuda
+def test_matmul_source_plan_matches_its_mirror():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the plan is asked of the source")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, k, n in MATMULS:
+        assert probe_matmul.source_plan(m, k, n) == \
+            probe_matmul.plan(m, k, n, sms)
 
 
 # ---------------------------------------------------------------------------
