@@ -26,12 +26,13 @@ from a numpy seed:
   kernels/rnn_step.py must choose by shape there, against the plain
   versions and cuDNN; then TextGenerationLSTM(hidden=512) and a GRU(2048)
   char-RNN each serving a burst and taking a ``fit`` step through it;
-- the flash-attention kernels (csrc/flash_attn_fwd.cu, whose bf16
-  forward runs on the tensor cores, csrc/flash_attn_bwd.cu) against their
-  plain versions at five shapes in float32 and bfloat16, beside SDPA (only
-  timed, never called by the port), the forward's launch plan against its
-  Python mirror, and at BERT's shape the bf16 forward's and SDPA's times
-  back to back as well as single; then BERT-base (768/12/12, T=512,
+- the flash-attention kernels (csrc/flash_attn_fwd.cu and
+  csrc/flash_attn_bwd.cu, whose bf16 entries run on the tensor cores)
+  against their plain versions at five shapes in float32 and bfloat16,
+  beside SDPA (only timed, never called by the port), the forward's and
+  the backward's launch plans against their Python mirrors, and at BERT's
+  shape the bf16 kernels' and SDPA's forward and backward times back to
+  back as well as single; then BERT-base (768/12/12, T=512,
   batch 16, lr 1e-4) trained 5 steps by BertTrainer with the flash
   kernels against the dense attention path, in float32 and in bfloat16
   (the main path: 12 forward and 12 + 12 backward flash launches a
@@ -1288,11 +1289,11 @@ def flash_phase(torch, flash):
     """The flash kernels vs their plain versions at every FLASH_SHAPES row
     in float32 and bfloat16 (checked relative to each output's largest
     element, FLASH_TOL; the largest absolute differences are returned);
-    m, l and di too; the backward's determinism; the forward's launch plan
-    as the source gives it against its Python mirror; times of each
-    kernel, its plain version and SDPA (the yardstick, never called by the
-    port), and at the report shape in bf16 the forward's and SDPA's
-    back-to-back times too."""
+    m, l and di too; the backward's determinism; the forward's and the
+    backward's launch plans as the source gives them against their Python
+    mirrors; times of each kernel, its plain version and SDPA (the
+    yardstick, never called by the port), and at the report shape in bf16
+    the kernels' and SDPA's forward and backward back-to-back times too."""
     import torch.nn.functional as F
 
     rows = {name: {} for name in FLASH_NAMES}
@@ -1306,6 +1307,12 @@ def flash_phase(torch, flash):
             if plan != flash.fwd_plan(*at):
                 fail(f"flash forward plan at {shape} {dname}: the source "
                      f"gives {plan}, the mirror {flash.fwd_plan(*at)}")
+            for which in flash.BWD_WHICH:
+                bplan = flash.bwd_source_plan(which, *at)
+                if bplan != flash.bwd_plan(which, *at):
+                    fail(f"flash {which} plan at {shape} {dname}: the "
+                         f"source gives {bplan}, the mirror "
+                         f"{flash.bwd_plan(which, *at)}")
             rng = np.random.default_rng([SEED, 7, *shape])
             q, k, v, do = (torch.tensor(rng.normal(size=shape).astype(
                 np.float32), device="cuda").to(dtype) for _ in range(4))
@@ -1379,7 +1386,6 @@ def flash_phase(torch, flash):
                     q, k, v), reps)
             l_bwd = time_ms(lambda: torch.autograd.grad(
                 o_sdpa, (qg, kg, vg), do, retain_graph=True), reps)
-            del o_sdpa
             bounds = flash_bounds(shape, dname)
             plain = {"flash_fwd": p_fwd, "flash_attention_infer": p_inf,
                      "flash_bwd_dkv": p_bwd, "flash_bwd_dq": p_bwd}
@@ -1399,7 +1405,14 @@ def flash_phase(torch, flash):
                             ("infer", lambda: flash.flash_attention_infer(
                                 q, k, v, scale)),
                             ("SDPA fwd", lambda:
-                             F.scaled_dot_product_attention(q, k, v))))
+                             F.scaled_dot_product_attention(q, k, v)),
+                            ("dkv", lambda: flash.flash_bwd_dkv(
+                                q, k, v, o, do, m, l, scale)),
+                            ("dq", lambda: flash.flash_bwd_dq(
+                                q, k, v, do, m, l, di, scale))))
+                b2b += (", SDPA bwd " + format(time_b2b_ms(
+                    lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), do,
+                                                retain_graph=True)), ".4f"))
             print(f"flash {shape} {dname}: max|d|/max fwd "
                   f"{e['flash_fwd']:.3e} infer "
                   f"{e['flash_attention_infer']:.3e} dkv "
@@ -1415,6 +1428,7 @@ def flash_phase(torch, flash):
                   f"{bounds['flash_bwd_dkv'][0]:.4f} dq "
                   f"{bounds['flash_bwd_dq'][0]:.4f}{b2b}; plan {plan}",
                   flush=True)
+            del o_sdpa
     return rows, errs
 
 
@@ -1589,8 +1603,10 @@ def _bert_step_ms(torch, trainer, tokens, labels, n=5):
     return statistics.median(times), min(times), max(times)
 
 
-def _profile_bert(torch, trainer, tokens, labels):
-    """Device time by kernel over two steps (torch.profiler), per step."""
+def _profile_bert(torch, trainer, tokens, labels, step_ms):
+    """Device time by kernel over two steps (torch.profiler), per step: the
+    flash kernels' and the flash backward's (di pass, dkv, dq) share, and
+    the device's idle share of ``step_ms``, the host-clock step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1610,9 +1626,16 @@ def _profile_bert(torch, trainer, tokens, labels):
               flush=True)
         return
     flash_ms = sum(dev_us(e) for e in events if "flash_" in e.key) / 2e3
+    bwd = {part: sum(dev_us(e) for e in events if f"flash_{part}" in e.key)
+           / 2e3 for part in ("di", "dkv", "dq")}
+    bwd_ms = sum(bwd.values())
     print(f"bert profile: device time {total:.3f} ms a step, flash kernels "
-          f"{flash_ms:.3f} ms ({100 * flash_ms / total:.1f}%); top kernels "
-          f"(ms a step, calls a step):", flush=True)
+          f"{flash_ms:.3f} ms ({100 * flash_ms / total:.1f}%), flash "
+          f"backward {bwd_ms:.3f} ms ({100 * bwd_ms / total:.1f}%: di "
+          f"{bwd['di']:.3f}, dkv {bwd['dkv']:.3f}, dq {bwd['dq']:.3f}); "
+          f"device idle {100 * (1 - total / step_ms):.1f}% of the "
+          f"{step_ms:.3f} ms host-clock step; top kernels (ms a step, "
+          f"calls a step):", flush=True)
     for e in sorted(events, key=lambda e: -dev_us(e))[:14]:
         print(f"  {dev_us(e) / 2e3:9.3f}  {e.count // 2:5d}  "
               f"{e.key[:110]}", flush=True)
@@ -1752,7 +1775,7 @@ def bert_training_phase(torch, flash):
             print(f"bert train bf16 SDPA (yardstick): step median "
                   f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f})", flush=True)
             del tr_s
-            _profile_bert(torch, tr_f, tok, lab)
+            _profile_bert(torch, tr_f, tok, lab, results["flash_ms"])
         else:
             del tr_f, tr_d
         torch.cuda.empty_cache()

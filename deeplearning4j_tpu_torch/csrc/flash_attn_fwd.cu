@@ -68,8 +68,8 @@
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 #include "hopper_bf16.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -194,69 +194,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 namespace tc {
 
-using mma_bf16::bf16;
-using mma_bf16::cp_async16;
-using mma_bf16::cp_async_commit;
-using mma_bf16::cp_async_wait;
+using namespace flash_tc;
 
 constexpr int kWgs = 2;                  // warpgroups of a block
 constexpr int kRows = 64 * kWgs;         // query rows of a block
 constexpr int kThreadsTc = 128 * kWgs;
 constexpr int kKeys = 64;                // keys of a tile
 constexpr int kStages = 3;               // k and v tiles in the ring
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // q's tile and the ring, 1 KB to align them to 1024 bytes
 template <int D>
 constexpr int smem_bytes() {
   return (kRows * D + kStages * 2 * kKeys * D) * (int)sizeof(bf16) + 1024;
-}
-
-// Element offset of 16-byte chunk c of row r in a [R][D] bf16 tile kept as
-// D/64 column blocks of [R][64]: 128-byte rows whose chunks are XOR-ed
-// with the row mod 8, the 128-byte-swizzle layout of wgmma's descriptors
-// (and conflict-free for the epilogue's 4- and 16-byte accesses).
-template <int R>
-__device__ __forceinline__ int sw128(int r, int c) {
-  return (c / 8) * R * 64 + r * 64 + (((c % 8) ^ (r & 7)) << 3);
-}
-
-// rows r0 .. r0 + R - 1 of src [T, D] into dst, zeros from row T on
-template <int D, int R>
-__device__ __forceinline__ void load_rows(bf16* dst,
-                                          const bf16* __restrict__ src,
-                                          int r0, int Tn) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreadsTc) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = r0 + r < Tn;
-    cp_async16(dst + sw128<R>(r, c),
-               ok ? src + (size_t)(r0 + r) * D + c * 8 : src, ok);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// 2^x on the SFU (ex2.approx, relative error ~2^-22; results below 2^-126
-// flush to 0, far under what bf16 p or the f32 sum l can hold)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // A warpgroup owns 64 query rows. The m64n64 accumulator of s and the
@@ -286,10 +235,11 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int j) {
     bf16* ks = kv_s + (j % kStages) * 2 * kKeys * D;
-    load_rows<D, kKeys>(ks, k + base, j * kKeys, Tn);
-    load_rows<D, kKeys>(ks + kKeys * D, v + base, j * kKeys, Tn);
+    load_rows<D, kKeys, kThreadsTc>(ks, k + base, j * kKeys, Tn);
+    load_rows<D, kKeys, kThreadsTc>(ks + kKeys * D, v + base, j * kKeys,
+                                    Tn);
   };
-  load_rows<D, kRows>(q_s, q + base, q0, Tn);
+  load_rows<D, kRows, kThreadsTc>(q_s, q + base, q0, Tn);
 #pragma unroll
   for (int j = 0; j < kStages - 1; ++j) {
     if (j < tiles) load_kv(j);

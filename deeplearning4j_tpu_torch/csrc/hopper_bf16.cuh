@@ -1,6 +1,7 @@
 // Hopper (sm_90a) machinery for bf16 products fed by the Tensor Memory
 // Accelerator, shared by the kernels that use it (csrc/probe_matmul.cu,
-// csrc/flash_attn_fwd.cu):
+// and the bf16 flash kernels, csrc/flash_attn_fwd.cu and
+// csrc/flash_attn_bwd.cu):
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count,
 //   and the phase-parity wait;

@@ -1,7 +1,8 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a): mma.sync
 // m16n8k16 with f32 accumulators, ldmatrix fragment loads and cp.async
-// staging (csrc/flash_attn_fwd.cu's bf16 kernel stages with the last),
-// and the block-level product of csrc/fused_bottleneck.cu.
+// staging (the bf16 flash kernels stage with the last, through
+// csrc/flash_tc.cuh), and the block-level product of
+// csrc/fused_bottleneck.cu.
 //
 // The block product. 256 threads (8 warps) compute an mb x nb tile of
 // A[M, K] B[K, N] (bf16 in, f32 sums in registers). Each warp owns 32 rows

@@ -36,7 +36,7 @@ HEAD_DIMS = (64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # ---------------------------------------------------------------------------
-# the forward's launch plan
+# launch plans
 # ---------------------------------------------------------------------------
 
 PLAN_FIELDS = ("rows", "threads", "stages", "smem_bytes", "grid_x",
@@ -75,6 +75,53 @@ def fwd_source_plan(bh, t, d, dtype, device=None):
     if rc != 0:
         raise ValueError(f"flash forward: the source refuses B*H={bh}, "
                          f"T={t}, D={d} (code {rc})")
+    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
+
+
+BWD_WHICH = ("dkv", "dq")
+
+
+def bwd_plan(which, bh, t, d, dtype):
+    """The backward kernel's launch plan (``which`` is "dkv" or "dq") at
+    [B*H, T, D] in ``dtype``, as ``csrc/flash_attn_bwd.cu`` computes it
+    (``flash_attn_bwd_plan``), for the CPU tests: a dict of
+    ``PLAN_FIELDS``, ``rows`` being the block's own rows (keys for dkv,
+    queries for dq). bfloat16 runs the tensor-core kernels, 64 rows a
+    warpgroup: the dkv block (one warpgroup) keeps its k and v tiles and
+    rings q and do tiles of 64 queries with their m, l and di (f32) through
+    three stages; the dq block (two warpgroups) keeps q and do and rings k
+    and v tiles of 64 keys through three; 1 KB aligns the bf16 tiles.
+    float32 runs the SIMT kernels (64 rows, 256 threads, float tiles of
+    strides 68 and 65, and the dkv kernel's p tile beside ds)."""
+    if which not in BWD_WHICH or min(bh, t) < 1 or d not in HEAD_DIMS \
+            or dtype not in _SUFFIX:
+        raise ValueError(f"flash backward: no {which} plan for B*H={bh}, "
+                         f"T={t}, D={d}, {dtype}")
+    if dtype == torch.bfloat16:
+        wgs, stages, ring = (1 if which == "dkv" else 2), 3, 64
+        rows, threads = 64 * wgs, 128 * wgs
+        smem = (2 * rows * d + stages * 2 * ring * d) * 2 + 1024
+        if which == "dkv":
+            smem += stages * 3 * ring * 4
+    else:
+        rows, threads, stages = 64, 256, 1
+        floats = d * (rows + 4) * 2 + d * (rows + 1) * 2 + rows * (rows + 4)
+        smem = (floats + (rows * (rows + 4) if which == "dkv" else 0)) * 4
+    return dict(rows=rows, threads=threads, stages=stages, smem_bytes=smem,
+                grid_x=bh, grid_y=-(-t // rows))
+
+
+def bwd_source_plan(which, bh, t, d, dtype, device=None):
+    """The same plan asked of the compiled source (nothing launched)."""
+    out = torch.zeros(len(PLAN_FIELDS), dtype=torch.int32)
+    device = torch.device("cuda") if device is None else device
+    rc = build.query("flash_attn_bwd", "flash_attn_bwd_plan",
+                     "flash backward plan",
+                     [int(dtype == torch.bfloat16), BWD_WHICH.index(which),
+                      bh, t, d, out], device)
+    if rc != 0:
+        raise ValueError(f"flash backward: the source refuses {which} at "
+                         f"B*H={bh}, T={t}, D={d} (code {rc})")
     return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
 
 

@@ -354,3 +354,126 @@ def test_source_plan_matches_its_mirror(cuda, dtype):
     for b, h, t, d in _flash_shapes():
         assert flash.fwd_source_plan(b * h, t, d, dtype) == \
             flash.fwd_plan(b * h, t, d, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core backward's arithmetic, and the backward's launch plan
+# ---------------------------------------------------------------------------
+
+
+# the tiled backward against the port's plain version, relative to each
+# gradient's largest element: a few bf16 ulps (2^-8 relative each) where
+# p or ds round the other way
+TILED_BWD_TOL = 5e-3
+
+
+def _tiled_bf16_backward(q, k, v, do, m, l, di, scale, tile=64):
+    """csrc/flash_attn_bwd.cu's bf16 kernels written out in float32 torch,
+    to f32 rounding (the card sums each tile's products in its own order
+    and fuses s * scale2 - m2 into one fma): p = 2^(s scale log2(e) -
+    m log2(e)) (1/l) from m in natural units, ds = (dp - di) p scale. dk and
+    dv sum tiles of ``tile`` queries in order, p^T and ds^T rounded to bf16
+    per tile; dq sums tiles of ``tile`` keys in order, ds rounded to bf16
+    per tile. dq, dk and dv are rounded to bf16 once, at the end."""
+    q, k, v, do = (a.float() for a in (q, k, v, do))
+    t = q.shape[-2]
+    scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    m2 = m * torch.tensor(LOG2E, dtype=torch.float32)
+    li = 1.0 / l
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    dk, dv, dq = (torch.zeros(q.shape) for _ in range(3))
+    for j0 in range(0, t, tile):   # the dkv kernel's query tiles
+        j = slice(j0, j0 + tile)
+        st = k @ q[..., j, :].transpose(-1, -2)     # [keys, queries]
+        dpt = v @ do[..., j, :].transpose(-1, -2)
+        pt = torch.exp2(st * scale2 - m2[..., None, j]) * li[..., None, j]
+        dst = (dpt - di[..., None, j]) * pt * scale
+        dv = dv + bf(pt) @ do[..., j, :]
+        dk = dk + bf(dst) @ q[..., j, :]
+    for j0 in range(0, t, tile):   # the dq kernel's key tiles
+        j = slice(j0, j0 + tile)
+        s = q @ k[..., j, :].transpose(-1, -2)      # [queries, keys]
+        dp = do @ v[..., j, :].transpose(-1, -2)
+        p = torch.exp2(s * scale2 - m2[..., None]) * li[..., None]
+        ds = (dp - di[..., None]) * p * scale
+        dq = dq + bf(ds) @ k[..., j, :]
+    return tuple(a.to(torch.bfloat16) for a in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 200, 64), (2, 2, 130, 128),
+                                   (1, 3, 64, 64)])
+def test_tiled_bf16_backward_matches_the_references(shape):
+    """The backward kernels' tiled arithmetic, fed by the tiled forward's
+    o, m and l as on the card, against the Pallas module's reference VJP
+    (jax.vjp of mha_reference_no_custom_vjp, float32 on the same bf16
+    values: it rounds neither p nor ds, so the gap is bf16 rounding;
+    chip_smoke.py's bf16 backward gate, 2e-2 of each gradient's largest
+    element) and the port's flash_bwd_reference (which rounds p and ds to
+    bf16 too, from exp of s scale - m rather than exp2, so an element's
+    rounding flips by one bf16 ulp at most: TILED_BWD_TOL), at D = 64 and
+    128 and ragged T."""
+    q, k, v = _bf16_qkv(shape, 11)
+    do = torch.from_numpy(_qkv(shape, 12)[0]).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(shape[-1])
+    o, m, l = _tiled_bf16_forward(q, k, v, scale)
+    got = _tiled_bf16_backward(q, k, v, do, m, l,
+                               flash.flash_di_reference(o, do), scale)
+    jq, jk, jv = (a.float().numpy() for a in (q, k, v))
+    _, vjp = jax.vjp(lambda a, b, c: jflash.mha_reference_no_custom_vjp(
+        a, b, c, sm_scale=scale), jq, jk, jv)
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert _rel(g.float(), w) <= BF16_BWD_TOL
+    for g, w in zip(got, flash.flash_bwd_reference(q, k, v, o, do, m, l,
+                                                   scale)):
+        assert _rel(g.float(), w.float()) <= TILED_BWD_TOL
+
+
+@pytest.mark.parametrize("shape", _flash_shapes())
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("which", ["dkv", "dq"])
+def test_backward_plan_fits_and_covers_each_row_once(shape, dtype, which):
+    """At every shape chip_smoke.py drives: the block's shared memory fits
+    an H100, and the grid (b*h, tiles of the block's own rows) covers
+    every key row (dkv) or query row (dq) once."""
+    b, h, t, d = shape
+    plan = flash.bwd_plan(which, b * h, t, d, dtype)
+    assert set(plan) == set(flash.PLAN_FIELDS)
+    assert 0 < plan["smem_bytes"] <= SMEM_LIMIT
+    assert plan["threads"] <= 1024 and plan["threads"] % 32 == 0
+    assert plan["grid_x"] == b * h
+    rows = plan["rows"]
+    covered = [r0 + r for r0 in range(0, plan["grid_y"] * rows, rows)
+               for r in range(rows) if r0 + r < t]
+    assert covered == list(range(t))
+    assert (plan["grid_y"] - 1) * rows < t
+    if dtype == torch.bfloat16:
+        assert plan["rows"] == plan["threads"] // 2   # 64 a warpgroup
+        assert plan["stages"] >= 2
+
+
+def test_backward_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        flash.bwd_plan("dkv", 2, 64, 96, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash.bwd_plan("dq", 0, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash.bwd_plan("dq", 2, 0, 64, torch.float32)
+    with pytest.raises(ValueError):
+        flash.bwd_plan("dkv", 2, 64, 64, torch.float16)
+    with pytest.raises(ValueError):
+        flash.bwd_plan("dqkv", 2, 64, 64, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_source_plan_matches_its_mirror(cuda, dtype):
+    for b, h, t, d in _flash_shapes():
+        for which in flash.BWD_WHICH:
+            assert flash.bwd_source_plan(which, b * h, t, d, dtype) == \
+                flash.bwd_plan(which, b * h, t, d, dtype)
