@@ -1003,15 +1003,60 @@ STEP_NAMES = {"lstm": ("lstm_step_infer", "lstm_step_fwd", "lstm_step_bwd"),
               "gru": ("gru_step_infer", "gru_step_fwd", "gru_step_bwd")}
 
 
+def _device_by_kernel(torch, fn, n=3):
+    """Device time a call by kernel of ``fn()`` (torch.profiler over n
+    calls after one): [(ms, launches, kernel name)], largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "self_device_time_total", 0) > 0),
+                  reverse=True)
+
+
+def step_sweep_ms(torch, cell, bwd_args, reps):
+    """CUDA-event median of the step route's reverse sweep alone (its C
+    entry: T+1 launches chained by programmatic dependent launch), without
+    the dR pass that the backward wrapper runs after it."""
+    from deeplearning4j_tpu_torch.kernels import build
+
+    dhs, dhT = bwd_args[:2]
+    t, n, h = dhs.shape
+    g = 4 if cell == "lstm" else 3
+    dxw = torch.empty((t, n, g * h), device=dhs.device)
+    dh0 = torch.empty((n, h), device=dhs.device)
+    if cell == "lstm":
+        _, _, dcT, gates, cs, _, r, _, c0 = bwd_args
+        args = [dhs, dhT, gates, cs, r, c0, dxw, dcT.clone(), dh0, t, n, h]
+    else:
+        _, _, ru, rzc, cand, hs, r, h0 = bwd_args
+        args = [dhs, dhT, ru, rzc, cand, hs, r, h0, dxw, torch.empty_like(dxw),
+                torch.empty_like(dh0), dh0, t, n, h]
+    return time_ms(lambda: build.call("rnn_step", f"rnn_step_bwd_{cell}_f32",
+                                      f"{cell} sweep", args, dhs.device),
+                   reps)
+
+
 def step_route_phase(torch, lstm, gru, rnn_step):
     """The step-route kernels vs the plain versions at every STEP_SHAPES
     row, through the public wrappers (lstm_seq_*, gru_seq_*), which must
-    choose the step route there by shape; the backward's determinism; times
-    of each kernel, its plain version and cuDNN's layer."""
+    choose the step route there by shape; the launch plans as the source
+    gives them against their Python mirror (rnn_step.step_plan); the
+    backward's determinism; times of each kernel (single calls and back to
+    back), its plain version and cuDNN's layer; at the report shapes each
+    call's device time by kernel, the backward's reverse sweep apart from
+    its dR pass."""
     names = STEP_NAMES["lstm"] + STEP_NAMES["gru"]
     rows = {name: {} for name in names}
     errs = dict.fromkeys(names, 0.0)
     dev_ = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev_).multi_processor_count
     for kind, n, h in PERSISTENT_SHAPES:
         if not rnn_step.takes_persistent(kind, n, h, dev_):
             fail(f"{kind} N={n} H={h}: the step route was chosen where the "
@@ -1019,6 +1064,14 @@ def step_route_phase(torch, lstm, gru, rnn_step):
     for cell, t, n, h in STEP_SHAPES:
         g = 4 if cell == "lstm" else 3
         mod = lstm if cell == "lstm" else gru
+        for kind in rnn_step.STEP_KINDS:
+            mirror = rnn_step.step_plan(cell, kind, n, h, sms)
+            source = rnn_step.step_source_plan(cell, kind, n, h, sms, dev_)
+            if mirror != source:
+                fail(f"{cell} {kind} N={n} H={h}: the source's step plan "
+                     f"{source} differs from its mirror {mirror}")
+            print(f"{cell}_step_{kind} plan N={n} H={h}: {source}",
+                  flush=True)
         rng = np.random.default_rng([SEED, 9, g, t, n, h])
 
         def dev(*shape, scale=1.0):
@@ -1107,19 +1160,26 @@ def step_route_phase(torch, lstm, gru, rnn_step):
             i_ms = time_ms(lambda: persist[0](xw, r, *state), reps)
             pi_ms = time_ms(lambda: plain[0](xw, r, *state), plain_reps)
             li_ms = time_ms(lambda: layer(x, hc), reps)
+            ib_ms = time_b2b_ms(lambda: persist[0](xw, r, *state), 10)
+            lib_b_ms = time_b2b_ms(lambda: layer(x, hc), 10)
         f_ms = time_ms(lambda: persist[1](xw, r, *state), reps)
         b_ms = time_ms(lambda: persist[2](*bwd_args), reps)
+        fb_ms = time_b2b_ms(lambda: persist[1](xw, r, *state), 10)
+        bb_ms = time_b2b_ms(lambda: persist[2](*bwd_args), 10)
         pf_ms = time_ms(lambda: plain[1](xw, r, *state), plain_reps)
         pb_ms = time_ms(lambda: plain[2](*bwd_args), plain_reps)
         lf_ms = time_ms(lib_fwd, reps)
-        lb_ms = time_ms(lambda: torch.autograd.grad(
-            lib_hs, wrt, dhs, retain_graph=True), reps)
+        lbwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_hs, wrt, dhs, retain_graph=True)
+        lb_ms = time_ms(lbwd, reps)
+        lfb_ms, lbb_ms = time_b2b_ms(lib_fwd, 10), time_b2b_ms(lbwd, 10)
         del lib_hs
         bounds = ((lstm_bound, fwd_bound, bwd_bound) if cell == "lstm" else
                   (gru_infer_bound, gru_fwd_bound, gru_bwd_bound))
-        for name, ms, p_ms, l_ms, bound, err, lib in zip(
-                STEP_NAMES[cell], (i_ms, f_ms, b_ms), (pi_ms, pf_ms, pb_ms),
-                (li_ms, lf_ms, lb_ms), (bd(t, n, h) for bd in bounds),
+        for name, ms, b2b, p_ms, l_ms, l_b2b, bound, err, lib in zip(
+                STEP_NAMES[cell], (i_ms, f_ms, b_ms), (ib_ms, fb_ms, bb_ms),
+                (pi_ms, pf_ms, pb_ms), (li_ms, lf_ms, lb_ms),
+                (lib_b_ms, lfb_ms, lbb_ms), (bd(t, n, h) for bd in bounds),
                 (f"{err_i:.3e}", f"{err_f:.3e}",
                  f"{err_b:.3e} ({rel_b:.3e} of the largest)"),
                 ("layer", "training forward", "autograd backward")):
@@ -1127,9 +1187,37 @@ def step_route_phase(torch, lstm, gru, rnn_step):
                                          library_ms=l_ms, bound_ms=bound[0],
                                          bound_by=bound[1])
             print(f"{name} T={t} N={n} H={h} (step route): max|d| {err}; "
-                  f"kernel {ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN "
-                  f"{cell.upper()} {lib} {l_ms:.4f} ms, bound "
-                  f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+                  f"kernel {ms:.4f} ms (back to back {b2b:.4f}), plain "
+                  f"{p_ms:.4f} ms, cuDNN {cell.upper()} {lib} {l_ms:.4f} ms "
+                  f"(back to back {l_b2b:.4f}), bound {bound[0]:.4f} ms "
+                  f"({bound[1]})", flush=True)
+        if (t, n, h) != STEP_REPORT[cell]:
+            continue
+        # device time by kernel; the backward's sweep apart from its dR
+        # pass. The step kernels' launches overlap (each next step's blocks
+        # start while this one runs, and wait), so the profiler's sum of
+        # their times exceeds the time they take: the sweep is also timed
+        # alone, with CUDA events through its C entry.
+        calls = [lambda: persist[0](xw, r, *state),
+                 lambda: persist[1](xw, r, *state),
+                 lambda: persist[2](*bwd_args)]
+        sweep_ms = step_sweep_ms(torch, cell, bwd_args, reps)
+        for name, fn in zip(STEP_NAMES[cell], calls):
+            with torch.no_grad():
+                split = _device_by_kernel(torch, fn)
+            if not split:
+                print(f"{name} T={t} N={n} H={h}: no device time in the "
+                      f"trace: not measured", flush=True)
+                continue
+            steps = sum(ms for ms, _, key in split if "step_" in key)
+            dr = sum(ms for ms, _, key in split if "_bwd_dr_" in key)
+            alone = (f"; the sweep alone {sweep_ms:.4f} ms (CUDA events)"
+                     if name.endswith("bwd") else "")
+            print(f"{name} T={t} N={n} H={h} device by kernel: step kernels "
+                  f"{steps:.4f} ms (launches overlapping), dR pass {dr:.4f} "
+                  f"ms{alone}; " + "; ".join(
+                      f"{key[:56]} x{cnt} {ms:.4f}" for ms, cnt, key in
+                      split[:4]), flush=True)
     return rows, errs
 
 
@@ -1211,8 +1299,10 @@ def wide_rnn_phase(torch, lstm, gru, rnn_step):
                 y - gpu.output(x).cpu().numpy()).max()))
         for fn in counters:
             fn.launches = 0
+        t0 = time.perf_counter()
         gpu.fit(f, l)
         torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
         fitted = {fn.__name__: fn.launches for fn in counters}
         cpu.fit(f, l)
         rel = abs(gpu.score() - cpu.score()) / abs(cpu.score())
@@ -1220,7 +1310,8 @@ def wide_rnn_phase(torch, lstm, gru, rnn_step):
         print(f"wide {cell.upper()} H={h}: warmup {len(warmed)} shapes, "
               f"{len(requests)} requests in {len(dispatches)} dispatches "
               f"{serve_s:.4f} s, served vs net.output max|d| {worst:.3e}; "
-              f"launches serving {served}, fit step {fitted}; fit loss card "
+              f"launches serving {served}, fit step {fitted}; fit step "
+              f"{fit_s:.4f} s (the net's first, host clock); fit loss card "
               f"{gpu.score()} CPU {cpu.score()} (rel {rel:.3e})", flush=True)
         names = STEP_NAMES[cell]
         n_layers = 2 if cell == "lstm" else 1

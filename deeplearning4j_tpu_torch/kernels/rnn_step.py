@@ -6,9 +6,12 @@ a whole sequence and need their grid co-resident. Past a width that
 depends on N (the LSTM forward near H = 435, its backward near 300, the
 GRU near 1,056) they cannot launch. There the JAX package leaves its
 Pallas kernels for a ``lax.scan``; here ``csrc/rnn_step.cu`` takes over:
-one ordinary launch per time step, R read from L2/HBM (design and bounds
-in its header). The backward's dR (and drb) come from the persistent
-sources' dR passes, which take any H.
+one launch per time step, R read from L2/HBM once a step, the reduction
+split across a thread-block cluster, the steps chained by programmatic
+dependent launch (design and bounds in its header). The backward's dR
+(and drb) come from the persistent sources' dR passes, which take any H.
+``step_plan`` mirrors the source's launch plan (``rnn_step_plan``) for the
+CPU tests, and ``step_cells`` which block finalises each output cell.
 
 The persistent sources answer, by shape and before any launch, whether
 their kernel would launch on this card (``lstm_seq_fits``,
@@ -62,6 +65,130 @@ def takes_persistent(kind, n, hsz, device) -> bool:
         raise RuntimeError(f"{kind} route query at N={n} H={hsz}: code "
                            f"{rc}")
     return rc == 0
+
+
+# ---------------------------------------------------------------------------
+# launch plans
+# ---------------------------------------------------------------------------
+
+STEP_CELLS = ("lstm", "gru")
+STEP_KINDS = ("infer", "fwd", "bwd")
+PLAN_FIELDS = ("units", "cluster", "rows", "tiles", "rows_per_thread",
+               "row_threads", "col_threads", "splits", "threads", "stages",
+               "smem_bytes", "blocks", "k_per_rank")
+_CHUNK, _PAD, _STAGES = 64, 68, 3
+_SMEM_PER_SM = 233472   # bytes an H100 SM gives its blocks
+_FWD_THREADS, _BWD_THREADS, _MAX_ROWS, _RANK_K = 384, 256, 64, 1024
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def step_plan(cell, kind, n, hsz, sms):
+    """The step kernels' launch plan for ``cell`` ("lstm", "gru") and
+    ``kind`` ("infer", "fwd", "bwd") at batch n and width hsz on a card of
+    ``sms`` SMs, as ``csrc/rnn_step.cu`` computes it (``rnn_step_plan``):
+    a dict of ``PLAN_FIELDS``.
+
+    A block owns ``units`` hidden units (G*units columns of R forward,
+    units rows of R backward) and every row, in ``tiles`` row tiles of
+    ``rows``; ``cluster`` blocks share the slice and split the reduction
+    (H forward, G*H backward) into ranges of ``k_per_rank``. Units and
+    cluster give the most blocks not above ``sms``, a rank summing at
+    least two chunks of 64 and none idle; among those, the smallest cluster whose ranks
+    sum at most 1024 of k, else the shortest sum a rank (as measured on
+    an H100: ``scripts/rnn_step_ab.py``). Each thread holds
+    ``rows_per_thread`` rows (8 from 32 rows, 4 from 4, else 1) x 4
+    columns; ``splits`` thread groups share each chunk's k, as many as 384 threads (forward) or 256 (backward)
+    allow. The shared memory is the larger of a ring of ``stages`` (R's
+    chunk and the rows' chunk, rows padded to 68 floats) and the partial
+    tile [splits, rows, columns], then the [rows, columns] sums that the
+    cluster's ranks send the rank finalising them: three stages, or two
+    where only two let a block of at most 256 threads share its SM with
+    the next step's."""
+    if cell not in STEP_CELLS or kind not in STEP_KINDS or min(
+            n, hsz, sms) < 1:
+        raise ValueError(f"step route: no plan for {cell} {kind} at N={n}, "
+                         f"H={hsz}, {sms} SMs")
+    g = 4 if cell == "lstm" else 3
+    bwd = kind == "bwd"
+    k = g * hsz if bwd else hsz
+    best = (0, 0, 0, 0)   # (blocks, score, units, cluster)
+    for units in ((16, 32, 64) if bwd else (16, 32)):
+        for cluster in (1, 2, 4):
+            blocks = _cdiv(hsz, units) * cluster
+            rank_k = _cdiv(k, cluster)
+            kr = _cdiv(rank_k, _CHUNK) * _CHUNK
+            if blocks > sms or (cluster > 1 and (
+                    k < 2 * _CHUNK * cluster or (cluster - 1) * kr >= k)):
+                continue
+            score = -cluster if rank_k <= _RANK_K else -_RANK_K - rank_k
+            if (blocks, score) > best[:2]:
+                best = (blocks, score, units, cluster)
+    if best[0] == 0:
+        units = 64 if bwd else 32
+        best = (_cdiv(hsz, units), 0, units, 1)
+    blocks, _, units, cluster = best
+    tiles = _cdiv(n, _MAX_ROWS)
+    rows = _cdiv(n, tiles)
+    tm = 8 if rows >= 32 else 4 if rows >= 4 else 1
+    rth = _cdiv(rows, tm)
+    cols = units if bwd else g * units
+    cth = cols // 4
+    splits = _CHUNK // 4
+    max_threads = _BWD_THREADS if bwd else _FWD_THREADS
+    while splits > 1 and rth * cth * splits > max_threads:
+        splits //= 2
+    rt, threads = rth * tm, rth * cth * splits
+    stage = (units * _PAD if bwd else _CHUNK * cols) + rt * _PAD
+    smem = {n: 4 * (max(n * stage, splits * rt * cols) + rt * cols)
+            for n in (_STAGES, 2)}
+    pairs = {n: 2 * (b + 1024) <= _SMEM_PER_SM for n, b in smem.items()}
+    stages = 2 if (threads <= _BWD_THREADS and not pairs[_STAGES]
+                   and pairs[2]) else _STAGES
+    return dict(units=units, cluster=cluster, rows=rows, tiles=tiles,
+                rows_per_thread=tm, row_threads=rth, col_threads=cth,
+                splits=splits, threads=threads, stages=stages,
+                smem_bytes=smem[stages], blocks=blocks,
+                k_per_rank=_cdiv(_cdiv(k, cluster), _CHUNK) * _CHUNK)
+
+
+def step_source_plan(cell, kind, n, hsz, sms, device=None):
+    """The same plan asked of the compiled source (nothing launched)."""
+    out = torch.zeros(len(PLAN_FIELDS), dtype=torch.int32)
+    device = torch.device("cuda") if device is None else device
+    rc = build.query("rnn_step", "rnn_step_plan", "step route plan",
+                     [STEP_CELLS.index(cell), STEP_KINDS.index(kind), n, hsz,
+                      sms, out], device)
+    if rc != 0:
+        raise ValueError(f"step route: the source refuses {cell} {kind} at "
+                         f"N={n}, H={hsz}, {sms} SMs (code {rc})")
+    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
+
+
+def step_cells(plan, n, hsz):
+    """Which block finalises which output cell, as the step kernels assign
+    them: for each block (slice = block // cluster, rank = block % cluster)
+    and row tile, the rank's share of the tile's rows x units cells, cells
+    in row-major order split into ``cluster`` equal ranges. Returns a
+    LongTensor [blocks * tiles, share] of cell ids n * hsz + unit (-1 where
+    a share runs past the tile or a unit past hsz)."""
+    units, cluster, rows = plan["units"], plan["cluster"], plan["rows"]
+    out = []
+    for block in range(plan["blocks"]):
+        slice_, rank = divmod(block, cluster)
+        for tile in range(plan["tiles"]):
+            n0 = tile * rows
+            cells = min(rows, n - n0) * units
+            share = _cdiv(cells, cluster)
+            e = torch.arange(rank * share, (rank + 1) * share)
+            unit = slice_ * units + e % units
+            ids = (n0 + e // units) * hsz + unit
+            out.append(torch.where((e < cells) & (unit < hsz), ids, -1))
+    width = max(len(x) for x in out)
+    return torch.stack([torch.nn.functional.pad(x, (0, width - len(x)),
+                                                value=-1) for x in out])
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,15 @@
   took before keep them. The step kernels themselves run only on the
   card: the cuda-marked tests here and ``chip_smoke.py`` hold them
   against the plain versions (1e-4 forward, 1e-4 of each output's
-  largest element backward).
+  largest element backward), also past one row tile (N = 65, 130), at a
+  width that is not a multiple of the units (520) or of 4 (33, 130) and
+  at N = 1, with the backward's bits repeated.
+- The step kernels' launch plan: ``kernels/rnn_step.py`` ``step_plan``
+  mirrors the source's ``rnn_step_plan`` (asked on the card); on the CPU,
+  over a grid of (N, H) at 132 SMs, the plan's threads cover its tile,
+  its cluster ranks cover the reduction, two blocks fit an SM's shared
+  memory, and ``step_cells`` (which block finalises which cell) covers
+  every (n, j) cell exactly once.
 """
 
 import jax.numpy as jnp
@@ -231,3 +239,142 @@ def test_cuda_gru_step_route_matches_plain(cuda):
     want = gru.gru_seq_bwd_reference(dhs, h0, ru, rzc, cand, hs, r, h0)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+PLAN_NS = [1, 5, 64, 65, 130]
+PLAN_HS = [33, 512, 520, 1024, 2048]
+SMS = 132
+SMEM_PER_SM = 233472   # bytes of shared memory an H100 SM gives its blocks
+
+
+@pytest.mark.parametrize("hsz", PLAN_HS)
+@pytest.mark.parametrize("n", PLAN_NS)
+@pytest.mark.parametrize("kind", rnn_step.STEP_KINDS)
+@pytest.mark.parametrize("cell", rnn_step.STEP_CELLS)
+def test_step_plan_covers_every_cell_once(cell, kind, n, hsz):
+    plan = rnn_step.step_plan(cell, kind, n, hsz, SMS)
+    g = 4 if cell == "lstm" else 3
+    k = g * hsz if kind == "bwd" else hsz
+    cols = plan["units"] * (1 if kind == "bwd" else g)
+    assert plan["blocks"] == -(-hsz // plan["units"]) * plan["cluster"]
+    assert plan["blocks"] <= SMS and plan["cluster"] in (1, 2, 4)
+    # the ranks' k ranges cover the reduction, in whole chunks of 64
+    assert plan["k_per_rank"] % 64 == 0
+    assert plan["cluster"] * plan["k_per_rank"] >= k
+    assert (plan["cluster"] - 1) * plan["k_per_rank"] < k
+    # row tiles of at most 64 cover the batch; the threads cover a tile
+    assert plan["rows"] <= 64 and plan["tiles"] * plan["rows"] >= n
+    assert (plan["tiles"] - 1) * plan["rows"] < n
+    assert plan["row_threads"] * plan["rows_per_thread"] >= plan["rows"]
+    assert plan["col_threads"] * 4 == cols
+    assert plan["threads"] == (plan["row_threads"] * plan["col_threads"]
+                               * plan["splits"]) <= (
+        256 if kind == "bwd" else 384)
+    assert 16 % plan["splits"] == 0 and plan["stages"] in (2, 3)
+    # a block fits an SM (1 KB reserved per block); two stages only where
+    # they let two blocks of at most 256 threads share one
+    assert plan["smem_bytes"] + 1024 <= SMEM_PER_SM
+    if plan["stages"] == 2:
+        assert plan["threads"] <= 256
+        assert 2 * (plan["smem_bytes"] + 1024) <= SMEM_PER_SM
+    cells = rnn_step.step_cells(plan, n, hsz).flatten()
+    cells = cells[cells >= 0]
+    assert torch.equal(torch.bincount(cells, minlength=n * hsz),
+                       torch.ones(n * hsz, dtype=torch.long))
+
+
+@pytest.mark.parametrize("cell,kind,n,hsz,units,cluster", [
+    ("gru", "infer", 64, 2048, 32, 2),    # R once a step, 128 blocks
+    ("gru", "fwd", 1, 2048, 32, 2),
+    ("gru", "bwd", 64, 2048, 64, 4),
+    ("lstm", "infer", 32, 512, 16, 4),
+    ("lstm", "bwd", 32, 512, 16, 4),
+    ("lstm", "fwd", 64, 1024, 16, 2),    # the smaller cluster
+    ("lstm", "bwd", 64, 1024, 32, 4),
+])
+def test_step_plan_fills_the_card_at_the_report_shapes(cell, kind, n, hsz,
+                                                       units, cluster):
+    plan = rnn_step.step_plan(cell, kind, n, hsz, SMS)
+    assert (plan["units"], plan["cluster"], plan["blocks"]) == (
+        units, cluster, 128)
+    assert plan["tiles"] == 1 and plan["rows"] == n
+
+
+def test_step_plan_follows_the_sm_count():
+    small = rnn_step.step_plan("gru", "fwd", 64, 2048, 66)
+    assert small["blocks"] <= 66
+    wide = rnn_step.step_plan("gru", "fwd", 64, 8192, SMS)   # > one wave
+    assert (wide["units"], wide["cluster"], wide["blocks"]) == (32, 1, 256)
+
+
+@pytest.mark.parametrize("args", [("rnn", "fwd", 1, 8, 132),
+                                  ("gru", "train", 1, 8, 132),
+                                  ("lstm", "fwd", 0, 8, 132),
+                                  ("lstm", "bwd", 1, 0, 132),
+                                  ("gru", "infer", 1, 8, 0)])
+def test_step_plan_refuses_what_the_source_refuses(args):
+    with pytest.raises(ValueError):
+        rnn_step.step_plan(*args)
+
+
+def test_step_source_plan_asks_the_source(asked):
+    dev = torch.device("cuda", 0)
+    got = rnn_step.step_source_plan("gru", "bwd", 64, 2048, 132, dev)
+    (name, entry, args, device), = asked
+    assert (name, entry, args[:5], device) == (
+        "rnn_step", "rnn_step_plan", [1, 2, 64, 2048, 132], dev)
+    assert args[5].dtype == torch.int32 and args[5].numel() == len(
+        rnn_step.PLAN_FIELDS)
+    assert got == dict.fromkeys(rnn_step.PLAN_FIELDS, 0)
+    asked.rc = -3
+    with pytest.raises(ValueError):
+        rnn_step.step_source_plan("gru", "bwd", 0, 2048, 132, dev)
+
+
+# (cell, T, N, H): more than one row tile, a width that is not a multiple
+# of the units or of 4, N = 1 at H = 2048
+EDGE_SHAPES = [("lstm", 6, 65, 520), ("gru", 6, 65, 520),
+               ("lstm", 5, 130, 512), ("gru", 5, 130, 520),
+               ("lstm", 4, 1, 2048), ("gru", 4, 1, 2048),
+               ("lstm", 7, 5, 33), ("gru", 7, 3, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,t,n,h", EDGE_SHAPES)
+def test_cuda_step_kernels_at_the_edges(cuda, cell, t, n, h):
+    mod = lstm if cell == "lstm" else gru
+    if cell == "lstm":
+        xw, r, h0, c0 = (a.to(cuda) for a in _lstm_data(t, n, h, 4))
+        state = (h0, c0)
+    else:
+        xw, r, rb, h0 = (a.to(cuda) for a in _gru_data(t, n, h, 5))
+        state = (rb, h0)
+    infer, fwd, bwd = (getattr(rnn_step, f"{cell}_step_{k}")
+                       for k in ("infer", "fwd", "bwd"))
+    with torch.no_grad():
+        got = infer(xw, r, *state)
+    for g, w in zip(got, getattr(mod, f"{cell}_seq_infer_reference")(
+            xw, r, *state)):
+        assert float((g - w).abs().max()) < 1e-4
+    out = fwd(xw, r, *state)
+    for g, w in zip(out, getattr(mod, f"{cell}_seq_fwd_reference")(
+            xw, r, *state)):
+        assert float((g - w).abs().max()) < 1e-4
+    dhs = torch.linspace(-1, 1, out[0].numel(), device=cuda).reshape(
+        out[0].shape)
+    args = (dhs, h0, c0, out[1], out[2], out[0], r, h0, c0) if \
+        cell == "lstm" else (dhs, h0, *out[1:], out[0], r, h0)
+    got = bwd(*args)
+    again = bwd(*args)
+    for g, w in zip(got, getattr(mod, f"{cell}_seq_bwd_reference")(*args)):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,t,n,h", EDGE_SHAPES)
+def test_cuda_step_plan_matches_the_source(cuda, cell, t, n, h):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kind in rnn_step.STEP_KINDS:
+        assert rnn_step.step_source_plan(cell, kind, n, h, sms, cuda) == \
+            rnn_step.step_plan(cell, kind, n, h, sms)
