@@ -40,14 +40,17 @@ from a numpy seed:
   encoder served through InferenceSession and FnServable (N = 1..16 at
   T=512, 12 flash inference launches a dispatch) against a direct
   forward;
-- the tool probes' bf16 tensor-core kernels (csrc/probe_matmul.cu on
-  wgmma fed by TMA, csrc/fused_bottleneck.cu) against their plain
+- the tool probes' bf16 tensor-core kernels (csrc/probe_matmul.cu and
+  csrc/fused_bottleneck.cu, both on wgmma fed by TMA) against their plain
   versions: matmul_bf16 at the 9 probe shapes where the reference ran
   Pallas (its launch plan against its Python mirror; at the report shape
   its and cuBLAS's times back to back as well as single), the six
   bottleneck variants at ResNet-50's four stage widths (batch 256, g = 1
-  and 4), a control the check must catch, times beside cuBLAS and the
-  cuBLAS + cuDNN block; then the three probe entry points at full width
+  and 4) and two ragged shapes, each twice (the bits must repeat), their
+  launch plans against the Python mirror, a control the check must
+  catch, times beside cuBLAS and the cuBLAS + cuDNN block (single and
+  back to back at every stage, with the share of the bf16 peak); then
+  the three probe entry points at full width
   (probe_matmul, probe_fused_block --stage s2 --batch 256 --check,
   probe_fused_parts), each launching its kernels.
 
@@ -766,8 +769,8 @@ def slice_phase(torch, lstm, net):
         sums = y.sum(axis=1)
         if np.abs(sums - 1.0).max() > 1e-5:
             fail(f"softmax rows sum to {sums.min()}..{sums.max()}")
-        direct = net.output(x).cpu().numpy()
-        ref = plain.output(x).numpy()
+        direct = net.output(x).toNumpy()
+        ref = plain.output(x).toNumpy()
         worst_gpu = max(worst_gpu, float(np.abs(y - direct).max()))
         worst_plain = max(worst_plain, float(np.abs(y - ref).max()))
     print(f"slice: served vs net.output max|d| {worst_gpu:.3e}, served vs "
@@ -778,9 +781,9 @@ def slice_phase(torch, lstm, net):
         fail(f"served vs plain forward {worst_plain:.3e} > {PLAIN_TOL}")
 
     x = requests[0]
-    full = net.output(x).cpu().numpy()
+    full = net.output(x).toNumpy()
     net.rnnClearPreviousState()
-    steps = np.stack([net.rnnTimeStep(x[:, :, k]).cpu().numpy()
+    steps = np.stack([net.rnnTimeStep(x[:, :, k]).toNumpy()
                       for k in range(5)], axis=-1)
     step_err = float(np.abs(steps - full[:, :, :5]).max())
     print(f"slice: rnnTimeStep x5 vs output max|d| {step_err:.3e}",
@@ -954,9 +957,9 @@ def gru_slice_phase(torch, gru, net):
         if np.abs(y.sum(axis=1) - 1.0).max() > 1e-5:
             fail("GRU softmax rows do not sum to 1")
         worst_gpu = max(worst_gpu,
-                        float(np.abs(y - net.output(x).cpu().numpy()).max()))
+                        float(np.abs(y - net.output(x).toNumpy()).max()))
         worst_plain = max(worst_plain,
-                          float(np.abs(y - plain.output(x).numpy()).max()))
+                          float(np.abs(y - plain.output(x).toNumpy()).max()))
     print(f"gru slice: served vs net.output max|d| {worst_gpu:.3e}, served "
           f"vs plain CPU forward max|d| {worst_plain:.3e}", flush=True)
     if worst_gpu > SERVE_TOL:
@@ -966,10 +969,10 @@ def gru_slice_phase(torch, gru, net):
 
     # generation: 20 single tokens at N=1, each a [1, 1] id
     tokens = rng.integers(0, vocab, size=(1, 20))
-    full = net.output(tokens).cpu().numpy()
+    full = net.output(tokens).toNumpy()
     net.rnnClearPreviousState()
     gru.gru_seq_infer.launches = 0
-    steps = np.stack([net.rnnTimeStep(tokens[:, k:k + 1]).cpu().numpy()
+    steps = np.stack([net.rnnTimeStep(tokens[:, k:k + 1]).toNumpy()
                       for k in range(20)], axis=-1)
     generated = gru.gru_seq_infer.launches
     step_err = float(np.abs(steps - full).max())
@@ -1296,7 +1299,7 @@ def wide_rnn_phase(torch, lstm, gru, rnn_step):
             if y.shape != (x.shape[0], v, seq) or not np.isfinite(y).all():
                 fail(f"{cell} wide: answer {y.shape} for {x.shape}")
             worst = max(worst, float(np.abs(
-                y - gpu.output(x).cpu().numpy()).max()))
+                y - gpu.output(x).toNumpy()).max()))
         for fn in counters:
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1940,6 +1943,10 @@ MATMUL_REPORT = (50176, 1024, 256)
 # magnitude (the control below).
 PROBE_TOL = 1e-2
 PROBE_MEAN_TOL = 1e-3
+# (n, h, C, F, g) beside the stages: F a multiple of 16 but not of 64 (and
+# a 784-row group in bands of 704 and 80); C and F not multiples of 64 and
+# a 162-row group in bands of 128 and 34
+PROBE_RAGGED = ((8, 14, 1024, 80, 4), (4, 9, 208, 336, 2))
 PROBE_NAMES = ("matmul_bf16", "fused_block", "fused_block2d",
                "block_matmuls", "block_pad", "block_mask", "block_folded")
 PROBE_SOURCES = {"matmul_bf16": "probe_matmul.cu"}
@@ -2003,6 +2010,41 @@ def _bottleneck_calls(bn, x, p, h, g):
     return calls
 
 
+def _bottleneck_plans(bn, n, h, c, f, g, sms):
+    """The six variants' launch plans as the source gives them, each held
+    against its Python mirror; fused_block2d's."""
+    for name in bn.VARIANTS:
+        plan = bn.source_plan(name, n, h, c, f, g)
+        mirror = bn.plan(name, n, h, c, f, g, sms)
+        if plan != mirror:
+            fail(f"{name} plan at {(n, h, c, f, g)}: the source gives {plan}"
+                 f", the mirror {mirror}")
+    return bn.source_plan("fused_block2d", n, h, c, f, g)
+
+
+def _bottleneck_gates(torch, bn, calls, errs, where, label):
+    """Each variant once against its plain version (the gate) and once
+    more: the bits must repeat; its launch counter must rise."""
+    parts = []
+    for name, (kernel, plain) in calls.items():
+        fn = getattr(bn, name)
+        before = fn.launches
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        if fn.launches != before + 2:
+            fail(f"{name} launch counter did not rise at {where}")
+        if not bool((got == again).all()):
+            fail(f"{name} at {where}: a second call gave other bits")
+        e = _bf16_errs(got, plain())
+        _gate(name, where, e)
+        errs[name] = max(errs[name], e[3])
+        parts.append(f"{name} {e[0]:.2e}/{e[1]:.2e}/{e[2]:.2e}")
+        del got, again
+    print(f"{label}, max|d|/max / mean|d|/mean / differing (bits "
+          f"repeated): {'; '.join(parts)}", flush=True)
+
+
 def _gate(name, where, errs):
     rel, mean, _, _ = errs
     if rel > PROBE_TOL or mean > PROBE_MEAN_TOL:
@@ -2017,9 +2059,13 @@ def probe_kernel_phase(torch, pm, bn):
     as the source gives it against its Python mirror; at the report shape
     also back-to-back times, its and cuBLAS's), the six
     bottleneck variants at ResNet-50's four stages (batch 256) with g = 1
-    and 4, non-zero affines and biases; a control that the gate must
+    and 4 and at PROBE_RAGGED, non-zero affines and biases, each launched
+    twice (the bits must repeat) with its launch plan as the source gives
+    it held against the Python mirror; a control that the gate must
     catch; times of each kernel, its plain version and the library
-    yardstick (cuBLAS; the cuBLAS + cuDNN block) at the report shapes."""
+    yardstick (cuBLAS; the cuBLAS + cuDNN block) at the report shapes, and
+    at every stage fused_block2d's and the block's single and back-to-back
+    times with fused_block2d's share of the bf16 peak."""
     from deeplearning4j_tpu_torch.tools import probe_fused_block as pfb
     from deeplearning4j_tpu_torch.tools import probe_matmul as pmt
     from deeplearning4j_tpu_torch.utils.convert import (
@@ -2070,23 +2116,11 @@ def probe_kernel_phase(torch, pm, bn):
         x = pfb.make_input(int(rng.integers(1 << 30)), PROBE_BATCH, h, c,
                            "cuda")
         for g in PROBE_GS:
+            _bottleneck_plans(bn, PROBE_BATCH, h, c, f, g, sms)
             calls = _bottleneck_calls(bn, x, p, h, g)
-            parts = []
-            for name, (kernel, plain) in calls.items():
-                fn = getattr(bn, name)
-                before = fn.launches
-                got = kernel()
-                torch.cuda.synchronize()
-                if fn.launches != before + 1:
-                    fail(f"{name} launch counter did not rise at {stage}")
-                e = _bf16_errs(got, plain())
-                _gate(name, f"{stage} g={g}", e)
-                errs[name] = max(errs[name], e[3])
-                parts.append(f"{name} {e[0]:.2e}/{e[1]:.2e}/{e[2]:.2e}")
-                del got
-            print(f"bottleneck {stage} (h, C, F = {h}, {c}, {f}) n="
-                  f"{PROBE_BATCH} g={g}, max|d|/max / mean|d|/mean / "
-                  f"differing: {'; '.join(parts)}", flush=True)
+            _bottleneck_gates(torch, bn, calls, errs, f"{stage} g={g}",
+                              f"bottleneck {stage} (h, C, F = {h}, {c}, "
+                              f"{f}) n={PROBE_BATCH} g={g}")
             if (stage, g) != PROBE_REPORT:
                 continue
             # control: block_pad (taps wrap across image edges) held
@@ -2107,7 +2141,7 @@ def probe_kernel_phase(torch, pm, bn):
                                   plain_ms=time_ms(plain, 3),
                                   library_ms=lib_ms, bound_ms=bound_ms,
                                   bound_by=bound_by)
-            plans = {name: bn.plan(name, PROBE_BATCH, h, c, f, g)
+            plans = {name: bn.source_plan(name, PROBE_BATCH, h, c, f, g)
                      for name in ("fused_block2d", "block_matmuls")}
             print(f"bottleneck {stage} g={g} ms: " + ", ".join(
                 f"{name} {r['ms']:.4f} (plain {r['plain_ms']:.2f})"
@@ -2115,20 +2149,43 @@ def probe_kernel_phase(torch, pm, bn):
                   f"; cuBLAS+cuDNN block {lib_ms:.4f}, three cuDNN convs "
                   f"{conv_ms:.4f}; bound {bound_ms:.4f} ({bound_by}); "
                   f"plans {plans}", flush=True)
-        # every stage's time at the sweep's g, beside the library block
+        # every stage's time at the sweep's g, single and back to back,
+        # beside the library block, and the share of the bf16 peak
         g = PROBE_REPORT[1]
-        plan = bn.plan("fused_block2d", PROBE_BATCH, h, c, f, g)
+        plan = bn.source_plan("fused_block2d", PROBE_BATCH, h, c, f, g)
         k_ms = time_ms(lambda: bn.fused_block2d(x, p, g), 10)
+        k_b2b = time_b2b_ms(lambda: bn.fused_block2d(x, p, g))
         lib_ms = time_ms(lambda: pfb.library_block(x, p), 10)
+        lib_b2b = time_b2b_ms(lambda: pfb.library_block(x, p))
         bound_ms, bound_by = bottleneck_bound("fused_block2d", PROBE_BATCH,
                                               h, c, f)
-        print(f"bottleneck {stage} g={g}: fused_block2d {k_ms:.4f} ms, "
-              f"cuBLAS+cuDNN block {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        share = PROBE_BATCH * pfb.block_flops(h, c, f) / (
+            k_b2b * 1e-3) / PEAK_BF16
+        print(f"bottleneck {stage} g={g}: fused_block2d {k_ms:.4f} ms, back "
+              f"to back {k_b2b:.4f} ms ({share:.1%} of the bf16 peak); "
+              f"cuBLAS+cuDNN block {lib_ms:.4f} ms, "
+              f"back to back {lib_b2b:.4f} ms; bound {bound_ms:.4f} ms "
               f"({bound_by}); band {plan['band_rows']} rows, y1 for "
               f"{plan['y1_rows']} ({plan['y1_rows'] / plan['band_rows']:.3f}"
-              f"x of conv1), {plan['smem_bytes']} B shared", flush=True)
+              f"x of conv1), {plan['items']} items on {plan['grid']} blocks, "
+              f"{plan['smem_bytes']} B shared", flush=True)
         del x, p, calls
         torch.cuda.empty_cache()
+    # ragged shapes: F a multiple of 16 but not of 64; a short last band
+    for n, h, c, f, g in PROBE_RAGGED:
+        rng = np.random.default_rng([SEED, 10, h, f])
+        tree = pfb.make_params(int(rng.integers(1 << 30)), c, f)
+        for key in ("s1", "b1", "s2", "b2", "s3", "b3"):
+            tree[key] = (tree[key] + rng.normal(size=tree[key].shape) * 0.1
+                         ).astype(np.float32)
+        p = bottleneck_params_from_numpy(tree, "cuda")
+        x = pfb.make_input(int(rng.integers(1 << 30)), n, h, c, "cuda")
+        plan = _bottleneck_plans(bn, n, h, c, f, g, sms)
+        _bottleneck_gates(torch, bn, _bottleneck_calls(bn, x, p, h, g),
+                          errs, f"ragged {(n, h, c, f, g)}",
+                          f"bottleneck ragged (n, h, C, F, g) = "
+                          f"{(n, h, c, f, g)}, {plan['bands']} bands of "
+                          f"{plan['band_rows']} of {g * h * h} rows")
     if not all(fn.launches for fn in fns):
         fail("a probe kernel was never launched in its comparison")
     return rows, errs

@@ -11,10 +11,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.ndarray import INDArray
+
 
 def _host_array(x, dtype=None):
     """Host numpy array of a batch: free for numpy, a copy for a tensor
-    (which may lie on the GPU)."""
+    or an INDArray (which may lie on the GPU)."""
+    if isinstance(x, INDArray):
+        x = x.torch()
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.asarray(x, dtype=dtype)

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) machinery for bf16 products fed by the Tensor Memory
 // Accelerator, shared by the kernels that use it (csrc/probe_matmul.cu,
-// and the bf16 flash kernels, csrc/flash_attn_fwd.cu and
-// csrc/flash_attn_bwd.cu):
+// csrc/fused_bottleneck.cu, and the bf16 flash kernels,
+// csrc/flash_attn_fwd.cu and csrc/flash_attn_bwd.cu):
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count,
 //   and the phase-parity wait;
@@ -372,6 +372,17 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d,
         "r"(accumulate), "n"(kTransB));
 }
 
+// The register-A product for a warpgroup tile N wide.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_m64k16_rs(float* d, const uint32_t* a,
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_rs<kTransB>(d, a, desc_b, accumulate);
+  else
+    wgmma_m64n128k16_rs<kTransB>(d, a, desc_b, accumulate);
+}
 
 // The product for a warpgroup tile N wide.
 template <int N, int kTransB>

@@ -5,8 +5,10 @@ Counterparts of the Pallas kernels of ``tools/probe_fused_block.py``
 (``fused_block`` -> ``_fused_kernel``, ``fused_block2d`` ->
 ``_fused_kernel2d``) and ``tools/probe_fused_parts.py`` (``k_matmuls``,
 ``k_pad``, ``k_mask``, ``k_folded``), all in ``csrc/fused_bottleneck.cu``
-(one templated kernel, one instantiation per variant; the design and its
-bounds are in the file's header). Each computes
+(one kernel on ``wgmma`` fed by TMA, templated on F's width class, the
+variant a launch argument; the design and its bounds are in the file's
+header). ``plan`` computes its launch plan as the source does, for the
+CPU tests; ``source_plan`` asks the compiled source. Each computes
 
     conv1x1 -> epilogue -> 3x3 as 9 row-shifted products -> epilogue
     -> conv1x1 -> epilogue (+ residual)
@@ -51,8 +53,15 @@ BF16 = torch.bfloat16
 # csrc/fused_bottleneck.cu's variant numbers
 VARIANTS = ("fused_block", "fused_block2d", "block_matmuls", "block_pad",
             "block_mask", "block_folded")
-PLAN_FIELDS = ("band_rows", "bands", "halo", "y2_rows", "y1_rows",
-               "smem_bytes")
+PLAN_FIELDS = ("band_rows", "bands", "halo", "y1_rows", "smem_bytes",
+               "stages", "threads", "f_class", "items", "grid")
+# csrc/fused_bottleneck.cu's launch constants
+MAX_STAGES = 4         # the ring: 4 stages, or 3 where 4 would cut the band
+THREADS = 2 * 128      # two warpgroups; thread 0 also loads
+TILE_ROWS = 128        # rows of a tile: 64 a warpgroup
+BK = 64                # k of a ring stage
+MAX_BAND = 1024
+SMEM_LIMIT = 232448    # a block's opt-in shared memory on an H100
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held against)
@@ -278,18 +287,108 @@ def _cuda_shapes(what, c, f):
         raise ValueError(f"{what}: C={c} and F={f} must be multiples of 16")
 
 
-def plan(name, n, h, c, f, g, device=None):
-    """The kernel's launch plan for variant ``name`` at this shape, asked of
-    ``csrc/fused_bottleneck.cu`` (nothing launched): a dict of
-    ``PLAN_FIELDS``. Raises ValueError for a shape the kernel refuses."""
+class Refused(ValueError):
+    """A shape the kernel does not take, with the source's return code:
+    -1 C or F not a multiple of 16, -2 n not a multiple of g, -3 an empty
+    dimension, -4 F wider than 512 or too wide for one band's y1, -5 no
+    such variant."""
+
+    def __init__(self, name, n, h, c, f, g, code):
+        super().__init__(f"{name}: the kernel refuses n={n}, h={h}, C={c}, "
+                         f"F={f}, g={g} (code {code})")
+        self.code = code
+
+
+def f_class(f):
+    """F's width class: the register arrays' size the kernel is built
+    for (0 past 512)."""
+    return next((w for w in (64, 128, 256, 512) if f <= w), 0)
+
+
+def stage_bytes(fm):
+    """Bytes of a ring stage for width class ``fm``: conv1's 128 rows of x
+    beside its w1 boxes (128 columns at most), or conv2's or conv3's
+    weight boxes (conv2 128 columns of F at a time, 64 at 512; conv3 128
+    columns of C, 64 at 512)."""
+    n1 = min(fm, 128)
+    n2, n3 = (64, 64) if fm == 512 else (min(fm, 128), 128)
+    return max(TILE_ROWS * BK * 2 + n1 * BK * 2, max(n2, n3) * BK * 2)
+
+
+def affine_floats(name, c, f):
+    """The affines variant ``name`` keeps in shared memory: s1, b1, s2,
+    b2 and s3, b3 for the exact blocks, b1, b2, b3 for block_folded."""
+    if name in ("fused_block", "fused_block2d"):
+        return 4 * f + 2 * c
+    return 2 * f + c if name == "block_folded" else 0
+
+
+def smem_bytes(name, stages, fm, y1_rows, c, f):
+    """Shared bytes: 1 KB to align the ring, the ring, y1 (row stride
+    F + 8), two mbarriers a stage, the producer's 64-byte cursor and the
+    variant's affines in float32."""
+    return (1024 + stages * stage_bytes(fm) + y1_rows * (f + 8) * 2 +
+            2 * stages * 8 + 64 + 4 * affine_floats(name, c, f))
+
+
+def plan(name, n, h, c, f, g, sms, smem_limit=SMEM_LIMIT):
+    """The kernel's launch plan for variant ``name`` at this shape on a card
+    of ``sms`` SMs, as ``csrc/fused_bottleneck.cu`` computes it
+    (``fused_bottleneck_plan``), for the CPU tests: bands of R rows of a
+    group of g h h rows, R the widest multiple of 64 (at most 1024) whose
+    y1 (R + 2 halo rows) fits beside the ring, or the whole group where it
+    is narrower; a ring of 4 stages where that leaves the band 128 rows
+    (or the whole group), else 3; the last band of a group takes what is
+    left; work items are groups x bands, band-major (item i is band
+    i // groups of group i % groups), walked by a persistent grid of
+    min(items, sms) blocks (block i takes items i, i + grid, ...). A dict
+    of ``PLAN_FIELDS``; raises ``Refused`` where the source refuses."""
+    if name not in VARIANTS:
+        raise Refused(name, n, h, c, f, g, -5)
+    if min(n, h, c, f, g) < 1:
+        raise Refused(name, n, h, c, f, g, -3)
+    if c % 16 or f % 16:
+        raise Refused(name, n, h, c, f, g, -1)
+    if n % g:
+        raise Refused(name, n, h, c, f, g, -2)
+    fm = f_class(f)
+    if not fm:
+        raise Refused(name, n, h, c, f, g, -4)
+    halo = 0 if name == "block_matmuls" else h + 1
+    rows = g * h * h
+
+    def widest(stages):
+        fits = [r for r in range(64, MAX_BAND + 1, 64)
+                if smem_bytes(name, stages, fm, r + 2 * halo, c, f) <=
+                smem_limit]
+        return fits[-1] if fits else 0
+
+    stages = (MAX_STAGES if widest(MAX_STAGES) >= min(rows, 128)
+              else MAX_STAGES - 1)
+    if not widest(stages):
+        raise Refused(name, n, h, c, f, g, -4)
+    band = min(rows, widest(stages))
+    bands = -(-rows // band)
+    y1_rows = -(-band // 64) * 64 + 2 * halo
+    items = n // g * bands
+    return dict(band_rows=band, bands=bands, halo=halo, y1_rows=y1_rows,
+                smem_bytes=smem_bytes(name, stages, fm, y1_rows, c, f),
+                stages=stages, threads=THREADS, f_class=fm, items=items,
+                grid=min(items, sms))
+
+
+def source_plan(name, n, h, c, f, g, device=None):
+    """The kernel's launch plan for variant ``name`` at this shape on the
+    current card, asked of ``csrc/fused_bottleneck.cu`` (nothing
+    launched): a dict of ``PLAN_FIELDS``. Raises ``Refused`` for a shape
+    the kernel refuses."""
     out = torch.zeros(len(PLAN_FIELDS), dtype=torch.int32)
     device = torch.device("cuda") if device is None else device
     rc = build.query("fused_bottleneck", "fused_bottleneck_plan",
                      "fused_bottleneck plan",
                      [VARIANTS.index(name), n, h, c, f, g, out], device)
     if rc != 0:
-        raise ValueError(f"{name}: the kernel refuses n={n}, h={h}, C={c}, "
-                         f"F={f}, g={g} (code {rc})")
+        raise Refused(name, n, h, c, f, g, rc)
     return dict(zip(PLAN_FIELDS, (int(v) for v in out)))
 
 

@@ -5,6 +5,15 @@ list of per-layer ``{name: Tensor}`` dicts in the JAX package's order and
 with its names, on one explicit device, and so is the updater state. The
 network runs on the GPU unless the caller passes ``device="cpu"``.
 
+As in the JAX package, ``output``, ``rnnTimeStep``, ``params``,
+``getParam``, ``paramTable`` and ``rnnGetPreviousState`` (a dict of them)
+return the port's ``INDArray``, and every call that takes an array takes
+an ``INDArray``, a tensor or numpy. ``getParam``, ``paramTable`` and
+``rnnGetPreviousState`` hand out copies, so an in-place op on what they
+return (which the port's ``INDArray`` writes into its tensor) leaves the
+network as it was, as in the JAX package. Serving and the optimizer work
+on the tensors underneath (``_infer_fn``, ``_params``), with no wrapper.
+
 A training step is eager PyTorch: the forward with the fused loss,
 ``torch.autograd.grad`` (through the LSTM kernels' autograd Function on the
 GPU), per-layer gradient normalization, the updater, and ``p -= u`` in
@@ -22,6 +31,7 @@ from deeplearning4j_tpu_torch.autodiff.samediff import (
     _host_array, _ones_mask, _pad_to_bucket, _prepare_batches,
     _split_dataset_full)
 from deeplearning4j_tpu_torch.backend import resolve_device
+from deeplearning4j_tpu_torch.ndarray import INDArray
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     BackpropType, MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import OUTPUT_LAYER_TYPES
@@ -123,8 +133,10 @@ class MultiLayerNetwork:
             raise RuntimeError("call init() first")
 
     def _input(self, x):
-        """A batch as a tensor on this network's device; float inputs take
-        the configured dtype."""
+        """A batch (INDArray, tensor or numpy) as a tensor on this
+        network's device; float inputs take the configured dtype."""
+        if isinstance(x, INDArray):
+            x = x.torch()
         x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                             else x, device=self.device)
         if x.is_floating_point() and x.dtype != self.conf.dtype:
@@ -156,12 +168,12 @@ class MultiLayerNetwork:
 
         return fn
 
-    def output(self, x, train: bool = False) -> torch.Tensor:
+    def output(self, x, train: bool = False) -> INDArray:
         """The network's output for batch ``x`` ([N, C, T] for recurrent
-        nets), as a tensor on the network's device."""
+        nets), over a tensor on the network's device."""
         self._check_init()
-        return self._infer_fn(train)(self._params, self._states,
-                                     self._input(x))
+        return INDArray(self._infer_fn(train)(self._params, self._states,
+                                              self._input(x)))
 
     # -- streaming inference (rnnTimeStep / rnnClearPreviousState) -----------
     def _recurrent_indices(self):
@@ -175,7 +187,7 @@ class MultiLayerNetwork:
                 batch_size, self.conf.dtype, self.device)
         return out
 
-    def rnnTimeStep(self, x):
+    def rnnTimeStep(self, x) -> INDArray:
         """Streaming inference with carried hidden state: x is [N, C] (one
         timestep) or [N, C, T] (a chunk). Successive calls continue the
         sequence; rnnClearPreviousState() resets."""
@@ -195,16 +207,18 @@ class MultiLayerNetwork:
         with torch.inference_mode():
             y, new_states = self._forward(self._params, states, x)
         self._stream_states = {i: new_states[i] for i in rec}
-        return y[:, :, 0] if single and y.dim() == 3 else y
+        return INDArray(y[:, :, 0] if single and y.dim() == 3 else y)
 
     def rnnClearPreviousState(self):
         self._stream_states = None
         self._stream_batch = None
 
     def rnnGetPreviousState(self, layer_idx: int) -> dict:
+        """The carried state of a layer, {name: INDArray} (copies)."""
         if self._stream_states is None:
             return {}
-        return dict(self._stream_states.get(layer_idx, {}))
+        return {k: INDArray(v.clone())
+                for k, v in self._stream_states.get(layer_idx, {}).items()}
 
     def rnnSetPreviousState(self, layer_idx: int, state: dict):
         """Install carried state (e.g. restoring a saved streaming session).
@@ -389,15 +403,15 @@ class MultiLayerNetwork:
         return grads, self._score
 
     # -- params --------------------------------------------------------------
-    def params(self) -> torch.Tensor:
+    def params(self) -> INDArray:
         """Flat parameter vector in layer order, keys sorted within each
-        layer (the JAX package's order)."""
+        layer (the JAX package's order); a copy."""
         self._check_init()
         leaves = [p[k].reshape(-1) for p in self._params for k in sorted(p)]
         if not leaves:
-            return torch.zeros((0,), dtype=self.conf.dtype,
-                               device=self.device)
-        return torch.cat(leaves)
+            return INDArray(torch.zeros((0,), dtype=self.conf.dtype,
+                                        device=self.device))
+        return INDArray(torch.cat(leaves))
 
     def setParams(self, flat):
         """Copy a flat vector (``params()`` order) into the params, in
@@ -418,8 +432,9 @@ class MultiLayerNetwork:
     def numParams(self) -> int:
         return sum(v.numel() for p in self._params for v in p.values())
 
-    def getParam(self, layer_idx: int, name: str) -> torch.Tensor:
-        return self._params[layer_idx][name]
+    def getParam(self, layer_idx: int, name: str) -> INDArray:
+        """A copy of one parameter."""
+        return INDArray(self._params[layer_idx][name].clone())
 
     def setParam(self, layer_idx: int, name: str, value):
         old = self._params[layer_idx][name]
@@ -430,7 +445,8 @@ class MultiLayerNetwork:
         self._params[layer_idx][name] = value.to(old.dtype).clone()
 
     def paramTable(self) -> dict:
-        return {f"{i}_{k}": v
+        """{"<layer>_<name>": INDArray}, copies."""
+        return {f"{i}_{k}": INDArray(v.clone())
                 for i, p in enumerate(self._params) for k, v in p.items()}
 
     def getIterationCount(self):

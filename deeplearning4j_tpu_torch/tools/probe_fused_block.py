@@ -135,7 +135,7 @@ def refusal(name, n, h, c, f, g, device):
         return f"g={g} does not divide the batch {n}"
     if device.type == "cuda":
         try:
-            bottleneck.plan(name, n, h, c, f, g, device)
+            bottleneck.source_plan(name, n, h, c, f, g, device)
         except ValueError as e:
             return str(e)
     return None

@@ -6,7 +6,9 @@ kernel once per shape against its plain version, and time a few.
 
 Prints per shape: max |d| over the largest element, the share of elements
 that differ and whether the kernel's output is finite; for the bottleneck
-also the kernel's launch plan (band rows, halo, shared memory). Then
+also the kernel's launch plan (band rows, halo, shared memory), whether
+it equals its Python mirror, and whether a second call repeats the bits.
+Then
 matmul_bf16 and cuBLAS at five shapes, and fused_block2d at stage s2,
 batch 256, g = 1 and 4, beside the cuBLAS + cuDNN block. A short check,
 not a gate: chip_smoke.py holds the kernels to their tolerances.
@@ -33,6 +35,7 @@ from deeplearning4j_tpu_torch.utils.convert import (  # noqa: E402
     bottleneck_params_from_numpy)
 
 SOURCES = ("probe_matmul", "fused_bottleneck")
+SMS = 132
 MATMULS = [(100, 32, 16), (784, 1024, 256), (3136, 256, 1024),
            (4096, 4096, 4096), (50176, 1024, 256)]
 
@@ -66,10 +69,14 @@ def bottleneck_cases(h, c, f, n, gs, dev):
             else:
                 args, kw = (x2, p["w1"], p["w2"], p["w3"]), dict(h=h, g=g)
             out = fn(*args, **kw)
+            again = fn(*args, **kw)
             torch.cuda.synchronize()
-            print(name, (h, c, f, n, g), bn.plan(name, n, h, c, f, g),
+            plan = bn.source_plan(name, n, h, c, f, g)
+            print(name, (h, c, f, n, g), plan, "mirror",
+                  plan == bn.plan(name, n, h, c, f, g, SMS),
                   "max|d|/max, differing, finite:",
-                  errs(out, ref(*args, **kw)), flush=True)
+                  errs(out, ref(*args, **kw)), "bits repeat",
+                  bool(torch.equal(out, again)), flush=True)
 
 
 def main():
@@ -87,6 +94,8 @@ def main():
                     print(name, line.strip())
     print(f"build {time.time() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
+    global SMS
+    SMS = torch.cuda.get_device_properties(0).multi_processor_count
     for m, k, n in MATMULS:
         a = torch.randn(m, k, device=dev).to(torch.bfloat16)
         b = torch.randn(k, n, device=dev).to(torch.bfloat16)
@@ -98,17 +107,24 @@ def main():
             flush=True)
     bottleneck_cases(4, 32, 16, 4, (1, 2), dev)
     bottleneck_cases(7, 64, 32, 4, (1, 2, 4), dev)
+    bottleneck_cases(14, 1024, 80, 8, (4,), dev)    # F not a multiple of 64
+    bottleneck_cases(9, 208, 336, 4, (2,), dev)     # a short last band
     for h, c, f in pfb.STAGES.values():
         bottleneck_cases(h, c, f, 8, (1, 4), dev)
-    h, c, f = pfb.STAGES["s2"]
-    p = params(c, f, dev)
-    x = pfb.make_input(1, 256, h, c, dev)
-    for g in (1, 4):
-        print("fused_block2d s2 b256 g", g, "ms", time_ms(
-            lambda: bn.fused_block2d(x, p, g), 5, dev), flush=True)
-    print("cuBLAS + cuDNN block ms", time_ms(
-        lambda: pfb.library_block(x, p), 5, dev), "three cuDNN convs ms",
-        time_ms(lambda: pfb.library_block_conv(x, p), 5, dev))
+    for stage, (h, c, f) in pfb.STAGES.items():
+        p = params(c, f, dev)
+        x = pfb.make_input(1, 256, h, c, dev)
+        for g in (1, 4):
+            want = bn.fused_block2d_reference(x, p, g)
+            got = bn.fused_block2d(x, p, g)
+            print("fused_block2d", stage, "b256 g", g,
+                  "max|d|/max, differing, finite:", errs(got, want), "ms",
+                  time_ms(lambda: bn.fused_block2d(x, p, g), 5, dev),
+                  flush=True)
+        print(stage, "cuBLAS + cuDNN block ms", time_ms(
+            lambda: pfb.library_block(x, p), 5, dev), "three cuDNN convs ms",
+            time_ms(lambda: pfb.library_block_conv(x, p), 5, dev),
+            flush=True)
 
 
 if __name__ == "__main__":

@@ -224,8 +224,8 @@ def test_output_matches_jax(nets, form):
     x = {"int [N,T]": f[:, 0].astype(np.int64),
          "int [N,1,T]": f.astype(np.int64), "float [N,1,T]": f}[form]
     got = _port_of(jnet, arrays).output(x)
-    assert got.shape == (3, VOCAB, SEQ)
-    np.testing.assert_allclose(got.numpy(), jnet.output(f).toNumpy(),
+    assert got.shape() == (3, VOCAB, SEQ)
+    np.testing.assert_allclose(got.toNumpy(), jnet.output(f).toNumpy(),
                                **FN_TOL)
 
 
@@ -237,19 +237,19 @@ def test_rnn_time_step_matches_jax(nets):
     jnet.rnnClearPreviousState()
     for k in range(4):   # single steps: ids [N, 1]
         np.testing.assert_allclose(
-            port.rnnTimeStep(ids[:, k:k + 1]).numpy(),
+            port.rnnTimeStep(ids[:, k:k + 1]).toNumpy(),
             jnet.rnnTimeStep(ids[:, k:k + 1]).toNumpy(), **FN_TOL)
-    assert port.rnnGetPreviousState(1)["h"].shape == (2, HIDDEN)
+    assert port.rnnGetPreviousState(1)["h"].shape() == (2, HIDDEN)
     # then a chunk [N, 1, T] continuing the same sequence
-    np.testing.assert_allclose(port.rnnTimeStep(f[:, :, 4:]).numpy(),
+    np.testing.assert_allclose(port.rnnTimeStep(f[:, :, 4:]).toNumpy(),
                                jnet.rnnTimeStep(f[:, :, 4:]).toNumpy(),
                                **FN_TOL)
     jnet.rnnClearPreviousState()
     # the streamed steps equal the whole-sequence output
     port.rnnClearPreviousState()
-    steps = np.stack([port.rnnTimeStep(ids[:, k:k + 1]).numpy()
+    steps = np.stack([port.rnnTimeStep(ids[:, k:k + 1]).toNumpy()
                       for k in range(SEQ)], axis=-1)
-    np.testing.assert_allclose(steps, port.output(ids).numpy(), **FN_TOL)
+    np.testing.assert_allclose(steps, port.output(ids).toNumpy(), **FN_TOL)
 
 
 def test_gradients_match_jax(nets):
@@ -311,7 +311,7 @@ def test_embedding_layer_lookup_and_one_hot():
             .setInputType(InputType.feedForward(VOCAB)).build())
     assert conf.layers[1].nIn == EMBED
     net = MultiLayerNetwork(conf, device="cpu").init()
-    w = net.getParam(0, "W")
+    w = net.getParam(0, "W").torch()
     ids = np.array([[3], [0], [10]])
     emb = net.layers[0].apply(net._params[0], {}, torch.from_numpy(ids))[0]
     assert torch.equal(emb, w[[3, 0, 10]])
@@ -319,7 +319,7 @@ def test_embedding_layer_lookup_and_one_hot():
     np.testing.assert_allclose(
         net.layers[0].apply(net._params[0], {}, one_hot)[0].numpy(),
         emb.numpy(), **FN_TOL)
-    assert net.output(ids).shape == (3, 4)
+    assert net.output(ids).shape() == (3, 4)
 
 
 def test_served_token_ids_match_output(nets):
@@ -340,5 +340,5 @@ def test_served_token_ids_match_output(nets):
                    for x in requests]
     for x, y in zip(requests, answers):
         assert y.shape == (x.shape[0], VOCAB, x.shape[2])
-        np.testing.assert_allclose(y, port.output(x).numpy(), **FN_TOL)
+        np.testing.assert_allclose(y, port.output(x).toNumpy(), **FN_TOL)
         np.testing.assert_allclose(y, jnet.output(x).toNumpy(), **FN_TOL)

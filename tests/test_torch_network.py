@@ -71,8 +71,8 @@ def test_configuration_json_round_trip(jax_net):
 def test_output_matches_jax(jax_net, n, t):
     x = _one_hot(n, t, seed=n * 10 + t)
     got = _port(jax_net).output(x)
-    assert got.shape == (n, VOCAB, t)
-    _close(got.numpy(), jax_net.output(x).toNumpy())
+    assert got.shape() == (n, VOCAB, t)
+    _close(got.toNumpy(), jax_net.output(x).toNumpy())
 
 
 def test_rnn_time_step_matches_jax(jax_net):
@@ -80,14 +80,14 @@ def test_rnn_time_step_matches_jax(jax_net):
     x = _one_hot(4, 6, seed=5)
     jax_net.rnnClearPreviousState()
     for k in range(4):   # single steps [N, C]
-        _close(port.rnnTimeStep(x[:, :, k]).numpy(),
+        _close(port.rnnTimeStep(x[:, :, k]).toNumpy(),
                jax_net.rnnTimeStep(x[:, :, k]).toNumpy())
     # then a chunk [N, C, T] continuing the same sequence
-    _close(port.rnnTimeStep(x[:, :, 4:]).numpy(),
+    _close(port.rnnTimeStep(x[:, :, 4:]).toNumpy(),
            jax_net.rnnTimeStep(x[:, :, 4:]).toNumpy())
     jax_net.rnnClearPreviousState()
     # the streamed steps equal the whole-sequence output
-    _close(_port(jax_net).output(x).numpy()[:, :, :4],
+    _close(_port(jax_net).output(x).toNumpy()[:, :, :4],
            jax_net.output(x).toNumpy()[:, :, :4])
 
 
@@ -96,13 +96,13 @@ def test_rnn_state_get_set_clear(jax_net):
     x = _one_hot(2, 5, seed=9)
     port.rnnTimeStep(x[:, :, :3])
     saved = {i: port.rnnGetPreviousState(i) for i in (0, 1)}
-    assert saved[0]["h"].shape == (2, HIDDEN)
+    assert saved[0]["h"].shape() == (2, HIDDEN)
     after = port.rnnTimeStep(x[:, :, 3:])
     port.rnnClearPreviousState()
     assert port.rnnGetPreviousState(0) == {}
     for i, st in saved.items():
         port.rnnSetPreviousState(i, st)
-    _close(port.rnnTimeStep(x[:, :, 3:]).numpy(), after.numpy())
+    _close(port.rnnTimeStep(x[:, :, 3:]).toNumpy(), after.toNumpy())
 
 
 def test_restore_jax_model_zip(jax_net, tmp_path):
@@ -112,7 +112,7 @@ def test_restore_jax_model_zip(jax_net, tmp_path):
     assert port.numParams() == sum(
         int(np.prod(v.shape)) for p in jax_net._params for v in p.values())
     x = _one_hot(3, SEQ, seed=21)
-    _close(port.output(x).numpy(), jax_net.output(x).toNumpy())
+    _close(port.output(x).toNumpy(), jax_net.output(x).toNumpy())
     # the updater state comes along (by default, as in the JAX package)
     for got, want in zip(port._opt_states, jax_net._opt_states):
         for k in ("m", "v"):
@@ -153,4 +153,4 @@ def test_seeded_init_and_dense_output():
     p0, p1 = a._params
     hidden = torch.relu(torch.from_numpy(x) @ p0["W"] + p0["b"])
     want = torch.softmax(hidden @ p1["W"] + p1["b"], dim=-1)
-    _close(a.output(x).numpy(), want.numpy())
+    _close(a.output(x).toNumpy(), want.numpy())

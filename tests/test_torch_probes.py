@@ -365,6 +365,119 @@ def test_a_group_that_does_not_divide_the_batch_is_refused(name):
 
 
 # ---------------------------------------------------------------------------
+# rows 9-10: the bottleneck kernel's launch plan (kernels/bottleneck.py
+# plan, the mirror of csrc/fused_bottleneck.cu's)
+# ---------------------------------------------------------------------------
+
+BLOCK_GS = (1, 2, 4, 8, 16)
+# (n, h, C, F): ragged shapes beside the stages: F a multiple of 16 but not
+# of 64, short last bands, a group narrower than one 64-row tile
+RAGGED_BLOCKS = ((8, 14, 1024, 80), (4, 9, 208, 336), (6, 5, 48, 16),
+                 (16, 28, 512, 144), (2, 56, 256, 48))
+
+
+def _covered_rows(plan, n, h, g):
+    """Each group's rows in the order the plan's items give them: item i
+    is band i // groups of group i % groups (band-major), walked by block
+    i % grid."""
+    rows = g * h * h
+    groups = n // g
+    seen = {}
+    for blk in range(plan["grid"]):
+        for item in range(blk, plan["items"], plan["grid"]):
+            band, group = divmod(item, groups)
+            r0 = band * plan["band_rows"]
+            reff = min(plan["band_rows"], rows - r0)
+            assert reff > 0
+            seen.setdefault(group, []).extend(range(r0, r0 + reff))
+    return seen
+
+
+@pytest.mark.parametrize("name", bottleneck.VARIANTS)
+@pytest.mark.parametrize("shape", [(256, *s) for s in
+                                   jblock.STAGES.values()] + list(
+                                       RAGGED_BLOCKS))
+def test_bottleneck_plan_fits_and_computes_every_row_once(name, shape):
+    """At every stage (batch 256) and the ragged shapes, for g in 1..16
+    where g divides n: the plan fits a block's 232,448 bytes; every row of
+    every group is computed exactly once; y1 holds the band (rounded up to
+    64-row tiles) and its halo on each side; the band is whole tiles or
+    the whole group."""
+    n, h, c, f = shape
+    for g in [g for g in BLOCK_GS if n % g == 0]:
+        plan = bottleneck.plan(name, n, h, c, f, g, 132)
+        assert set(plan) == set(bottleneck.PLAN_FIELDS)
+        assert plan["smem_bytes"] <= SMEM_LIMIT
+        assert plan["smem_bytes"] == bottleneck.smem_bytes(
+            name, plan["stages"], plan["f_class"], plan["y1_rows"], c, f)
+        assert plan["f_class"] >= f and plan["f_class"] in (64, 128, 256,
+                                                            512)
+        assert plan["stages"] in (3, 4) and plan["threads"] == 256
+        if plan["stages"] == 3:   # a fourth stage would cut the band
+            want = -(-min(128, g * h * h) // 64) * 64
+            assert bottleneck.smem_bytes(
+                name, 4, plan["f_class"],
+                want + 2 * (0 if name == "block_matmuls" else h + 1), c,
+                f) > SMEM_LIMIT
+        halo = 0 if name == "block_matmuls" else h + 1
+        assert plan["halo"] == halo
+        band, rows = plan["band_rows"], g * h * h
+        assert band % 64 == 0 or band == rows
+        assert plan["y1_rows"] == -(-band // 64) * 64 + 2 * halo
+        assert plan["items"] == n // g * plan["bands"]
+        assert plan["grid"] == min(plan["items"], 132)
+        seen = _covered_rows(plan, n, h, g)
+        assert sorted(seen) == list(range(n // g))
+        for group_rows in seen.values():
+            assert sorted(group_rows) == list(range(rows))
+
+
+@pytest.mark.parametrize("stage,band,bands,stages", [("s0", 768, 17, 4),
+                                                     ("s1", 256, 13, 4),
+                                                     ("s2", 128, 7, 4),
+                                                     ("s3", 64, 4, 3)])
+def test_bottleneck_plan_at_the_sweeps_g(stage, band, bands, stages):
+    """g = 4, batch 256: y1 takes what the ring and the affines leave of
+    227 KB (s2: 128 rows of 256 columns and 2 x 15 halo rows beside four
+    32 KB stages and 12 KB of affines; at s3 a fourth stage leaves no
+    64-row band, so three)."""
+    h, c, f = jblock.STAGES[stage]
+    plan = bottleneck.plan("fused_block2d", 256, h, c, f, 4, 132)
+    assert (plan["band_rows"], plan["bands"], plan["stages"]) == (
+        band, bands, stages)
+    assert plan["items"] == 64 * bands
+
+
+@pytest.mark.parametrize("args,code", [
+    (("fused_block2d", 256, 14, 1000, 256, 4), -1),
+    (("block_pad", 256, 14, 1024, 250, 4), -1),
+    (("block_mask", 256, 14, 1024, 256, 3), -2),
+    (("block_folded", 0, 14, 1024, 256, 1), -3),
+    (("fused_block", 4, 14, 1024, 0, 1), -3),
+    (("fused_block", 4, 14, 1024, 528, 1), -4),
+    (("block_matmuls", 4, 14, 16, 4096, 1), -4),
+    (("block_pad", 4, 70, 256, 512, 1), -4),
+    (("no_such_block", 4, 14, 1024, 256, 1), -5)])
+def test_bottleneck_plan_refuses_what_the_kernel_refuses(args, code):
+    with pytest.raises(bottleneck.Refused) as info:
+        bottleneck.plan(*args, 132)
+    assert info.value.code == code
+    assert isinstance(info.value, ValueError)
+
+
+@pytest.mark.cuda
+def test_bottleneck_source_plan_matches_its_mirror():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the plan is asked of the source")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in bottleneck.VARIANTS:
+        for h, c, f in jblock.STAGES.values():
+            for g in (1, 4):
+                assert bottleneck.source_plan(name, 256, h, c, f, g) == \
+                    bottleneck.plan(name, 256, h, c, f, g, sms)
+
+
+# ---------------------------------------------------------------------------
 # the entry points
 # ---------------------------------------------------------------------------
 

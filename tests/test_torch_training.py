@@ -219,17 +219,17 @@ def test_params_and_set_params_in_jax_order():
     jnet = _char_rnn(jax_updaters.Adam(2e-3))
     net = _port_of(jnet)
     flat = jnet.params().toNumpy()
-    np.testing.assert_array_equal(net.params().numpy(), flat)
+    np.testing.assert_array_equal(net.params().toNumpy(), flat)
     assert net.numParams() == flat.size
     assert sorted(net.paramTable()) == sorted(jnet.paramTable())
     new = np.random.default_rng(0).normal(size=flat.shape).astype(np.float32)
     net.setParams(new)
     jnet.setParams(new)
-    np.testing.assert_array_equal(net.params().numpy(), new)
+    np.testing.assert_array_equal(net.params().toNumpy(), new)
     _assert_trees_close(net._params, jnet._params, dict(rtol=0, atol=0),
                         "setParams")
     net.setParam(1, "b", np.ones(4 * HIDDEN, np.float32))
-    assert float(net.getParam(1, "b").sum()) == 4 * HIDDEN
+    assert net.getParam(1, "b").sum().getDouble() == 4 * HIDDEN
     with pytest.raises(ValueError):
         net.setParams(new[:-1])
 
