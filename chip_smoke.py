@@ -46,7 +46,8 @@ from a numpy seed:
   Pallas (its launch plan against its Python mirror; at the report shape
   its and cuBLAS's times back to back as well as single), the six
   bottleneck variants at ResNet-50's four stage widths (batch 256, g = 1
-  and 4) and two ragged shapes, each twice (the bits must repeat), their
+  and 4) and five ragged shapes (F past 512 and bands below 64 rows
+  among them), each twice (the bits must repeat), their
   launch plans against the Python mirror, a control the check must
   catch, times beside cuBLAS and the cuBLAS + cuDNN block (single and
   back to back at every stage, with the share of the bf16 peak); then
@@ -1944,9 +1945,13 @@ MATMUL_REPORT = (50176, 1024, 256)
 PROBE_TOL = 1e-2
 PROBE_MEAN_TOL = 1e-3
 # (n, h, C, F, g) beside the stages: F a multiple of 16 but not of 64 (and
-# a 784-row group in bands of 704 and 80); C and F not multiples of 64 and
-# a 162-row group in bands of 128 and 34
-PROBE_RAGGED = ((8, 14, 1024, 80, 4), (4, 9, 208, 336, 2))
+# a 784-row group in bands of 448 and 336); C and F not multiples of 64 and
+# a 162-row group in bands of 128 and 34; F past 512 (y2 in chunks); an
+# image so wide that bands are below 64 rows beside a two-stage ring, with
+# the affines in shared memory and (C = 2048) read from global memory
+PROBE_RAGGED = ((8, 14, 1024, 80, 4), (4, 9, 208, 336, 2),
+                (4, 14, 256, 528, 2), (2, 70, 256, 512, 1),
+                (2, 70, 2048, 512, 1))
 PROBE_NAMES = ("matmul_bf16", "fused_block", "fused_block2d",
                "block_matmuls", "block_pad", "block_mask", "block_folded")
 PROBE_SOURCES = {"matmul_bf16": "probe_matmul.cu"}
@@ -2171,7 +2176,8 @@ def probe_kernel_phase(torch, pm, bn):
               f"{plan['smem_bytes']} B shared", flush=True)
         del x, p, calls
         torch.cuda.empty_cache()
-    # ragged shapes: F a multiple of 16 but not of 64; a short last band
+    # ragged shapes: F a multiple of 16 but not of 64; a short last band;
+    # F past 512; bands below 64 rows; the affines outside shared memory
     for n, h, c, f, g in PROBE_RAGGED:
         rng = np.random.default_rng([SEED, 10, h, f])
         tree = pfb.make_params(int(rng.integers(1 << 30)), c, f)

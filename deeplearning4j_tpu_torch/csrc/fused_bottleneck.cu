@@ -47,13 +47,18 @@
 //   168 registers, and spilled). It walks work items (a band of R rows of
 //   one group; band-major, so that short last bands come last) in a
 //   persistent grid: block b takes items b, b + grid, ...
-// - Thread 0 also produces: it keeps TMA loads in flight through a ring
-//   of 4 stages (3 where a fourth would cut the band below 128 rows: the
-//   plan's) under a full and an empty mbarrier each, loading the next
-//   stage into a slot as soon as each of the 8 warps has freed it: the
-//   weight tiles ([64 k, 64 n] boxes, 128-byte swizzled, read as they lie
-//   through wgmma's transpose-B immediate) and conv1's A, 128 rows of x a
-//   stage. The warpgroups never meet at a barrier inside a K loop.
+// - Thread 0 (of warp 0) also produces: it keeps TMA loads in flight
+//   through a ring of 4 stages (3 where a fourth would cut the band below
+//   128 rows, 2 where 3 leave no room for a band: the plan's) under a full
+//   and an empty mbarrier each: the weight tiles ([64 k, 64 n] boxes,
+//   128-byte swizzled, read as they lie through wgmma's transpose-B
+//   immediate) and conv1's A, 128 rows of x a stage. When warp 0 frees a
+//   stage, thread 0 loads the stage a ring's depth ahead into its slot,
+//   and first waits until each of the 8 warps has freed it. So warp 0,
+//   and through the .aligned wgmma its warpgroup, waits once a stage for
+//   the other warpgroup to finish the stage before: the price of a
+//   producer inside a consumer warp (a producer warp of its own, with
+//   setmaxnreg moving registers to the consumers, is not tried yet).
 // - Both warpgroups read every stage: warpgroup w computes rows
 //   64w..64w+63 of a 128-row tile, so each weight tile feeds 128 rows. A
 //   warpgroup whose 64 rows lie past the work skips its products and only
@@ -67,16 +72,22 @@
 //   a swizzled descriptor cannot start at: it is ldmatrix at the shifted
 //   row into registers, the tap's mask applied to the fragment, and the
 //   register-A wgmma; the fragments of two stages alternate, so a stage's
-//   loads overlap the previous stage's products.
+//   loads overlap the previous stage's products. A row past the band reads
+//   the band's last row (its result is never stored), so y1 holds just the
+//   band and its halo.
 // - y2 never lies in shared memory: conv2's accumulators (a warpgroup's
 //   64 rows by F, in passes of N2 columns) go through epi2 and are packed
 //   to bf16 as register-A fragments of conv3, which runs on them at once
 //   (N3 columns of C at a time); epi3 adds x, read 16 values at a time
 //   through the read-only path. The band is bounded by y1 alone. The
-//   affines are copied into shared memory at the start.
-// - Templated on the width class FM of F (64, 128, 256, 512) for the
-//   register arrays; the variant is a launch argument (masks and
-//   epilogues only).
+//   affines are copied into shared memory at the start where they fit
+//   (else the epilogues read them from global memory).
+// - Templated on the width class FM of F (64, 128, 256, 512, and 1024 for
+//   any F past 512) for the register arrays; the variant is a launch
+//   argument (masks and epilogues only). Past 512, y2 is made 256 columns
+//   of F at a time, and conv3 sums the chunks for each 64 columns of C, so
+//   conv2 is computed again for each 64 columns of C: slow, but F past 512
+//   lies outside the probes' stages.
 // What an H100 showed (PERF.md): 1.5-1.9x the mma.sync kernel, faster
 // than the cuBLAS + cuDNN block at s0-s2, slower at s3; in the F >= 128
 // kernels (255 registers, spilling) ptxas waits for each product before
@@ -95,7 +106,7 @@ enum Variant { kBlock4d, kBlock2d, kMatmuls, kPad, kMask, kFolded,
                kVariants };
 
 constexpr int kBK = 64;            // k of a ring stage: one swizzled row
-constexpr int kMaxStages = 4;      // the ring: 4 stages, or 3 (plan)
+constexpr int kMaxStages = 4;      // the ring: 4 stages, or 3 or 2 (plan)
 constexpr int kConsumers = 2;      // warpgroups, 64 rows each
 constexpr int kTile = 64 * kConsumers;
 constexpr int kThreads = 128 * kConsumers;
@@ -108,9 +119,7 @@ constexpr int kSync = 1;           // named barrier of the 256 threads
 // time (their results are wrong; only their times are read):
 // FB_DIAG_NO_MMA skips the products, FB_DIAG_NO_LOADS the TMA loads (a
 // stage is marked full with nothing in it), FB_DIAG_PHASES = a mask of
-// the products kept (1 conv1, 2 conv2, 4 conv3), loads and all,
-// FB_DIAG_NO_EPI3 conv3's epilogue, FB_DIAG_NO_XREAD and FB_DIAG_NO_STORE
-// its x reads or its stores.
+// the products kept (1 conv1, 2 conv2, 4 conv3), loads and all.
 #ifdef FB_DIAG_NO_MMA
 constexpr bool kMma = false;
 #else
@@ -126,28 +135,23 @@ constexpr int kPhases = FB_DIAG_PHASES;
 #else
 constexpr int kPhases = 7;
 #endif
-#ifdef FB_DIAG_NO_EPI3   // conv3 without its epilogue (out never written)
-constexpr bool kEpi3 = false;
-#else
-constexpr bool kEpi3 = true;
-#endif
-#ifdef FB_DIAG_NO_XREAD  // conv3's epilogue without reading x
-constexpr bool kXRead = false;
-#else
-constexpr bool kXRead = true;
-#endif
-#ifdef FB_DIAG_NO_STORE  // conv3's epilogue computed, its stores skipped
-constexpr bool kStore = false;
-#else
-constexpr bool kStore = true;
-#endif
 
-// The widths of a class FM of F: conv1's, conv2's and conv3's N.
+// The widths of a class FM of F: conv1's, conv2's and conv3's N, and the
+// columns of y2 held in registers at once (all of F up to 512).
+__host__ __device__ constexpr int n1_of(int fm) { return fm < 128 ? fm : 128; }
+__host__ __device__ constexpr int n2_of(int fm) {
+  return fm >= 512 ? 64 : fm < 128 ? fm : 128;
+}
+__host__ __device__ constexpr int n3_of(int fm) { return fm >= 512 ? 64 : 128; }
+__host__ __device__ constexpr int chunk_of(int fm) {
+  return fm > 512 ? 256 : fm;
+}
+
 template <int FM>
 struct Widths {
-  static constexpr int n1 = FM < 128 ? FM : 128;
-  static constexpr int n2 = FM == 512 ? 64 : FM < 128 ? FM : 128;
-  static constexpr int n3 = FM == 512 ? 64 : 128;
+  static constexpr int n1 = n1_of(FM), n2 = n2_of(FM), n3 = n3_of(FM);
+  static constexpr int chunk = chunk_of(FM);
+  static constexpr bool wide = FM > chunk;   // y2 in chunks
 };
 
 __host__ __device__ constexpr int max_i(int a, int b) { return a > b ? a : b; }
@@ -155,9 +159,8 @@ __host__ __device__ constexpr int max_i(int a, int b) { return a > b ? a : b; }
 // Bytes of a ring stage: conv1's [x tile | w1 boxes] or one product's
 // w2 or w3 boxes.
 __host__ __device__ constexpr int stage_bytes(int fm) {
-  return max_i(kABytes + (fm < 128 ? fm : 128) * kBK * 2,
-               max_i(fm == 512 ? 64 : fm < 128 ? fm : 128,
-                     fm == 512 ? 64 : 128) * kBK * 2);
+  return max_i(kABytes + n1_of(fm) * kBK * 2,
+               max_i(n2_of(fm), n3_of(fm)) * kBK * 2);
 }
 
 struct Args {
@@ -169,13 +172,14 @@ struct Args {
   int R;       // band rows
   int bands;   // bands of a group
   int halo;    // h + 1, or 0 without shifts
-  int ypad;    // rows of y1 in shared memory: R up to 64, + 2 halo
+  int ypad;    // rows of y1 in shared memory: R + 2 halo
   int items;   // groups x bands
   int stages;  // ring stages
+  int aff;     // 1: the affines copied into shared memory
 };
 
 struct Plan {
-  int fm, stages, R, bands, halo, ypad, smem, items, grid;
+  int fm, stages, R, bands, halo, ypad, smem, items, grid, aff;
 };
 
 __device__ __forceinline__ float relu(float v) { return v > 0.0f ? v : 0.0f; }
@@ -191,19 +195,22 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return u;
 }
 
-// The affines a variant reads, copied into shared memory at the start
-// (from global memory, each read was a trip to L2: with ~228 KB of shared
-// memory a block keeps ~28 KB of L1, which the streamed x evicts): s1, b1,
-// s2, b2 (F each), s3, b3 (C each) for kBlock*; b1, b2, b3 for kFolded.
+// The affines a variant reads: s1, b1, s2, b2 (F each), s3, b3 (C each)
+// for kBlock*; b1, b2, b3 for kFolded. Copied into shared memory at the
+// start where the plan leaves room (from global memory, each read was a
+// trip to L2: with ~228 KB of shared memory a block keeps ~28 KB of L1,
+// which the streamed x evicts), else read where they lie.
 struct Affines {
-  const float* a;   // the copy, in shared memory
-  int F, C;
+  const float* a;   // the copy in shared memory, or null
+  const Args& p;
   bool scales;      // kBlock*: s and b; kFolded: b only
   __device__ const float* s(int k) const {   // s1, s2, s3 for k = 0, 1, 2
-    return a + 2 * F * k;
+    if (!a) return k == 0 ? p.s1 : k == 1 ? p.s2 : p.s3;
+    return a + 2 * p.F * k;
   }
   __device__ const float* b(int k) const {   // b1, b2, b3
-    return scales ? a + 2 * F * k + (k < 2 ? F : C) : a + F * k;
+    if (!a) return k == 0 ? p.b1 : k == 1 ? p.b2 : p.b3;
+    return scales ? a + 2 * p.F * k + (k < 2 ? p.F : p.C) : a + p.F * k;
   }
 };
 
@@ -269,7 +276,7 @@ struct Ring {
 struct Item {
   int r0, reff;      // the band's first group row and its rows
   int first;         // global row of y1 row 0: group row r0 - halo
-  int y1rows;        // y1 rows it needs: reff up to 64, + 2 halo
+  int y1rows;        // y1 rows it needs: reff + 2 halo
   long long gbase;   // global row of the group's first row
   // Items are band-major (band b of every group, then band b + 1), so
   // that a group's short last band comes last in the persistent walk
@@ -281,7 +288,7 @@ struct Item {
     reff = min(p.R, p.G - r0);
     gbase = (long long)group * p.G;
     first = (int)(gbase + r0 - p.halo);
-    y1rows = (reff + 63) / 64 * 64 + 2 * p.halo;
+    y1rows = reff + 2 * p.halo;
   }
 };
 
@@ -289,6 +296,11 @@ __device__ __forceinline__ uint64_t desc_b(const uint8_t* st, int kk) {
   // MN-major B of 64-wide boxes: 8 k-rows a core group, 8 KB a box
   return wgmma_desc(smem_u32(st) + 2048 * kk, kBox, 1024);
 }
+
+// Inlines a lambda where it is called: one that holds a register array by
+// reference and is left a function of its own puts the array in local
+// memory.
+#define FB_INLINE __attribute__((always_inline))
 
 // Calls f(Int<I>{}) for I = 0 .. N-1. Indices into register arrays must be
 // compile-time constants; #pragma unroll of a large body does not promise
@@ -335,16 +347,19 @@ __device__ __forceinline__ void fence_u32(uint32_t (*a)[4]) {
 // ring stage ahead of each stage its warpgroup frees (after p.stages loads
 // at the start). The cursor walks the consumers' loops: per item, conv1's
 // (128-row chunks of y1, n1 columns of F, 64 of C a stage), then per
-// 128-row tile conv2's (n2 columns of F, 9 taps, 64 of F a stage) and
-// conv3's (n3 columns of C, 64 of F a stage).
+// 128-row tile and per group of conv3's columns (all of C, or n3 columns
+// past F = 512), per chunk of y2's columns (all of F up to 512, else 256):
+// conv2's (n2 columns of the chunk, 9 taps, 64 of F a stage) and conv3's
+// (n3 columns of the group, 64 of the chunk a stage).
 // The cursor lives in shared memory (after the barriers), so that no
 // thread but the producer spends registers on it.
 struct Cursor {
   Item it;
   int item, phase, m, n0, tap, kc;   // phase 0, 1, 2: conv1, conv2, conv3
+  int cg, c0, fc;   // conv3's column group and column, y2's chunk
   Ring r;
 };
-constexpr int kCursorBytes = 64;
+constexpr int kCursorBytes = 128;
 static_assert(sizeof(Cursor) <= kCursorBytes, "the cursor's room");
 
 template <int FM>
@@ -363,15 +378,43 @@ struct Producer {
     if (!(kPhases & 1)) start_tile();
   }
 
-  // The first enabled phase of the 128-row tile at m, or the next item.
+  // The tile at m's first column group, or the next item.
   __device__ void start_tile() {
-    c.n0 = c.tap = c.kc = 0;
+    c.cg = 0;
     if (c.m < c.it.reff && (kPhases & 6)) {
-      c.phase = (kPhases & 2) ? 1 : 2;
+      start_group();
       return;
     }
     c.item += gridDim.x;
     start_item();
+  }
+
+  // The column group at cg's first chunk of y2.
+  __device__ void start_group() {
+    c.fc = 0;
+    start_chunk();
+  }
+
+  // The chunk at fc: conv2's first stage (or conv3's).
+  __device__ void start_chunk() {
+    c.n0 = c.fc;
+    c.c0 = c.cg;
+    c.tap = c.kc = 0;
+    c.phase = (kPhases & 2) ? 1 : 2;
+  }
+
+  // After a chunk's conv3: the next chunk, column group, tile or item.
+  __device__ void end_chunk() {
+    if ((c.fc += W::chunk) < p.F) {
+      start_chunk();
+      return;
+    }
+    if (W::wide && (c.cg += W::n3) < p.C) {
+      start_group();
+      return;
+    }
+    c.m += kTile;
+    start_tile();
   }
 
   __device__ void advance() {
@@ -386,22 +429,23 @@ struct Producer {
       start_tile();
       return;
     }
-    if (++c.kc < kcf) return;
-    c.kc = 0;
     if (c.phase == 1) {
+      if (++c.kc < kcf) return;
+      c.kc = 0;
       if (++c.tap < 9) return;
       c.tap = 0;
-      if ((c.n0 += W::n2) < p.F) return;
-      c.n0 = 0;
+      if ((c.n0 += W::n2) < min(c.fc + W::chunk, p.F)) return;
       if (kPhases & 4) {
         c.phase = 2;
         return;
       }
-    } else if ((c.n0 += W::n3) < p.C) {
+      end_chunk();
       return;
     }
-    c.m += kTile;
-    start_tile();
+    if (++c.kc < (min(W::chunk, p.F - c.fc) + kBK - 1) / kBK) return;
+    c.kc = 0;
+    if ((c.c0 += W::n3) < (W::wide ? c.cg + W::n3 : p.C)) return;
+    end_chunk();
   }
 
   // Loads the cursor's stage into the next ring slot once every warp has
@@ -436,8 +480,8 @@ struct Producer {
     } else {
 #pragma unroll
       for (int j = 0; j < W::n3 / 64; ++j)
-        tma_load_2d(st + j * kBox, t3, &full[s], c.n0 + 64 * j,
-                    c.kc * kBK);
+        tma_load_2d(st + j * kBox, t3, &full[s], c.c0 + 64 * j,
+                    c.fc + c.kc * kBK);
     }
     advance();
   }
@@ -462,16 +506,18 @@ fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tx,
   Cursor& cursor = *reinterpret_cast<Cursor*>(empty + p.stages);
   float* aff = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(&cursor) +
                                         kCursorBytes);
-  const Affines am{aff, p.F, p.C,
-                   p.variant == kBlock4d || p.variant == kBlock2d};
-  if (affine_floats(p.variant, p.C, p.F) > 0) {
+  const bool scales = p.variant == kBlock4d || p.variant == kBlock2d;
+  const Affines am{p.aff ? aff : nullptr, p, scales};
+  if (p.aff && affine_floats(p.variant, p.C, p.F) > 0) {
     const float* src[6] = {p.s1, p.b1, p.s2, p.b2, p.s3, p.b3};
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const int n = k < 2 ? p.F : p.C;
+      float* s = aff + 2 * p.F * k;
+      float* b = scales ? s + n : aff + p.F * k;
       for (int i = threadIdx.x; i < n; i += kThreads) {
-        if (am.scales) const_cast<float*>(am.s(k))[i] = src[2 * k][i];
-        const_cast<float*>(am.b(k))[i] = src[2 * k + 1][i];
+        if (scales) s[i] = src[2 * k][i];
+        b[i] = src[2 * k + 1][i];
       }
     }
   }
@@ -531,7 +577,8 @@ fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tx,
   };
   // this thread's accumulator rows in its warpgroup's 64
   const int row_a = 16 * warp + lane / 4;
-  uint32_t y2f[FM / 16][4];   // y2 as conv3's register-A fragments
+  // y2 (a chunk of its columns) as conv3's register-A fragments
+  uint32_t y2f[W::chunk / 16][4];
 
   for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
     Item it;
@@ -620,105 +667,111 @@ fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tx,
         keep[hh] = tap_mask(v, p.h, pos / p.h, pos % p.h);
       }
       // ldmatrix rows of this lane: y1 row of band row sub + 16 warp +
-      // lane % 16, before the tap's shift
-      const bf16* a_lane = y1 + (size_t)(sub + 16 * warp + lane % 16 +
-                                         p.halo) * ld + (lane / 16) * 8;
+      // lane % 16 (a row past the band: the band's last), before the
+      // tap's shift
+      const bf16* a_lane =
+          y1 + (size_t)(min(sub + 16 * warp + lane % 16, it.reff - 1) +
+                        p.halo) * ld + (lane / 16) * 8;
       const int steps = 9 * kcf;
 
+      // y2's columns fc .. fc + chunk into y2f
+      auto conv2 = [&](int fc) FB_INLINE {
+        static_for<0, W::chunk / W::n2>([&](auto pass) FB_INLINE {
+          constexpr int n0r = decltype(pass)::value * W::n2;
+          const int n0 = fc + n0r;
+          if (!(kPhases & 2)) return;
+          if (n0 >= p.F) {   // columns past F: conv3 multiplies their zeros
 #pragma unroll
-      static_for<0, FM / W::n2>([&](auto pass) {
-        constexpr int n0 = decltype(pass)::value * W::n2;
-        if (!(kPhases & 2)) return;
-        if (n0 >= p.F) {   // columns past F: conv3 multiplies their zeros
+            for (int j = 0; j < W::n2 / 16; ++j)
 #pragma unroll
-          for (int j = 0; j < W::n2 / 16; ++j)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) y2f[n0 / 16 + j][q] = 0u;
-          return;
-        }
-        float acc[W::n2 / 2];
-        uint32_t af[2][4][4];
-        auto step = [&](int i, uint32_t (*f)[4]) {
-          mbar_wait(&full[r.s], r.phase);
-          __syncwarp();
-          if (active) {
-            const int tap = i / kcf, kc = i % kcf;
-            const int off = shift ? (tap / 3 - 1) * p.h + tap % 3 - 1 : 0;
-            const bf16* src = a_lane + (ptrdiff_t)off * ld + kc * kBK;
-            const bool ka = (keep[0] >> tap) & 1, kb = (keep[1] >> tap) & 1;
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              if (kc * kBK + 16 * kk < p.F) {
-                asm volatile(
-                    "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-                    "{%0,%1,%2,%3}, [%4];\n"
-                    : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]),
-                      "=r"(f[kk][3])
-                    : "r"(smem_u32(src + 16 * kk)));
-                if (!ka) f[kk][0] = f[kk][2] = 0u;
-                if (!kb) f[kk][1] = f[kk][3] = 0u;
-              } else {   // past F (a ragged last chunk): A is zero
-                f[kk][0] = f[kk][1] = f[kk][2] = f[kk][3] = 0u;
-              }
-            }
-            const uint8_t* st = ring + r.s * kStage;
-            StageDescs<false> d;
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              d.b[kk] = desc_b(st, kk);
-              d.acc[kk] = i > 0 || kk > 0;
-            }
-            d.pin();
-            fence_regs<W::n2 / 2>(acc);
-            wgmma_fence();
-            // the stage's four products in one unbroken chain: a branch
-            // between them made ptxas wait for each product to finish
-            if constexpr (kMma) {
-#pragma unroll
-              for (int kk = 0; kk < 4; ++kk)
-                wgmma_m64k16_rs<W::n2, 1>(acc, f[kk], d.b[kk], d.acc[kk]);
-            }
-            wgmma_commit();
+              for (int q = 0; q < 4; ++q) y2f[n0r / 16 + j][q] = 0u;
+            return;
           }
-          wgmma_wait<1>();
+          float acc[W::n2 / 2];
+          uint32_t af[2][4][4];
+          auto step = [&](int i, uint32_t (*f)[4]) FB_INLINE {
+            mbar_wait(&full[r.s], r.phase);
+            __syncwarp();
+            if (active) {
+              const int tap = i / kcf, kc = i % kcf;
+              const int off = shift ? (tap / 3 - 1) * p.h + tap % 3 - 1 : 0;
+              const bf16* src = a_lane + (ptrdiff_t)off * ld + kc * kBK;
+              const bool ka = (keep[0] >> tap) & 1, kb = (keep[1] >> tap) & 1;
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                if (kc * kBK + 16 * kk < p.F) {
+                  asm volatile(
+                      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                      "{%0,%1,%2,%3}, [%4];\n"
+                      : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]),
+                        "=r"(f[kk][3])
+                      : "r"(smem_u32(src + 16 * kk)));
+                  if (!ka) f[kk][0] = f[kk][2] = 0u;
+                  if (!kb) f[kk][1] = f[kk][3] = 0u;
+                } else {   // past F (a ragged last chunk): A is zero
+                  f[kk][0] = f[kk][1] = f[kk][2] = f[kk][3] = 0u;
+                }
+              }
+              const uint8_t* st = ring + r.s * kStage;
+              StageDescs<false> d;
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                d.b[kk] = desc_b(st, kk);
+                d.acc[kk] = i > 0 || kk > 0;
+              }
+              d.pin();
+              fence_regs<W::n2 / 2>(acc);
+              wgmma_fence();
+              // the stage's four products in one unbroken chain: a branch
+              // between them made ptxas wait for each product to finish
+              if constexpr (kMma) {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                  wgmma_m64k16_rs<W::n2, 1>(acc, f[kk], d.b[kk], d.acc[kk]);
+              }
+              wgmma_commit();
+            }
+            wgmma_wait<1>();
+            fence_regs<W::n2 / 2>(acc);
+            fence_u32<4>(af[0]);
+            fence_u32<4>(af[1]);
+            release();
+          };
+          for (int i = 0; i < steps; i += 2) {
+            step(i, af[0]);
+            if (i + 1 < steps) step(i + 1, af[1]);
+          }
+          drain();
           fence_regs<W::n2 / 2>(acc);
           fence_u32<4>(af[0]);
           fence_u32<4>(af[1]);
-          release();
-        };
-        for (int i = 0; i < steps; i += 2) {
-          step(i, af[0]);
-          if (i + 1 < steps) step(i + 1, af[1]);
-        }
-        drain();
-        fence_regs<W::n2 / 2>(acc);
-        fence_u32<4>(af[0]);
-        fence_u32<4>(af[1]);
-        // epi2, packed: n8 block j of this pass is k16 step (n0/8 + j)/2
-        const int c0 = n0 + 2 * (lane % 4);
-        const bool full_f = n0 + W::n2 <= p.F;
-        const float* s2 = am.s(1) + c0;
-        const float* b2 = am.b(1) + c0;
+          // epi2, packed: n8 block j of this pass is k16 step
+          // (n0r/8 + j)/2 of the chunk
+          const int c0 = n0 + 2 * (lane % 4);
+          const bool full_f = n0 + W::n2 <= p.F;
+          const float* s2 = am.s(1) + c0;
+          const float* b2 = am.b(1) + c0;
 #pragma unroll
-        for (int j = 0; j < W::n2 / 8; ++j) {
-          const int cb = n0 / 8 + j;
-          float e[4];
+          for (int j = 0; j < W::n2 / 8; ++j) {
+            const int cb = n0r / 8 + j;
+            float e[4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            e[q] = full_f || c0 + 8 * j + (q & 1) < p.F
-                       ? mid_epilogue(v, acc[4 * j + q], s2, b2,
-                                      8 * j + (q & 1))
-                       : 0.0f;
-          y2f[cb / 2][(cb % 2) * 2] = pack2(e[0], e[1]);
-          y2f[cb / 2][(cb % 2) * 2 + 1] = pack2(e[2], e[3]);
-        }
-      });
+            for (int q = 0; q < 4; ++q)
+              e[q] = full_f || c0 + 8 * j + (q & 1) < p.F
+                         ? mid_epilogue(v, acc[4 * j + q], s2, b2,
+                                        8 * j + (q & 1))
+                         : 0.0f;
+            y2f[cb / 2][(cb % 2) * 2] = pack2(e[0], e[1]);
+            y2f[cb / 2][(cb % 2) * 2 + 1] = pack2(e[2], e[3]);
+          }
+        });
+      };
 
-      for (int n0 = 0; (kPhases & 4) && n0 < p.C; n0 += W::n3) {
-        float acc[W::n3 / 2];
-        static_for<0, FM / kBK>([&](auto kci) {
+      // acc (+)= y2's chunk at fc times w3's rows there, columns n0
+      auto conv3 = [&](float* acc, int fc) FB_INLINE {
+        static_for<0, W::chunk / kBK>([&](auto kci) FB_INLINE {
           constexpr int kc = decltype(kci)::value;
-          if (kc >= kcf) return;
+          if (!(kPhases & 4) || fc + kc * kBK >= p.F) return;
           mbar_wait(&full[r.s], r.phase);
           __syncwarp();
           if (active) {
@@ -727,7 +780,7 @@ fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
               d.b[kk] = desc_b(st, kk);
-              d.acc[kk] = kc > 0 || kk > 0;
+              d.acc[kk] = fc > 0 || kc > 0 || kk > 0;
             }
             d.pin();
             fence_regs<W::n3 / 2>(acc);
@@ -742,13 +795,17 @@ fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tx,
           }
           wgmma_wait<1>();
           fence_regs<W::n3 / 2>(acc);
-          fence_u32<FM / 16>(y2f);
+          fence_u32<W::chunk / 16>(y2f);
           release();
         });
         drain();
         fence_regs<W::n3 / 2>(acc);
-        fence_u32<FM / 16>(y2f);
-        if (!active || !kEpi3) continue;
+        fence_u32<W::chunk / 16>(y2f);
+      };
+
+      // out's columns n0 .. n0 + n3 = epi3(acc, x)
+      auto epi3 = [&](const float* acc, int n0) FB_INLINE {
+        if (!active || !(kPhases & 4)) return;
         // per row a base address (a row past the band reads the band's
         // last row and stores nothing), per column block an immediate
         // offset, a column test only in a chunk that crosses C; x for 8
@@ -770,8 +827,7 @@ fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tx,
             uint32_t xv[8];
 #pragma unroll
             for (int j = 0; j < 8; ++j)
-              xv[j] = kXRead && residual &&
-                              (full_c || c0 + 8 * (j0 + j) < p.C)
+              xv[j] = residual && (full_c || c0 + 8 * (j0 + j) < p.C)
                           ? __ldg(xs + 4 * (j0 + j))
                           : 0u;
 #pragma unroll
@@ -783,11 +839,27 @@ fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tx,
               const uint32_t o =
                   pack2(out_epilogue(v, s3, b3, a[0], x0, 8 * jj),
                         out_epilogue(v, s3, b3, a[1], x1, 8 * jj + 1));
-              if (row_ok && (full_c || c0 + 8 * jj < p.C) &&
-                  (kStore || p.h < 0))
-                os[4 * jj] = o;
+              if (row_ok && (full_c || c0 + 8 * jj < p.C)) os[4 * jj] = o;
             }
           }
+        }
+      };
+
+      if constexpr (!W::wide) {   // y2 whole in registers: conv2 once
+        conv2(0);
+        for (int n0 = 0; (kPhases & 4) && n0 < p.C; n0 += W::n3) {
+          float acc[W::n3 / 2];
+          conv3(acc, 0);
+          epi3(acc, n0);
+        }
+      } else {   // y2 in chunks: conv2 again for each n3 columns of C
+        for (int n0 = 0; n0 < p.C; n0 += W::n3) {
+          float acc[W::n3 / 2];
+          for (int fc = 0; fc < p.F; fc += W::chunk) {
+            conv2(fc);
+            conv3(acc, fc);
+          }
+          epi3(acc, n0);
         }
       }
     }
@@ -796,13 +868,15 @@ fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tx,
 
 int f_class(int F) {
   return F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : F <= 512 ? 512
-                                                                  : 0;
+                                                                  : 1024;
 }
 
-// Shared memory (bytes) of a band of R rows of y1 (with 2 halo rows).
-int smem_bytes(int variant, int stages, int fm, int ypad, int C, int F) {
+// Shared memory (bytes) of ypad rows of y1, with the affines or not.
+int smem_bytes(int variant, int stages, int fm, int ypad, int C, int F,
+               bool aff) {
   return 1024 + stages * stage_bytes(fm) + ypad * (F + 8) * 2 +
-         2 * stages * 8 + kCursorBytes + 4 * affine_floats(variant, C, F);
+         2 * stages * 8 + kCursorBytes +
+         (aff ? 4 * affine_floats(variant, C, F) : 0);
 }
 
 // The launch's plan, or a negative code (see the entries). `limit` is the
@@ -814,29 +888,35 @@ int plan(int variant, int n, int h, int C, int F, int g, int sms, int limit,
   if (C % 16 || F % 16) return -1;
   if (n % g) return -2;
   p->fm = f_class(F);
-  if (p->fm == 0) return -4;
   const int G = g * h * h;
   p->halo = variant == kMatmuls ? 0 : h + 1;
-  // the widest band of whole 64-row tiles that fits beside a ring of the
-  // given depth (0: none)
-  auto widest = [&](int stages) {
+  // the widest band that fits beside a ring of the given depth: whole
+  // 64-row tiles, or below 64 rows any number (0: none)
+  auto widest = [&](int stages, bool aff) {
     int rmax = 0;
-    for (int r = 64; r <= kMaxBand; r += 64)
-      if (smem_bytes(variant, stages, p->fm, r + 2 * p->halo, C, F) <=
+    for (int r = 1; r <= kMaxBand; r += r < 64 ? 1 : 64)
+      if (smem_bytes(variant, stages, p->fm, r + 2 * p->halo, C, F, aff) <=
           limit)
         rmax = r;
     return rmax;
   };
-  // four stages while the band keeps 128 rows (or the whole group), else
-  // three: the loads' lead is worth more than a wider band down to there
-  p->stages = widest(kMaxStages) >= (G < 128 ? G : 128) ? kMaxStages
-                                                         : kMaxStages - 1;
-  const int rmax = widest(p->stages);
+  // the affines in shared memory where a band fits beside them; four
+  // stages while the band keeps 128 rows (or the whole group), three while
+  // it keeps 64: the loads' lead is worth more than a wider band down to
+  // there; else two
+  int rmax = 0;
+  for (int aff = 1; aff >= 0 && rmax == 0; --aff) {
+    p->aff = aff;
+    p->stages = widest(kMaxStages, aff) >= (G < 128 ? G : 128) ? kMaxStages
+                : widest(3, aff) >= (G < 64 ? G : 64)              ? 3
+                                                                   : 2;
+    rmax = widest(p->stages, aff);
+  }
   if (rmax == 0) return -4;
   p->R = G < rmax ? G : rmax;
   p->bands = (G + p->R - 1) / p->R;
-  p->ypad = (p->R + 63) / 64 * 64 + 2 * p->halo;
-  p->smem = smem_bytes(variant, p->stages, p->fm, p->ypad, C, F);
+  p->ypad = p->R + 2 * p->halo;
+  p->smem = smem_bytes(variant, p->stages, p->fm, p->ypad, C, F, p->aff);
   p->items = (n / g) * p->bands;
   p->grid = p->items < sms ? p->items : sms;
   return 0;
@@ -875,14 +955,15 @@ int launch(const Args& a, const bf16* w1, const bf16* w2, const bf16* w3,
 
 // Return codes of both entries: 0 on success, a cudaError_t (> 0) from the
 // runtime, or -1: C or F not a multiple of 16; -2: n not a multiple of g;
-// -3: an empty dimension; -4: F wider than 512 or too wide for one band's
-// y1; -5: no such variant; -6: no cuTensorMapEncodeTiled entry point;
+// -3: an empty dimension; -4: no band's y1 fits in shared memory; -5: no
+// such variant; -6: no cuTensorMapEncodeTiled entry point;
 // -7: it refused a tensor map. The variants: 0 kBlock4d, 1 kBlock2d,
 // 2 kMatmuls, 3 kPad, 4 kMask, 5 kFolded.
 
-// The launch's plan on the current device, launching nothing: out[0..9] =
-// band rows R, bands per group, halo rows, y1 rows, shared memory bytes,
-// ring stages, threads, F's width class, work items, grid.
+// The launch's plan on the current device, launching nothing: out[0..10]
+// = band rows R, bands per group, halo rows, y1 rows, shared memory bytes,
+// ring stages, threads, F's width class, work items, grid, 1 where the
+// affines are copied into shared memory.
 extern "C" int fused_bottleneck_plan(int variant, int n, int h, int C,
                                      int F, int g, int* out) {
   int sms = 0, limit = 0;
@@ -891,9 +972,10 @@ extern "C" int fused_bottleneck_plan(int variant, int n, int h, int C,
   Plan pl;
   rc = plan(variant, n, h, C, F, g, sms, limit, &pl);
   if (rc != 0) return rc;
-  const int vals[10] = {pl.R, pl.bands, pl.halo, pl.ypad, pl.smem,
-                        pl.stages, kThreads, pl.fm, pl.items, pl.grid};
-  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  const int vals[11] = {pl.R,      pl.bands, pl.halo,  pl.ypad,
+                        pl.smem,   pl.stages, kThreads, pl.fm,
+                        pl.items,  pl.grid,  pl.aff};
+  for (int i = 0; i < 11; ++i) out[i] = vals[i];
   return 0;
 }
 
@@ -932,13 +1014,15 @@ extern "C" int fused_bottleneck_run(
   a.ypad = pl.ypad;
   a.items = pl.items;
   a.stages = pl.stages;
+  a.aff = pl.aff;
   const int rows = n * h * h;
   cudaStream_t st = (cudaStream_t)stream;
   switch (pl.fm) {
     case 64: return launch<64>(a, w1, w2, w3, rows, pl, st);
     case 128: return launch<128>(a, w1, w2, w3, rows, pl, st);
     case 256: return launch<256>(a, w1, w2, w3, rows, pl, st);
-    default: return launch<512>(a, w1, w2, w3, rows, pl, st);
+    case 512: return launch<512>(a, w1, w2, w3, rows, pl, st);
+    default: return launch<1024>(a, w1, w2, w3, rows, pl, st);
   }
 }
 

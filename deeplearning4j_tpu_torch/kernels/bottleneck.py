@@ -54,9 +54,9 @@ BF16 = torch.bfloat16
 VARIANTS = ("fused_block", "fused_block2d", "block_matmuls", "block_pad",
             "block_mask", "block_folded")
 PLAN_FIELDS = ("band_rows", "bands", "halo", "y1_rows", "smem_bytes",
-               "stages", "threads", "f_class", "items", "grid")
+               "stages", "threads", "f_class", "items", "grid",
+               "affines_in_smem")
 # csrc/fused_bottleneck.cu's launch constants
-MAX_STAGES = 4         # the ring: 4 stages, or 3 where 4 would cut the band
 THREADS = 2 * 128      # two warpgroups; thread 0 also loads
 TILE_ROWS = 128        # rows of a tile: 64 a warpgroup
 BK = 64                # k of a ring stage
@@ -290,8 +290,8 @@ def _cuda_shapes(what, c, f):
 class Refused(ValueError):
     """A shape the kernel does not take, with the source's return code:
     -1 C or F not a multiple of 16, -2 n not a multiple of g, -3 an empty
-    dimension, -4 F wider than 512 or too wide for one band's y1, -5 no
-    such variant."""
+    dimension, -4 no band's y1 fits in shared memory, -5 no such
+    variant."""
 
     def __init__(self, name, n, h, c, f, g, code):
         super().__init__(f"{name}: the kernel refuses n={n}, h={h}, C={c}, "
@@ -301,17 +301,18 @@ class Refused(ValueError):
 
 def f_class(f):
     """F's width class: the register arrays' size the kernel is built
-    for (0 past 512)."""
-    return next((w for w in (64, 128, 256, 512) if f <= w), 0)
+    for (1024 for any F past 512, which it takes 256 columns at a
+    time)."""
+    return next((w for w in (64, 128, 256, 512) if f <= w), 1024)
 
 
 def stage_bytes(fm):
     """Bytes of a ring stage for width class ``fm``: conv1's 128 rows of x
     beside its w1 boxes (128 columns at most), or conv2's or conv3's
-    weight boxes (conv2 128 columns of F at a time, 64 at 512; conv3 128
-    columns of C, 64 at 512)."""
+    weight boxes (conv2 128 columns of F at a time, 64 from 512; conv3
+    128 columns of C, 64 from 512)."""
     n1 = min(fm, 128)
-    n2, n3 = (64, 64) if fm == 512 else (min(fm, 128), 128)
+    n2, n3 = (64, 64) if fm >= 512 else (min(fm, 128), 128)
     return max(TILE_ROWS * BK * 2 + n1 * BK * 2, max(n2, n3) * BK * 2)
 
 
@@ -323,26 +324,30 @@ def affine_floats(name, c, f):
     return 2 * f + c if name == "block_folded" else 0
 
 
-def smem_bytes(name, stages, fm, y1_rows, c, f):
+def smem_bytes(name, stages, fm, y1_rows, c, f, affines=True):
     """Shared bytes: 1 KB to align the ring, the ring, y1 (row stride
-    F + 8), two mbarriers a stage, the producer's 64-byte cursor and the
-    variant's affines in float32."""
+    F + 8), two mbarriers a stage, the producer's 128-byte cursor and,
+    with ``affines``, the variant's affines in float32."""
     return (1024 + stages * stage_bytes(fm) + y1_rows * (f + 8) * 2 +
-            2 * stages * 8 + 64 + 4 * affine_floats(name, c, f))
+            2 * stages * 8 + 128 +
+            (4 * affine_floats(name, c, f) if affines else 0))
 
 
-def plan(name, n, h, c, f, g, sms, smem_limit=SMEM_LIMIT):
+def plan(name, n, h, c, f, g, sms):
     """The kernel's launch plan for variant ``name`` at this shape on a card
     of ``sms`` SMs, as ``csrc/fused_bottleneck.cu`` computes it
     (``fused_bottleneck_plan``), for the CPU tests: bands of R rows of a
     group of g h h rows, R the widest multiple of 64 (at most 1024) whose
-    y1 (R + 2 halo rows) fits beside the ring, or the whole group where it
-    is narrower; a ring of 4 stages where that leaves the band 128 rows
-    (or the whole group), else 3; the last band of a group takes what is
-    left; work items are groups x bands, band-major (item i is band
-    i // groups of group i % groups), walked by a persistent grid of
-    min(items, sms) blocks (block i takes items i, i + grid, ...). A dict
-    of ``PLAN_FIELDS``; raises ``Refused`` where the source refuses."""
+    y1 (R + 2 halo rows) fits beside the ring, else the widest band below
+    64 rows that fits, or the whole group where it is narrower; a ring of
+    4 stages where that leaves the band 128 rows (or the whole group),
+    else 3 where it leaves 64, else 2; the affines in shared memory
+    unless only their absence lets a band fit; the last band of a group
+    takes what is left; work items are groups x bands, band-major (item
+    i is band i // groups of group i % groups), walked by a persistent
+    grid of min(items, sms) blocks (block i takes items i, i + grid, ...).
+    A dict of ``PLAN_FIELDS``; raises ``Refused`` where the source
+    refuses."""
     if name not in VARIANTS:
         raise Refused(name, n, h, c, f, g, -5)
     if min(n, h, c, f, g) < 1:
@@ -352,29 +357,31 @@ def plan(name, n, h, c, f, g, sms, smem_limit=SMEM_LIMIT):
     if n % g:
         raise Refused(name, n, h, c, f, g, -2)
     fm = f_class(f)
-    if not fm:
-        raise Refused(name, n, h, c, f, g, -4)
     halo = 0 if name == "block_matmuls" else h + 1
     rows = g * h * h
 
-    def widest(stages):
-        fits = [r for r in range(64, MAX_BAND + 1, 64)
-                if smem_bytes(name, stages, fm, r + 2 * halo, c, f) <=
-                smem_limit]
+    def widest(stages, affines):
+        fits = [r for r in (*range(1, 64), *range(64, MAX_BAND + 1, 64))
+                if smem_bytes(name, stages, fm, r + 2 * halo, c, f,
+                              affines) <= SMEM_LIMIT]
         return fits[-1] if fits else 0
 
-    stages = (MAX_STAGES if widest(MAX_STAGES) >= min(rows, 128)
-              else MAX_STAGES - 1)
-    if not widest(stages):
+    for affines in (True, False):
+        stages = (4 if widest(4, affines) >= min(rows, 128) else
+                  3 if widest(3, affines) >= min(rows, 64) else 2)
+        if widest(stages, affines):
+            break
+    else:
         raise Refused(name, n, h, c, f, g, -4)
-    band = min(rows, widest(stages))
+    band = min(rows, widest(stages, affines))
     bands = -(-rows // band)
-    y1_rows = -(-band // 64) * 64 + 2 * halo
+    y1_rows = band + 2 * halo
     items = n // g * bands
     return dict(band_rows=band, bands=bands, halo=halo, y1_rows=y1_rows,
-                smem_bytes=smem_bytes(name, stages, fm, y1_rows, c, f),
+                smem_bytes=smem_bytes(name, stages, fm, y1_rows, c, f,
+                                      affines),
                 stages=stages, threads=THREADS, f_class=fm, items=items,
-                grid=min(items, sms))
+                grid=min(items, sms), affines_in_smem=int(affines))
 
 
 def source_plan(name, n, h, c, f, g, device=None):

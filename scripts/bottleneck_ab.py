@@ -17,20 +17,25 @@ Then, at batch 256 and g = 4, it times fused_block2d through the C entry
 old): the median of single calls and one CUDA-event window over calls
 back to back, beside the cuBLAS + cuDNN block (tools' library_block). The
 sources are the new one, each --old FILE (another fused_bottleneck.cu with
-the same C entries: the mma.sync kernel before the redesign is ``git show
-<rev>:deeplearning4j_tpu_torch/csrc/fused_bottleneck.cu``), and the new
+the same C entries, built with the headers beside it first: the mma.sync
+kernel before the redesign is ``git show
+<rev>:deeplearning4j_tpu_torch/csrc/fused_bottleneck.cu`` with that rev's
+``mma_bf16.cuh`` in the same directory), and the new
 one built with each diagnostic switch of its header (results wrong, only
 times read): without the products (FB_DIAG_NO_MMA), without the loads
 (FB_DIAG_NO_LOADS), conv1, conv2 and conv3 alone (FB_DIAG_PHASES=1, 2,
-4), and conv3 alone without its epilogue, its x reads or its stores
-(FB_DIAG_NO_EPI3, FB_DIAG_NO_XREAD, FB_DIAG_NO_STORE); --diag picks some
-by label. Every
-extra build goes into the git-ignored build directory, keyed by its
-source and flags; its registers, spills and ptxas' wgmma notes (C75xx,
-counted) are printed, and for the new source each kernel's count of
-HGMMA, wgmma waits (WARPGROUP.DEPBAR) and arrives, local loads and stores
-(LDL, STL), ldmatrix, barriers and calls in its SASS (cuobjdump); --sass
-OUT writes that SASS to the file OUT. --no-time stops after the checks.
+4), and conv3 alone without its epilogue, its x reads or its stores (a
+copy of the source with the line that does it edited out: PATCHES);
+--diag picks some by label. The share of the bf16 peak is printed for
+the whole kernels only (new and --old), where the operation bound is
+theirs. A timing that fails other than by the plan's refusal (code -4)
+counts as a failed check. Every extra build goes into the git-ignored
+build directory, keyed by its source, edits and flags; its registers,
+spills and ptxas' wgmma notes (C75xx, counted) are printed, and for the
+new source each kernel's count of HGMMA, wgmma waits (WARPGROUP.DEPBAR)
+and arrives, local loads and stores (LDL, STL), ldmatrix, barriers and
+calls in its SASS (cuobjdump); --sass OUT writes that SASS to the file
+OUT. --no-time stops after the checks.
 
 Prints the card's name and power limit first; exits 1 if a check fails.
 """
@@ -62,19 +67,50 @@ from deeplearning4j_tpu_torch.utils.convert import (  # noqa: E402
 
 BATCH, G = 256, 4
 REPS, B2B = 10, 20
-DIAGNOSTICS = (("no products", ["-DFB_DIAG_NO_MMA"]),
-               ("no loads", ["-DFB_DIAG_NO_LOADS"]),
-               ("conv1 alone", ["-DFB_DIAG_PHASES=1"]),
-               ("conv2 alone", ["-DFB_DIAG_PHASES=2"]),
-               ("conv3 alone", ["-DFB_DIAG_PHASES=4"]),
-               ("conv3 alone without its epilogue", ["-DFB_DIAG_PHASES=4",
-                                                     "-DFB_DIAG_NO_EPI3"]),
-               ("conv3 alone without x reads", ["-DFB_DIAG_PHASES=4",
-                                                "-DFB_DIAG_NO_XREAD"]),
-               ("conv3 alone without stores", ["-DFB_DIAG_PHASES=4",
-                                               "-DFB_DIAG_NO_STORE"]))
+# the epilogue-split diagnostics: an edit of one line of conv3's epilogue
+# in a copy of the source, (text, replacement); each text must occur once
+PATCHES = {
+    "no epilogue": ("if (!active || !(kPhases & 4)) return;",
+                    "if (true) return;"),
+    "no x reads": ("xv[j] = residual &&", "xv[j] = false &&"),
+    # the values are still computed: the store is kept behind a test the
+    # compiler cannot settle
+    "no stores": ("if (row_ok && (full_c || c0 + 8 * jj < p.C)) ",
+                  "if (row_ok && (full_c || c0 + 8 * jj < p.C) && "
+                  "p.h < 0) ")}
+DIAGNOSTICS = (("no products", ["-DFB_DIAG_NO_MMA"], None),
+               ("no loads", ["-DFB_DIAG_NO_LOADS"], None),
+               ("conv1 alone", ["-DFB_DIAG_PHASES=1"], None),
+               ("conv2 alone", ["-DFB_DIAG_PHASES=2"], None),
+               ("conv3 alone", ["-DFB_DIAG_PHASES=4"], None),
+               ("conv3 alone without its epilogue", ["-DFB_DIAG_PHASES=4"],
+                "no epilogue"),
+               ("conv3 alone without x reads", ["-DFB_DIAG_PHASES=4"],
+                "no x reads"),
+               ("conv3 alone without stores", ["-DFB_DIAG_PHASES=4"],
+                "no stores"))
 P, I = ctypes.c_void_p, ctypes.c_int
 failures = []
+
+
+class Refused(RuntimeError):
+    """A non-zero return code of fused_bottleneck_run."""
+
+    def __init__(self, rc):
+        super().__init__(f"fused_bottleneck_run returned {rc}")
+        self.rc = rc
+
+
+def patched(src: bytes, patch):
+    """The source with PATCHES[patch] applied (None: unchanged)."""
+    if patch is None:
+        return src
+    old, new = PATCHES[patch]
+    text = src.decode()
+    if text.count(old) != 1:
+        raise RuntimeError(f"the edit {patch!r} needs {old!r} once in the "
+                           f"source, found {text.count(old)}")
+    return text.replace(old, new).encode()
 
 
 def check(ok, what):
@@ -115,7 +151,8 @@ def b2b_ms(fn, n=B2B):
 def print_build(label, log):
     notes = {}
     for line in log.splitlines():
-        if any(w in line for w in ("registers", "spill", "arning", "rror")):
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "arning", "rror")):
             print(f"build {label}: {line.strip()}", flush=True)
         if "(C75" in line:   # ptxas' notes on wgmma, counted by kind
             kind = line.split("(C75", 1)[1][:2]
@@ -124,20 +161,25 @@ def print_build(label, log):
         print(f"build {label}: ptxas wgmma notes {notes}", flush=True)
 
 
-def compile_copy(src: bytes, flags):
+def compile_copy(src: bytes, flags, headers=None):
     """Build a copy of fused_bottleneck.cu with extra flags into the build
-    directory; returns (library path, compiler output)."""
+    directory, its includes searched for first in the directory
+    ``headers`` (an --old FILE's own), then in csrc/; returns (library
+    path, compiler output)."""
+    dirs = ([] if headers is None else [Path(headers)]) + [build.CSRC]
     key = hashlib.sha256(src + "\0".join(flags).encode())
-    for header in sorted(build.CSRC.glob("*.cuh")):
-        key.update(header.read_bytes())
+    for d in dirs:
+        for header in sorted(d.glob("*.cuh")):
+            key.update(header.read_bytes())
     out = build.BUILD_DIR / f"ab-fused_bottleneck-{key.hexdigest()[:16]}"
     out.mkdir(parents=True, exist_ok=True)
     (out / "fused_bottleneck.cu").write_bytes(src)
     lib = out / "libfused_bottleneck.so"
     if lib.exists():
         return lib, (out / "build.log").read_text()
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *flags, "-I",
-                           str(build.CSRC), "-o", str(lib),
+    includes = [arg for d in dirs for arg in ("-I", str(d))]
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *flags,
+                           *includes, "-o", str(lib),
                            str(out / "fused_bottleneck.cu")],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
@@ -223,7 +265,7 @@ def checks(stages):
             check(torch.equal(got, again), f"{name} {stage}: bits differ")
 
 
-def timings(stages, sources):
+def timings(stages, sources, diagnostics):
     for stage in stages:
         h, c, f, p, x = inputs(stage)
         out = torch.empty_like(x)
@@ -236,7 +278,7 @@ def timings(stages, sources):
         def call(fn):
             rc = fn(*args, stream())
             if rc:
-                raise RuntimeError(f"fused_bottleneck_run returned {rc}")
+                raise Refused(rc)
 
         bound, by = cs.bottleneck_bound("fused_block2d", BATCH, h, c, f)
         lib_ms = single_ms(lambda: pfb.library_block(x, p))
@@ -253,19 +295,21 @@ def timings(stages, sources):
                     seen.setdefault(lab, []).append(
                         (single_ms(lambda: call(f_)),
                          b2b_ms(lambda: call(f_))))
-            except RuntimeError as e:   # a build whose plan refuses this
+            except Refused as e:
                 print(f"time {stage} {label}: {e}", flush=True)
+                check(e.rc == -4, f"time {stage} {label}: {e}")
                 continue
             for lab, runs in seen.items():
                 s1, b1 = runs[0]
                 s2, b2 = runs[1]
-                frac = cs.bottleneck_bound("fused_block2d", BATCH, h, c,
-                                           f)[0] if by == "operations" else 0
-                share = (frac / min(b1, b2)) if frac else float("nan")
+                # a diagnostic build computes one product or none: the
+                # whole block's bound is not its own
+                whole = lab not in diagnostics and by == "operations"
+                share = f", {bound / min(b1, b2):.1%} of the bf16 peak" \
+                    if whole else ""
                 print(f"time {stage} {lab} (vs {label}): single {s1:.4f} / "
                       f"{s2:.4f} ms, back to back {b1:.4f} / {b2:.4f} ms"
-                      + (f", {share:.1%} of the bf16 peak" if frac else ""),
-                      flush=True)
+                      + share, flush=True)
         del x, p, out
         torch.cuda.empty_cache()
 
@@ -289,13 +333,16 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     src = (build.CSRC / "fused_bottleneck.cu").read_bytes()
-    copies = [(Path(f).name, Path(f).read_bytes(), []) for f in args.old]
+    copies = [(f, Path(f).read_bytes(), [], Path(f).parent)
+              for f in args.old]
     if not args.no_time:
         wanted = None if args.diag is None else args.diag.split(",")
-        copies += [(label, src, flags) for label, flags in DIAGNOSTICS
+        copies += [(label, patched(src, patch), flags, None)
+                   for label, flags, patch in DIAGNOSTICS
                    if wanted is None or label in wanted]
     with ThreadPoolExecutor(len(copies) + 1) as pool:
-        built = [pool.submit(compile_copy, s, fl) for _, s, fl in copies]
+        built = [pool.submit(compile_copy, s, fl, hd)
+                 for _, s, fl, hd in copies]
         build.load("fused_bottleneck")
         print_build("new", build.build_log("fused_bottleneck"))
         for kernel, ops in sass_counts(
@@ -307,14 +354,15 @@ def main():
                  str(build.library_path("fused_bottleneck"))],
                 capture_output=True, text=True).stdout)
         libs = []
-        for (label, _, _), fut in zip(copies, built):
+        for (label, _, _, _), fut in zip(copies, built):
             lib, log = fut.result()
             print_build(label, log)
             libs.append((label, run_entry(lib)))
     checks(stages)
     if not args.no_time:
         new = run_entry(build.library_path("fused_bottleneck"))
-        timings(stages, [("new", new)] + libs)
+        timings(stages, [("new", new)] + libs,
+                {label for label, _, _ in DIAGNOSTICS})
     if failures:
         print(f"{len(failures)} checks failed", flush=True)
         return 1

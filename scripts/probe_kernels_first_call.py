@@ -90,7 +90,8 @@ def main():
     finally:
         for name in SOURCES:
             for line in build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line or "rror" in line:
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill", "rror")):
                     print(name, line.strip())
     print(f"build {time.time() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
@@ -109,6 +110,9 @@ def main():
     bottleneck_cases(7, 64, 32, 4, (1, 2, 4), dev)
     bottleneck_cases(14, 1024, 80, 8, (4,), dev)    # F not a multiple of 64
     bottleneck_cases(9, 208, 336, 4, (2,), dev)     # a short last band
+    bottleneck_cases(14, 256, 528, 4, (2,), dev)    # F past 512
+    bottleneck_cases(70, 256, 512, 2, (1,), dev)    # bands below 64 rows
+    bottleneck_cases(70, 2048, 512, 2, (1,), dev)   # affines not in smem
     for h, c, f in pfb.STAGES.values():
         bottleneck_cases(h, c, f, 8, (1, 4), dev)
     for stage, (h, c, f) in pfb.STAGES.items():

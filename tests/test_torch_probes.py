@@ -371,9 +371,11 @@ def test_a_group_that_does_not_divide_the_batch_is_refused(name):
 
 BLOCK_GS = (1, 2, 4, 8, 16)
 # (n, h, C, F): ragged shapes beside the stages: F a multiple of 16 but not
-# of 64, short last bands, a group narrower than one 64-row tile
+# of 64, short last bands, a group narrower than one 64-row tile, F past
+# 512 (y2 in chunks), an image so wide that a band is below 64 rows
 RAGGED_BLOCKS = ((8, 14, 1024, 80), (4, 9, 208, 336), (6, 5, 48, 16),
-                 (16, 28, 512, 144), (2, 56, 256, 48))
+                 (16, 28, 512, 144), (2, 56, 256, 48), (4, 14, 256, 528),
+                 (2, 70, 256, 512))
 
 
 def _covered_rows(plan, n, h, g):
@@ -400,30 +402,41 @@ def _covered_rows(plan, n, h, g):
 def test_bottleneck_plan_fits_and_computes_every_row_once(name, shape):
     """At every stage (batch 256) and the ragged shapes, for g in 1..16
     where g divides n: the plan fits a block's 232,448 bytes; every row of
-    every group is computed exactly once; y1 holds the band (rounded up to
-    64-row tiles) and its halo on each side; the band is whole tiles or
-    the whole group."""
+    every group is computed exactly once; y1 holds the band and its halo
+    on each side; the band is whole 64-row tiles, the whole group, or
+    where no tile fits beside the smallest ring, below 64 rows."""
     n, h, c, f = shape
     for g in [g for g in BLOCK_GS if n % g == 0]:
         plan = bottleneck.plan(name, n, h, c, f, g, 132)
         assert set(plan) == set(bottleneck.PLAN_FIELDS)
         assert plan["smem_bytes"] <= SMEM_LIMIT
+        affines = bool(plan["affines_in_smem"])
         assert plan["smem_bytes"] == bottleneck.smem_bytes(
-            name, plan["stages"], plan["f_class"], plan["y1_rows"], c, f)
-        assert plan["f_class"] >= f and plan["f_class"] in (64, 128, 256,
-                                                            512)
-        assert plan["stages"] in (3, 4) and plan["threads"] == 256
-        if plan["stages"] == 3:   # a fourth stage would cut the band
-            want = -(-min(128, g * h * h) // 64) * 64
-            assert bottleneck.smem_bytes(
-                name, 4, plan["f_class"],
-                want + 2 * (0 if name == "block_matmuls" else h + 1), c,
-                f) > SMEM_LIMIT
+            name, plan["stages"], plan["f_class"], plan["y1_rows"], c, f,
+            affines)
+        assert plan["f_class"] in (64, 128, 256, 512, 1024)
+        assert plan["f_class"] >= f or plan["f_class"] == 1024
+        assert plan["stages"] in (2, 3, 4) and plan["threads"] == 256
         halo = 0 if name == "block_matmuls" else h + 1
-        assert plan["halo"] == halo
         band, rows = plan["band_rows"], g * h * h
-        assert band % 64 == 0 or band == rows
-        assert plan["y1_rows"] == -(-band // 64) * 64 + 2 * halo
+
+        def fits(stages, band_rows):
+            return bottleneck.smem_bytes(
+                name, stages, plan["f_class"], band_rows + 2 * halo, c, f,
+                affines) <= SMEM_LIMIT
+
+        if plan["stages"] < 4:   # a fourth stage would cut the band
+            assert not fits(4, -(-min(128, rows) // 64) * 64)
+        if plan["stages"] < 3:   # so would a third, below 64 rows
+            assert not fits(3, min(64, rows)) and band < 64
+        if not affines:          # no band fits beside the affines
+            assert bottleneck.smem_bytes(name, 2, plan["f_class"],
+                                         1 + 2 * halo, c, f) > SMEM_LIMIT
+        assert plan["halo"] == halo
+        assert band % 64 == 0 or band == rows or band < 64
+        assert not fits(plan["stages"], band + 1 if band < 64 else
+                        band + 64) or band == rows or band == 1024
+        assert plan["y1_rows"] == band + 2 * halo
         assert plan["items"] == n // g * plan["bands"]
         assert plan["grid"] == min(plan["items"], 132)
         seen = _covered_rows(plan, n, h, g)
@@ -454,15 +467,50 @@ def test_bottleneck_plan_at_the_sweeps_g(stage, band, bands, stages):
     (("block_mask", 256, 14, 1024, 256, 3), -2),
     (("block_folded", 0, 14, 1024, 256, 1), -3),
     (("fused_block", 4, 14, 1024, 0, 1), -3),
-    (("fused_block", 4, 14, 1024, 528, 1), -4),
-    (("block_matmuls", 4, 14, 16, 4096, 1), -4),
-    (("block_pad", 4, 70, 256, 512, 1), -4),
+    (("fused_block", 4, 14, 1024, 4096, 1), -4),
+    (("block_matmuls", 4, 14, 16, 131072, 1), -4),
+    (("block_pad", 4, 200, 256, 512, 1), -4),
     (("no_such_block", 4, 14, 1024, 256, 1), -5)])
 def test_bottleneck_plan_refuses_what_the_kernel_refuses(args, code):
     with pytest.raises(bottleneck.Refused) as info:
         bottleneck.plan(*args, 132)
     assert info.value.code == code
     assert isinstance(info.value, ValueError)
+
+
+def _mma_sync_kernel_fits(name, h, c, f):
+    """Whether the mma.sync kernel this one replaced had room for a band:
+    y1 (the band rounded up to 16 rows, with its halo, rounded up to 16)
+    and y2 (16 rows at least), row stride F + 8, beside two-deep cp.async
+    rings of 32-deep chunks (B up to 256 columns wide, A up to 256 rows)."""
+    halo = 0 if name == "block_matmuls" else h + 1
+
+    def tile(width):   # (B columns, A rows) of its 8-warp block tile
+        wn = 4 if width > 128 else 2 if width > 64 else 1
+        return 64 * wn, 256 // wn
+
+    (nb_f, mb_f), (nb_c, _) = tile(f), tile(c)
+    rings = 2 * 32 * (max(nb_f, nb_c) + 8) * 2 + 2 * mb_f * 40 * 2
+    ypad = -(-(16 + 2 * halo) // 16) * 16
+    return (16 + ypad) * (f + 8) * 2 + rings <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", bottleneck.VARIANTS)
+@pytest.mark.parametrize("c", [16, 256, 2048])
+def test_bottleneck_plan_takes_what_the_mma_sync_kernel_took(name, c):
+    """Every third F (multiples of 16 up to 2048) and every h up to 112
+    (the widest bottleneck of a 448-pixel ResNet input) that the replaced
+    kernel had room for has a plan: past F = 512 y2 is made in chunks,
+    and where a 64-row band does not fit beside three stages the band
+    narrows, the ring drops to two stages, and then the affines leave
+    shared memory. (At some F from 80 to 336 that kernel's smaller rings
+    also fit images of h >= 119 that this one refuses.)"""
+    for f in range(16, 2049, 48):
+        for h in range(1, 113):
+            if not _mma_sync_kernel_fits(name, h, c, f):
+                break
+            plan = bottleneck.plan(name, 1, h, c, f, 1, 132)
+            assert plan["band_rows"] >= 1
 
 
 @pytest.mark.cuda
@@ -475,6 +523,39 @@ def test_bottleneck_source_plan_matches_its_mirror():
             for g in (1, 4):
                 assert bottleneck.source_plan(name, 256, h, c, f, g) == \
                     bottleneck.plan(name, 256, h, c, f, g, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,f,g", [(4, 14, 256, 528, 2),
+                                       (2, 70, 256, 512, 1),
+                                       (2, 70, 2048, 512, 1)])
+def test_bottleneck_kernel_matches_its_plain_version_past_512_and_wide(
+        n, h, c, f, g):
+    """The six variants against their plain versions on the card where the
+    plan leaves the stages' path: F past 512 (y2 in chunks), a band below
+    64 rows beside a two-stage ring, and the affines read from global
+    memory; max |d| within 1e-2 of the largest, mean within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU route")
+    p = bottleneck_params_from_numpy(_jax_params(c, f, h + f), "cuda")
+    rng = np.random.default_rng([n, h, c, f])
+    x = _bf(rng.normal(size=(n, h, h, c)) * 0.5).cuda()
+    x2 = x.reshape(-1, c)
+    w = (p["w1"], p["w2"], p["w3"])
+    for name in bottleneck.VARIANTS:
+        fn = getattr(bottleneck, name)
+        ref = getattr(bottleneck, name + "_reference")
+        if name.startswith("fused"):
+            got, want = fn(x, p, g), ref(x, p, g)
+        elif name == "block_folded":
+            args = (p["w1"], p["b1"], p["w2"], p["b2"], p["w3"], p["b3"])
+            got, want = fn(x2, *args, h=h, g=g), ref(x2, *args, h=h, g=g)
+        else:
+            got, want = fn(x2, *w, h=h, g=g), ref(x2, *w, h=h, g=g)
+        d = (got.float() - want.float()).abs()
+        assert torch.isfinite(got.float()).all()
+        assert d.max() <= 1e-2 * want.float().abs().max(), name
+        assert d.mean() <= 1e-3 * want.float().abs().mean(), name
 
 
 # ---------------------------------------------------------------------------
