@@ -442,16 +442,66 @@ def dr_pass_ms(torch, hs, h0, reps):
     return time_ms(run, reps)
 
 
+def gru_plan_check(torch, gru, n, h):
+    """The forward kernel's launch plan as csrc/gru_seq.cu computes it
+    (gru_seq_plan, both entries) against its Python mirror
+    (kernels/gru.py gru_seq_plan) at this card's SM count, and the plan the
+    card launches (a smaller cluster where it cannot hold the plan's
+    clusters at once)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mirror = gru.gru_seq_plan(n, h, sms)
+    for save in (0, 1):
+        source = gru.gru_seq_source_plan(n, h, save, sms)
+        if source != mirror:
+            fail(f"gru_seq plan at N={n} H={h} save={save}: source {source}"
+                 f" vs mirror {mirror}")
+    card = gru.gru_seq_source_plan(n, h, 0, 0)
+    print(f"gru_seq plan N={n} H={h} on {sms} SMs: {mirror[1]} (source = "
+          f"mirror); the card launches "
+          f"{'the same' if card == mirror else card[1]}", flush=True)
+
+
+def gru_step_route_ms(torch, xw, r, rb, h0, save):
+    """Single and back-to-back CUDA-event ms of the step route's GRU
+    forward (csrc/rnn_step.cu rnn_step_fwd_gru_f32) on these inputs, called
+    through its C entry as scripts/rnn_step_ab.py does: a second yardstick
+    for the persistent kernel, whose route does not change."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.kernels import build
+
+    t, n, h = xw.shape[0], xw.shape[1], r.shape[0]
+    fn = build.load("rnn_step").rnn_step_fwd_gru_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    hs = torch.empty((t, n, h), device="cuda")
+    res = [torch.empty((t, n, k * h), device="cuda") if save else None
+           for k in (2, 1, 1)]
+
+    def run():
+        rc = fn(xw.data_ptr(), r.data_ptr(), rb.data_ptr(), h0.data_ptr(),
+                hs.data_ptr(), *(x.data_ptr() if save else None for x in res),
+                int(save), t, n, h, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"rnn_step_fwd_gru_f32 returned {rc}")
+
+    return time_ms(run, 10), time_b2b_ms(run, 20)
+
+
 def gru_kernel_phase(torch, gru):
-    """The three GRU kernels vs their plain versions at every GRU shape;
-    the backward's determinism; times of each kernel, its plain version
-    and torch.nn.GRU on cuDNN (the yardstick: the same reset-after
-    recurrence, gate order r, z, n, weight_hh = R^T; never called by the
-    port)."""
+    """The three GRU kernels vs their plain versions at every GRU shape,
+    the forward's launch plan against its mirror; every kernel's
+    determinism (a second launch repeats the bits); times of each kernel
+    (single and back to back), its plain version and torch.nn.GRU on cuDNN
+    (the yardstick: the same reset-after recurrence, gate order r, z, n,
+    weight_hh = R^T; never called by the port), and at the char-RNN's
+    serving and training shapes the step route's forward beside them."""
     names = ("gru_seq_infer", "gru_seq_fwd", "gru_seq_bwd")
     rows = {name: {} for name in names}
     errs = dict.fromkeys(names, 0.0)   # max |d|, absolute
     for (t, n, h) in GRU_SHAPES:
+        gru_plan_check(torch, gru, n, h)
         rng = np.random.default_rng([SEED, 2, t, n, h])
 
         def dev(*shape, scale=1.0):
@@ -493,10 +543,13 @@ def gru_kernel_phase(torch, gru):
         if rel_b > GRAD_TOL:
             fail(f"gru_seq_bwd vs plain max|d|/max={rel_b:.3e} > {GRAD_TOL}"
                  f" at {(t, n, h)}")
-        again = gru.gru_seq_bwd(dhs, dhT, ru, rzc, cand, hs, r, h0)
-        if not all(torch.equal(a, e) for a, e in zip(again, got_b)):
-            fail(f"gru_seq_bwd gave other bits on a second run at "
-                 f"{(t, n, h)}: its sums must run in a fixed order")
+        again = (gru.gru_seq_infer(xw, r, rb, h0), gru.gru_seq_fwd(
+            xw, r, rb, h0), gru.gru_seq_bwd(dhs, dhT, ru, rzc, cand, hs, r,
+                                            h0))
+        for name, first, second in zip(names, (got_i, got_f, got_b), again):
+            if not all(torch.equal(a, e) for a, e in zip(second, first)):
+                fail(f"{name} gave other bits on a second run at "
+                     f"{(t, n, h)}: its sums must run in a fixed order")
         for name, err in zip(names, (err_i, err_f, err_b)):
             errs[name] = max(errs[name], err)
 
@@ -533,6 +586,19 @@ def gru_kernel_phase(torch, gru):
                                                r, h0), reps)
         if [fn.launches for fn in fns] != [k + reps + 1 for k in launches]:
             fail("GRU launch counters out of step with the timed launches")
+        with torch.inference_mode():
+            i_b2b = time_b2b_ms(lambda: gru.gru_seq_infer(xw, r, rb, h0))
+        f_b2b = time_b2b_ms(lambda: gru.gru_seq_fwd(xw, r, rb, h0))
+        b_b2b = time_b2b_ms(lambda: gru.gru_seq_bwd(dhs, dhT, ru, rzc, cand,
+                                                   hs, r, h0))
+        print(f"gru T={t} N={n} H={h} back to back: infer {i_b2b:.4f}, fwd "
+              f"{f_b2b:.4f}, bwd {b_b2b:.4f} ms", flush=True)
+        if (t, n, h) in (GRU_SERVE_SHAPE, GRU_TRAIN_SHAPE):
+            save = (t, n, h) == GRU_TRAIN_SHAPE
+            single, b2b = gru_step_route_ms(torch, xw, r, rb, h0, save)
+            print(f"gru step route {'fwd' if save else 'infer'} T={t} N={n} "
+                  f"H={h} (yardstick, not the route): single {single:.4f} "
+                  f"ms, back to back {b2b:.4f} ms", flush=True)
         pf_ms = time_ms(lambda: gru.gru_seq_fwd_reference(xw, r, rb, h0),
                         plain_reps)
         pb_ms = time_ms(lambda: gru.gru_seq_bwd_reference(
@@ -941,10 +1007,12 @@ def gru_slice_phase(torch, gru, net):
     session.close()
     n_warm = len(entry.servable.warmed_shapes)
     served = gru.gru_seq_infer.launches
-    print(f"gru slice: warmup of {n_warm} ladder shapes {warm_s:.3f} s; "
-          f"{len(requests)} requests ({sum(len(x) for x in requests)} rows) "
-          f"in {len(dispatches)} dispatches {sorted(set(dispatches))}, "
-          f"{serve_s:.4f} s; kernel launches {served}", flush=True)
+    print(f"gru slice: warmup of {n_warm} ladder shapes "
+          f"{sorted(tuple(x) for x in entry.servable.warmed_shapes)} "
+          f"{warm_s:.3f} s; {len(requests)} requests "
+          f"({sum(len(x) for x in requests)} rows) in {len(dispatches)} "
+          f"dispatches {sorted(dispatches)}, {serve_s:.4f} s; kernel "
+          f"launches {served}", flush=True)
     if served != n_warm + len(dispatches) or not dispatches:
         fail(f"{served} gru_seq_infer launches for {n_warm} warmup and "
              f"{len(dispatches)} serving dispatches of a 1-GRU net")

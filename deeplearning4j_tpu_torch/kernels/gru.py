@@ -29,12 +29,18 @@ an error, never a silent reroute. Each counts its launches in
 ``.launches``. Widths whose persistent kernel cannot launch on the card
 (about H > 1,056) take the step route of ``kernels/rnn_step.py``, chosen
 by shape before the launch, which counts its own launches.
+
+``gru_seq_plan`` mirrors the forward kernel's launch plan (``csrc/gru_seq.cu``
+``make_plan``, asked of the source by ``gru_seq_source_plan``) for the CPU
+tests; ``gru_seq_cells`` and ``gru_seq_k_ranges`` say which block
+finalises each output cell and which k each cluster rank sums.
 """
 
 from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.kernels import build
 from deeplearning4j_tpu_torch.kernels.lstm import (
     _count, _cuda_f32, _launch, _route)
 
@@ -109,6 +115,153 @@ def gru_seq_bwd_reference(dhs, dhT, ru, rzc, cand, hs, r, h0):
         dr += h_prev.T @ drz
         drb += drz.sum(dim=0)
     return dxw, dr, drb, dh_rec
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's launch plan
+# ---------------------------------------------------------------------------
+
+PLAN_FIELDS = ("units", "cluster", "rows", "tiles", "rows_per_thread",
+               "row_threads", "col_threads", "splits", "threads", "stages",
+               "smem_bytes", "blocks", "k_per_rank", "groups", "share")
+_CHUNK, _MAX_THREADS, _MAX_ROWS, _MAX_STAGES = 64, 384, 64, 9
+_MAX_CLUSTER = 2
+_SMEM_OPTIN = 232448   # bytes a block may opt into on an H100
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _round4(a):
+    return (a + 3) & ~3
+
+
+def _smem(kr, cols, stages, rth, tm, splits, cluster, share):
+    """Bytes: R's slice [kr][cols], the ring of ``stages`` stages (rth row
+    slots of tm rows at stride 64, slots at stride tm * 64 + 4; the splits'
+    sums [splits][rth * tm][cols] go over it), the ranks' sums
+    [cluster][3][share] and the mbarrier counting their arrival."""
+    return 4 * (kr * cols + max(stages * rth * (tm * _CHUNK + 4),
+                                splits * rth * tm * cols)
+                + cluster * 3 * share) + 16
+
+
+def gru_seq_plan(n, hsz, sms):
+    """The launch plan of ``gru_seq_infer`` and ``gru_seq_fwd`` at batch n
+    and width hsz on a card of ``sms`` SMs, as ``csrc/gru_seq.cu`` computes
+    it (``make_plan``; the entry ``gru_seq_plan``): (code, plan), the plan
+    a dict of ``PLAN_FIELDS``, or None with code -1 (no slice of R fits in
+    shared memory), -2 (one fits but needs more blocks than SMs) or -3 (an
+    empty dimension).
+
+    A block owns ``units`` hidden units (their 3 gate columns) and a
+    cluster of ``cluster`` blocks splits the reduction over k into ranges
+    of ``k_per_rank``; each rank keeps its part of R in shared memory for
+    the whole sequence. Rows come in ``tiles`` row tiles of ``rows`` (at
+    most 64), each thread holding ``rows_per_thread`` rows (8 from 32 rows,
+    4 from 4, else 1) x 4 columns, ``splits`` thread groups sharing each
+    64-k chunk (as many as 384 threads allow). Units and cluster give the
+    most blocks not above ``sms`` whose shared memory (R's slice, a ring of
+    two stages, the ranks' sums) fits in 227 KiB, then the largest
+    cluster; ``groups`` copies of the grid split the row tiles where the
+    SMs allow. The h ring has a stage for each 64-k chunk of a rank's k and
+    one more where they fit (all chunks in flight at once), else at most 9
+    stages, fewer where they do not fit. (On the card the launch takes a
+    smaller cluster where it cannot hold all of the plan's clusters at
+    once: ``gru_seq_source_plan`` with ``sms`` <= 0.)"""
+    if min(n, hsz, sms) < 1:
+        return -3, None
+    tiles = _cdiv(n, _MAX_ROWS)
+    rows = _cdiv(n, tiles)
+    tm = 8 if rows >= 32 else 4 if rows >= 4 else 1
+    rth = _cdiv(rows, tm)
+    rc, best = -1, None
+    for units in (8, 16, 32):
+        cluster = 1
+        while cluster <= _MAX_CLUSTER:
+            cols = 3 * units
+            cth = cols // 4
+            blocks = _cdiv(hsz, units) * cluster
+            kr = _round4(_cdiv(hsz, cluster))
+            splits = min(_MAX_THREADS // (rth * cth), _CHUNK // 4)
+            share = _round4(_cdiv(rows * units, cluster))
+            if (cluster > 1 and (cluster - 1) * kr >= hsz) or _smem(
+                    kr, cols, 2, rth, tm, splits, cluster,
+                    share) > _SMEM_OPTIN:
+                pass
+            elif blocks > sms:
+                rc = -2 if rc == -1 else rc
+            elif rc != 0 or (blocks, cluster) > (best["blocks"],
+                                                 best["cluster"]):
+                rc = 0
+                best = dict(units=units, cluster=cluster, rows=rows,
+                            tiles=tiles, rows_per_thread=tm, row_threads=rth,
+                            col_threads=cth, splits=splits,
+                            threads=rth * cth * splits, blocks=blocks,
+                            k_per_rank=kr, share=share)
+            cluster *= 2
+    if rc != 0:
+        return rc, None
+    groups = min(sms // best["blocks"], tiles)
+    chunks = _cdiv(best["k_per_rank"], _CHUNK)
+
+    def smem(stages):
+        return _smem(best["k_per_rank"], 3 * best["units"], stages, rth, tm,
+                     best["splits"], best["cluster"], best["share"])
+
+    stages = chunks + 1
+    if smem(stages) > _SMEM_OPTIN:
+        stages = min(chunks, _MAX_STAGES)
+        while stages > 2 and smem(stages) > _SMEM_OPTIN:
+            stages -= 1
+    best.update(groups=groups, blocks=best["blocks"] * groups, stages=stages,
+                smem_bytes=smem(stages))
+    return 0, {k: best[k] for k in PLAN_FIELDS}
+
+
+def gru_seq_source_plan(n, hsz, save, sms, device=None):
+    """The same (code, plan) asked of the compiled source, nothing
+    launched; with ``sms`` <= 0 the plan this card launches (for save 0,
+    the inference forward, or 1, the training forward), with a smaller
+    cluster where the card cannot hold the plan's clusters at once."""
+    out = torch.zeros(len(PLAN_FIELDS), dtype=torch.int32)
+    device = torch.device("cuda") if device is None else device
+    rc = build.query("gru_seq", "gru_seq_plan", "gru_seq plan",
+                     [n, hsz, int(save), sms, out], device)
+    return rc, (dict(zip(PLAN_FIELDS, (int(x) for x in out)))
+                if rc == 0 else None)
+
+
+def gru_seq_cells(plan, n, hsz):
+    """The cells (ids row * hsz + unit) that each block of ``plan``
+    finalises, block after block, as the kernel assigns them: block b is
+    rank b % cluster of unit slice (b // cluster) % slices in row group
+    b // (cluster * slices); over each of its group's row tiles the rank
+    takes the ``share``-long range of the tile's rows x units cells (row
+    major) at rank * share. A LongTensor; each cell of [n, hsz] appears
+    once."""
+    units, cluster, rows = plan["units"], plan["cluster"], plan["rows"]
+    slices = _cdiv(hsz, units)
+    out = []
+    for block in range(plan["blocks"]):
+        rank, cl_id = block % cluster, block // cluster
+        slice_, group = cl_id % slices, cl_id // slices
+        for tile in range(group, plan["tiles"], plan["groups"]):
+            n0 = tile * rows
+            cells = min(rows, n - n0) * units
+            share = _round4(_cdiv(cells, cluster))
+            e = torch.arange(min(cells, rank * share),
+                             min(cells, rank * share + share))
+            unit = slice_ * units + e % units
+            out.append(((n0 + e // units) * hsz + unit)[unit < hsz])
+    return torch.cat(out)
+
+
+def gru_seq_k_ranges(plan, hsz):
+    """[kb, ke) of the reduction over k that each cluster rank sums."""
+    kr = plan["k_per_rank"]
+    return [(q * kr, min(hsz, (q + 1) * kr)) for q in range(plan["cluster"])]
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,11 @@
 - The route: ``gruLayer`` under grad never takes the gradient-less
   ``gru_seq_infer``, and ``gru_seq_infer`` refuses inputs that require
   grad.
+- The forward kernel's launch plan, through its Python mirror
+  (``gru.gru_seq_plan``): every output cell finalised by one block, the
+  cluster ranks covering k, shared memory within 227 KiB, the grid
+  following the SM count, and every (N, H) that the kernel before its
+  redesign took (its rules copied below) still taken.
 
 Inputs come from a numpy seed. The CUDA kernels themselves are held against
 the plain versions on the card in the cuda-marked tests here and in
@@ -237,6 +242,119 @@ def test_gru_layer_takes_the_kernel_route_only_for_reset_after_tanh_f32(
     assert calls == ["gru_seq_infer"] * 2
 
 
+# -- the forward kernel's launch plan -----------------------------------------
+
+PLAN_SHAPES = [(64, 1024, 132), (32, 1024, 132), (1, 1024, 132),
+               (1, 1157, 132), (2, 1112, 132), (1024, 1056, 132),
+               (130, 200, 132), (1024, 37, 132), (33, 1000, 132),
+               (65, 1056, 132), (17, 512, 66), (3, 200, 16), (5, 1, 132),
+               (1024, 200, 264)]
+DOMAIN_N = (1, 3, 16, 17, 33, 64, 65, 130, 1024)
+DOMAIN_H = (1, 37, 200, 512, 1000, 1024, 1056, 1112, 1157)
+H100_SMS = 132
+
+
+def _old_kernel_fits(n, h, sms=H100_SMS):
+    """The launch rules of csrc/gru_seq.cu before its redesign: 8 units a
+    block (256 threads), R's [24, H] slice plus ROWS rows of h in shared
+    memory (ROWS the smallest power of two covering N, at most 16, halved
+    while it does not fit), ceil(H/8) co-resident blocks. Blocks an SM by
+    shared memory (233472 bytes an SM, 1 KiB reserved a block) and threads;
+    registers are taken not to limit them, which can only widen the
+    domain. 0, -1 or -2 as the source returned."""
+    optin, per_sm_bytes = 232448, 233472
+
+    def smem(rows):
+        return (3 * 8 * h + rows * h) * 4
+
+    rows = 1
+    while rows < n and rows < 16:
+        rows *= 2
+    while rows > 1 and smem(rows) > optin:
+        rows //= 2
+    if smem(rows) > optin:
+        return -1
+    per_sm = min(8, per_sm_bytes // (smem(rows) + 1024))
+    return 0 if per_sm * sms >= -(-h // 8) else -2
+
+
+@pytest.mark.parametrize("n,h,sms", PLAN_SHAPES)
+def test_plan_finalises_every_cell_once(n, h, sms):
+    rc, plan = gru.gru_seq_plan(n, h, sms)
+    assert rc == 0
+    cells = gru.gru_seq_cells(plan, n, h)
+    assert torch.equal(torch.bincount(cells, minlength=n * h),
+                       torch.ones(n * h, dtype=torch.long))
+
+
+@pytest.mark.parametrize("n,h,sms", PLAN_SHAPES)
+def test_plan_ranks_cover_k(n, h, sms):
+    _, plan = gru.gru_seq_plan(n, h, sms)
+    ranges = gru.gru_seq_k_ranges(plan, h)
+    assert len(ranges) == plan["cluster"]
+    assert ranges[0][0] == 0 and ranges[-1][1] == h
+    for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+        assert e0 == b1
+    assert all(e > b for b, e in ranges)   # no idle rank
+    assert plan["k_per_rank"] % 4 == 0
+
+
+@pytest.mark.parametrize("n,h,sms", PLAN_SHAPES)
+def test_plan_fits_shared_memory_and_the_card(n, h, sms):
+    _, p = gru.gru_seq_plan(n, h, sms)
+    rtp = p["row_threads"] * p["rows_per_thread"]
+    cols = 3 * p["units"]
+    ring = max(p["stages"] * p["row_threads"] * (p["rows_per_thread"] * 64
+                                                 + 4),
+               p["splits"] * rtp * cols)
+    assert p["smem_bytes"] == 4 * (p["k_per_rank"] * cols + ring
+                                   + p["cluster"] * 3 * p["share"]) + 16
+    assert p["smem_bytes"] <= 227 * 1024
+    assert p["blocks"] <= sms and p["threads"] <= 384
+    assert p["threads"] == (p["row_threads"] * p["col_threads"]
+                            * p["splits"])
+    assert rtp >= p["rows"] and p["rows"] <= 64
+    assert p["tiles"] * p["rows"] >= n > (p["tiles"] - 1) * p["rows"]
+    chunks = -(-p["k_per_rank"] // 64)
+    assert p["stages"] == chunks + 1 or 2 <= p["stages"] <= min(chunks, 9)
+    assert p["share"] % 4 == 0 and p["share"] * p["cluster"] >= (
+        p["rows"] * p["units"])
+    assert p["blocks"] % (p["cluster"] * p["groups"]) == 0
+
+
+def test_plan_follows_the_sm_count():
+    blocks = {sms: gru.gru_seq_plan(64, 1024, sms)[1]["blocks"]
+              for sms in (132, 264)}
+    assert blocks == {132: 128, 264: 256}
+    assert gru.gru_seq_plan(64, 1024, 128)[1]["blocks"] == 128
+    assert gru.gru_seq_plan(64, 1024, 127)[0] == -2
+    # fewer SMs: smaller clusters or wider slices, never more blocks
+    for sms in (8, 33, 66, 100, 131):
+        rc, plan = gru.gru_seq_plan(64, 256, sms)
+        assert rc == 0 and plan["blocks"] <= sms
+    # spare SMs take row tiles of their own
+    _, plan = gru.gru_seq_plan(1024, 200, 264)   # 25 slices x 2 ranks
+    assert plan["groups"] == 5 and plan["blocks"] == 250
+    assert gru.gru_seq_plan(0, 8, 132)[0] == -3
+    assert gru.gru_seq_plan(8, 8, 0)[0] == -3
+
+
+@pytest.mark.parametrize("n", DOMAIN_N)
+@pytest.mark.parametrize("h", DOMAIN_H)
+def test_plan_domain_contains_the_old_kernels(n, h):
+    old = _old_kernel_fits(n, h)
+    rc, _ = gru.gru_seq_plan(n, h, H100_SMS)
+    assert rc == 0 or old != 0, f"N={n} H={h}: the old kernel took it"
+
+
+def test_old_kernel_rules_as_measured():
+    """The copied rules give the widths ROADMAP.md records for the old
+    kernel: H up to 1056 at any N, a little more at N = 1 and 2."""
+    assert all(_old_kernel_fits(n, 1056) == 0 for n in DOMAIN_N)
+    assert _old_kernel_fits(64, 1064) == -2
+    assert _old_kernel_fits(1, 1157) == 0 and _old_kernel_fits(1, 1160) == -2
+
+
 # -- on the card --------------------------------------------------------------
 
 @pytest.fixture
@@ -284,3 +402,45 @@ def test_cuda_gru_layer_carries_a_gradient(cuda):
     want = torch.autograd.grad(ops.gruLayer(*cpu)[0].sum(), cpu)
     for g, wv in zip(grads, want):
         assert float((g.cpu() - wv).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,sms", PLAN_SHAPES)
+def test_cuda_plan_equals_source(cuda, n, h, sms):
+    for save in (0, 1):
+        assert gru.gru_seq_source_plan(n, h, save, sms, cuda) == \
+            gru.gru_seq_plan(n, h, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 65, 130])
+@pytest.mark.parametrize("h", [37, 200, 1000, 1056])
+def test_cuda_ragged_shapes_match_plain_with_repeated_bits(cuda, n, h):
+    arrays = [torch.from_numpy(a).to(cuda) for a in _data(3, n, h, seed=6)]
+    from deeplearning4j_tpu_torch.kernels import rnn_step
+    assert rnn_step.takes_persistent("gru_fwd", n, h, cuda)
+    with torch.no_grad():
+        inf = [gru.gru_seq_infer(*arrays) for _ in range(2)]
+    fwd = [gru.gru_seq_fwd(*arrays) for _ in range(2)]
+    torch.cuda.synchronize()
+    # 1e-4: another summation order than the plain version's matmul
+    for got, want in ((inf[0], gru.gru_seq_infer_reference(*arrays)),
+                      (fwd[0], gru.gru_seq_fwd_reference(*arrays))):
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) < 1e-4
+    for first, second in ((inf[0], inf[1]), (fwd[0], fwd[1])):
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", DOMAIN_N)
+def test_cuda_fits_contains_the_old_domain(cuda, n):
+    """Every (N, H) that the old rules take launches on this card (an H100:
+    the old rules are those of its 132 SMs)."""
+    from deeplearning4j_tpu_torch.kernels import build
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for h in DOMAIN_H:
+        if _old_kernel_fits(n, h, sms) == 0:
+            for save in (0, 1):
+                assert build.query("gru_seq", "gru_seq_fits", "fits",
+                                   [n, h, save], cuda) == 0, (n, h, save)
