@@ -6,8 +6,11 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), holds each against its plain PyTorch version
 at the shapes the training and serving paths give it (the GRU kernels also
 against torch.nn.GRU on cuDNN, which is only timed and checked, never
-called by the port), then drives full-width models with random weights
-from a numpy seed:
+called by the port; the GRU backward's two launch plans, its sweep's and
+its dR pass's, also against their Python mirrors, its kernels at ragged
+shapes too, the sweep and the dR pass timed apart, the dR pass also at
+the step route's H=2048), then drives full-width models with random
+weights from a numpy seed:
 
 - the GravesLSTM char-RNN (TextGenerationLSTM: vocab 77, hidden 256,
   seqLength 100, batch 32, Adam(2e-3)): ``gradients`` and 5 ``fit`` steps
@@ -391,6 +394,13 @@ GRU_SHAPES = [(100, 64, 1024), (100, 1, 1024), (100, 32, 1024),
 GRU_TRAIN_SHAPE = (100, 64, 1024)
 GRU_SERVE_SHAPE = (100, 32, 1024)   # the serving ladder's largest bucket
 GRU_EMBED = 256                     # the GRU layer's input width
+# the backward's plans are also checked at these (N, H): row tiles of 48
+# and two of 48 rows, and the step route's width (the sweep refuses it)
+GRU_BWD_PLAN_EXTRA = [(48, 1024), (96, 1024), (64, 2048)]
+# (T, N, H) the backward's sweep plans otherwise than the kernel before
+# it: a ragged batch and width, two row tiles, 20 units a block
+GRU_BWD_RAGGED = [(5, 33, 1000), (4, 96, 1056), (3, 17, 1100)]
+GRU_STEP_DR_SHAPE = (100, 64, 2048)   # the step route's GRU dR pass
 
 
 def gru_infer_bound(t, n, h):
@@ -416,10 +426,26 @@ def gru_bwd_bound(t, n, h):
                   4.0 * t * n * h * 3 * h)
 
 
+def gru_sweep_bound(t, n, h):
+    """The sweep's half of the backward: reads dhs, dhT, ru, rz_c, cand,
+    hs, R, h0 once, writes dxw, the drz scratch and dh0 once; 2*T*N*H*3H
+    multiply-adds of drz R^T."""
+    return _bound(4 * (6 * t * n * h + 2 * n * h + h * 3 * h
+                       + 6 * t * n * h + n * h), 2.0 * t * n * h * 3 * h)
+
+
+def gru_dr_bound(t, n, h):
+    """The dR pass: reads hs, h0 and drz once, writes dR and drb once;
+    2*T*N*H*3H multiply-adds."""
+    return _bound(4 * (t * n * h + n * h + 3 * t * n * h + h * 3 * h
+                       + 3 * h), 2.0 * t * n * h * 3 * h)
+
+
 def dr_pass_ms(torch, hs, h0, reps):
-    """CUDA-event median of gru_seq_bwd's second pass alone (dR and drb
-    from a drz scratch), through its own entry point, so that the sweep
-    and the reduction are timed apart. Values do not change its time."""
+    """CUDA-event median of single calls of gru_seq_bwd's second pass alone
+    (dR and drb from a drz scratch), through its own entry point, so that
+    the sweep and the reduction are timed apart, and its time back to
+    back. Values do not change its time."""
     import ctypes
 
     from deeplearning4j_tpu_torch.kernels import build
@@ -439,7 +465,115 @@ def dr_pass_ms(torch, hs, h0, reps):
         if rc != 0:
             fail(f"gru_seq_bwd_dr_f32 returned {rc}")
 
-    return time_ms(run, reps)
+    return time_ms(run, reps), time_b2b_ms(run, 20)
+
+
+def gru_bwd_plan_check(torch, gru, t, n, h):
+    """The backward's launch plans as csrc/gru_seq_bwd.cu computes them
+    (gru_seq_bwd_plan for the sweep, gru_seq_bwd_dr_plan for the dR pass)
+    against their Python mirrors (kernels/gru.py gru_seq_bwd_plan,
+    gru_bwd_dr_plan) at this card's SM count, codes included, and the
+    sweep plan the card launches."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mirror = gru.gru_seq_bwd_plan(n, h, sms)
+    source = gru.gru_seq_bwd_source_plan(n, h, sms)
+    if source != mirror:
+        fail(f"gru_seq_bwd sweep plan at N={n} H={h}: source {source} vs "
+             f"mirror {mirror}")
+    dr_mirror = gru.gru_bwd_dr_plan(t, n, h, sms)
+    dr_source = gru.gru_bwd_dr_source_plan(t, n, h, sms)
+    if dr_source != dr_mirror:
+        fail(f"gru_seq_bwd dR plan at {(t, n, h)}: source {dr_source} vs "
+             f"mirror {dr_mirror}")
+    card = gru.gru_seq_bwd_source_plan(n, h, 0)
+    print(f"gru_seq_bwd plans T={t} N={n} H={h} on {sms} SMs: sweep "
+          f"{mirror[1] if mirror[0] == 0 else f'code {mirror[0]}'}, dR "
+          f"{dr_mirror[1]} (source = mirror); the card launches "
+          f"{'the same' if card == mirror else card}", flush=True)
+
+
+def gru_bwd_ragged_check(torch, gru):
+    """gru_seq_bwd at GRU_BWD_RAGGED, where the sweep's plan differs from
+    the kernel before it (a ragged batch, two row tiles, 20 units a
+    block), against its plain version (GRAD_TOL), launched twice (the bits
+    must repeat), by the persistent route."""
+    from deeplearning4j_tpu_torch.kernels import rnn_step
+
+    for t, n, h in GRU_BWD_RAGGED:
+        gru_bwd_plan_check(torch, gru, t, n, h)
+        if not rnn_step.takes_persistent("gru_bwd", n, h, "cuda"):
+            fail(f"gru_seq_bwd at N={n} H={h} takes the step route")
+        rng = np.random.default_rng([SEED, 14, t, n, h])
+
+        def dev(*shape, scale=1.0):
+            return torch.tensor((rng.normal(size=shape) * scale).astype(
+                np.float32), device="cuda")
+
+        xw, r = dev(t, n, 3 * h, scale=0.5), dev(h, 3 * h, scale=h ** -0.5)
+        rb, h0 = dev(3 * h, scale=0.1), dev(n, h, scale=0.2)
+        hs, ru, rzc, cand = gru.gru_seq_fwd_reference(xw, r, rb, h0)
+        ins = [dev(t, n, h), dev(n, h), ru, rzc, cand, hs, r, h0]
+        before = gru.gru_seq_bwd.launches
+        first, second = gru.gru_seq_bwd(*ins), gru.gru_seq_bwd(*ins)
+        torch.cuda.synchronize()
+        if gru.gru_seq_bwd.launches != before + 2:
+            fail(f"gru_seq_bwd did not launch at {(t, n, h)}")
+        rel = max(_rel_err(a, e) for a, e in zip(
+            first, gru.gru_seq_bwd_reference(*ins)))
+        if rel > GRAD_TOL:
+            fail(f"gru_seq_bwd vs plain max|d|/max={rel:.3e} > {GRAD_TOL} "
+                 f"at {(t, n, h)}")
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"gru_seq_bwd gave other bits on a second run at "
+                 f"{(t, n, h)}")
+        print(f"gru_seq_bwd T={t} N={n} H={h}: max|d|/max {rel:.3e}, bits "
+              f"repeat", flush=True)
+
+
+def gru_step_dr_phase(torch, gru):
+    """The dR pass alone at the step route's GRU width (the step route's
+    backward runs it after its own sweep, kernels/rnn_step.py
+    gru_step_bwd): its plan against the mirror, dR and drb against hprev^T
+    drz (GRAD_TOL), bits repeated, single and back-to-back times against
+    its bound."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.kernels import build
+
+    t, n, h = GRU_STEP_DR_SHAPE
+    gru_bwd_plan_check(torch, gru, t, n, h)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    hs, drz = (torch.randn(s, device="cuda", generator=gen)
+               for s in ((t, n, h), (t, n, 3 * h)))
+    h0 = torch.randn((n, h), device="cuda", generator=gen)
+    fn = build.load("gru_seq_bwd").gru_seq_bwd_dr_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    outs = []
+    for _ in range(2):
+        dr = torch.empty((h, 3 * h), device="cuda")
+        drb = torch.empty((3 * h,), device="cuda")
+        rc = fn(hs.data_ptr(), h0.data_ptr(), drz.data_ptr(), dr.data_ptr(),
+                drb.data_ptr(), t, n, h,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"gru_seq_bwd_dr_f32 returned {rc} at {(t, n, h)}")
+        outs.append((dr, drb))
+    torch.cuda.synchronize()
+    hprev = torch.cat([h0[None], hs[:-1]]).reshape(-1, h)
+    want = (hprev.T @ drz.reshape(-1, 3 * h), drz.reshape(-1, 3 * h).sum(0))
+    rel = max(_rel_err(a, e) for a, e in zip(outs[0], want))
+    if rel > GRAD_TOL:
+        fail(f"the dR pass vs hprev^T drz max|d|/max={rel:.3e} at "
+             f"{(t, n, h)}")
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        fail(f"the dR pass gave other bits on a second run at {(t, n, h)}")
+    single, b2b = dr_pass_ms(torch, hs, h0, 10)
+    bound = gru_dr_bound(t, n, h)
+    print(f"gru step route dR pass T={t} N={n} H={h}: max|d|/max "
+          f"{rel:.3e}, bits repeat; single {single:.4f} ms, back to back "
+          f"{b2b:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return dict(ms=single, b2b_ms=b2b, bound_ms=bound[0])
 
 
 def gru_plan_check(torch, gru, n, h):
@@ -502,6 +636,7 @@ def gru_kernel_phase(torch, gru):
     errs = dict.fromkeys(names, 0.0)   # max |d|, absolute
     for (t, n, h) in GRU_SHAPES:
         gru_plan_check(torch, gru, n, h)
+        gru_bwd_plan_check(torch, gru, t, n, h)
         rng = np.random.default_rng([SEED, 2, t, n, h])
 
         def dev(*shape, scale=1.0):
@@ -607,10 +742,12 @@ def gru_kernel_phase(torch, gru):
         lb_ms = time_ms(lambda: torch.autograd.grad(outs, wrt, cts,
                                                     retain_graph=True), reps)
         del outs
-        dr_ms = dr_pass_ms(torch, hs, h0, reps)
+        dr_ms, dr_b2b = dr_pass_ms(torch, hs, h0, reps)
+        sweep_b, dr_b = gru_sweep_bound(t, n, h)[0], gru_dr_bound(t, n, h)[0]
         print(f"gru_seq_bwd T={t} N={n} H={h}: its dR, drb pass alone "
-              f"{dr_ms:.4f} ms, so the sweep {b_ms - dr_ms:.4f} ms",
-              flush=True)
+              f"{dr_ms:.4f} ms (back to back {dr_b2b:.4f}; bound "
+              f"{dr_b:.4f}), so the sweep {b_ms - dr_ms:.4f} ms (back to "
+              f"back {b_b2b - dr_b2b:.4f}; bound {sweep_b:.4f})", flush=True)
         for name, ms, p_ms, l_ms, bound, err, lib in (
                 ("gru_seq_infer", i_ms, pi_ms, li_ms,
                  gru_infer_bound(t, n, h), f"{err_i:.3e}", "layer"),
@@ -622,11 +759,21 @@ def gru_kernel_phase(torch, gru):
             rows[name][(t, n, h)] = dict(ms=ms, plain_ms=p_ms,
                                          library_ms=l_ms, bound_ms=bound[0],
                                          bound_by=bound[1])
+            if name == "gru_seq_bwd":
+                rows[name][(t, n, h)]["halves"] = dict(
+                    sweep_ms=ms - dr_ms, sweep_b2b_ms=b_b2b - dr_b2b,
+                    sweep_bound_ms=sweep_b, dr_ms=dr_ms, dr_b2b_ms=dr_b2b,
+                    dr_bound_ms=dr_b)
             print(f"{name} T={t} N={n} H={h}: max|d| {err}"
                   f"{f' (vs cuDNN {cudnn_err:.3e})' if lib == 'layer' else ''}"
                   f"; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN GRU "
                   f"{lib} {l_ms:.4f} ms, bound {bound[0]:.4f} ms "
                   f"({bound[1]})", flush=True)
+    for n, h in GRU_BWD_PLAN_EXTRA:
+        gru_bwd_plan_check(torch, gru, 100, n, h)
+    gru_bwd_ragged_check(torch, gru)
+    rows["gru_seq_bwd"][GRU_TRAIN_SHAPE]["halves"]["step_route_dr"] = (
+        gru_step_dr_phase(torch, gru))
     return rows, errs
 
 
@@ -2406,6 +2553,7 @@ def main():
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
+        **({"halves": rep["halves"]} if "halves" in rep else {}),
     } for name, source, where, n_launch, err, shape, rep in entries]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

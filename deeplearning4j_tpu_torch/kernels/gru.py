@@ -33,7 +33,12 @@ by shape before the launch, which counts its own launches.
 ``gru_seq_plan`` mirrors the forward kernel's launch plan (``csrc/gru_seq.cu``
 ``make_plan``, asked of the source by ``gru_seq_source_plan``) for the CPU
 tests; ``gru_seq_cells`` and ``gru_seq_k_ranges`` say which block
-finalises each output cell and which k each cluster rank sums.
+finalises each output cell and which k each cluster rank sums. The
+backward's two plans have mirrors too (``csrc/gru_seq_bwd.cu``):
+``gru_seq_bwd_plan`` for the reverse sweep (``gru_seq_bwd_cells`` and
+``gru_seq_bwd_j_ranges`` the cells each block finalises and the j each
+rank sums) and ``gru_bwd_dr_plan`` for the dR pass, whose order of
+summation ``gru_bwd_dr_model`` follows on the CPU.
 """
 
 from __future__ import annotations
@@ -262,6 +267,189 @@ def gru_seq_k_ranges(plan, hsz):
     """[kb, ke) of the reduction over k that each cluster rank sums."""
     kr = plan["k_per_rank"]
     return [(q * kr, min(hsz, (q + 1) * kr)) for q in range(plan["cluster"])]
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' launch plans
+# ---------------------------------------------------------------------------
+
+BWD_PLAN_FIELDS = ("units", "cluster", "rows_per_warp", "tiles", "threads",
+                   "smem_bytes", "blocks", "j_per_rank", "groups")
+DR_PLAN_FIELDS = ("tiles", "splits", "chunk", "blocks", "smem_bytes")
+_BWD_UNITS, _BWD_WARPS, _BWD_MAX_SUMS = (8, 16, 20), 16, 64
+# the dR pass: 128 x 128 tiles of dR, 16 m a step, a six-stage ring of A
+# and B tiles, two blocks an SM, M split in at most 4 chunks, the
+# cluster's sum counted as 4 steps
+_DR_TILE, _DR_BK, _DR_STAGES, _DR_PER_SM = 128, 16, 6, 2
+_DR_MAX_SPLITS, _DR_REDUCE_STEPS = 4, 4
+
+
+def _padded_sums(rw, units):
+    """The sums a lane keeps, rw x units, padded to a power of two from 8
+    for the warp's reduce-scatter."""
+    need, out = rw * units, 8
+    while out < need:
+        out *= 2
+    return out
+
+
+def _rows_per_warp(n, units):
+    rw = 1 if n <= _BWD_WARPS else 2 if n <= 2 * _BWD_WARPS else 4
+    while rw > 1 and _padded_sums(rw, units) > _BWD_MAX_SUMS:
+        rw //= 2
+    return rw
+
+
+def gru_seq_bwd_plan(n, hsz, sms):
+    """The launch plan of ``gru_seq_bwd``'s reverse sweep at batch n and
+    width hsz on a card of ``sms`` SMs, as ``csrc/gru_seq_bwd.cu`` computes
+    it (``make_plan``; the entry ``gru_seq_bwd_plan``): (code, plan), the
+    plan a dict of ``BWD_PLAN_FIELDS``, or None with code -1, -2 or -3 as
+    in ``gru_seq_plan``.
+
+    A block of 16 warps owns ``units`` (8, 16 or 20) hidden units k, and a
+    cluster of ``cluster`` blocks splits the sum over j (3H) into ranges of
+    ``j_per_rank``; each rank keeps R's rows of its units over its j-range
+    in shared memory. Each warp owns ``rows_per_warp`` rows (1 up to 16
+    rows of N, 2 up to 32, else 4, fewer where a lane's rows x units sums,
+    padded to a power of two, pass 64), so a row tile is 16 of them. The
+    plan takes the most blocks not above ``sms`` whose shared memory
+    (R's slice, the ranks' sums and their mbarrier) fits in 227 KiB, then
+    the most units; ``groups`` copies of the grid split the row tiles
+    where the SMs allow."""
+    if min(n, hsz, sms) < 1:
+        return -3, None
+    width = 3 * hsz
+    rc, best = -1, None
+    for units in _BWD_UNITS:
+        cluster = 1
+        while cluster <= _MAX_CLUSTER:
+            blocks = _cdiv(hsz, units) * cluster
+            jr = _round4(_cdiv(width, cluster))
+            rw = _rows_per_warp(n, units)
+            smem = 4 * (units * jr + _BWD_WARPS * rw * units) + 16
+            if (cluster > 1 and (cluster - 1) * jr >= width) \
+                    or smem > _SMEM_OPTIN:
+                pass
+            elif blocks > sms:
+                rc = -2 if rc == -1 else rc
+            elif rc != 0 or (blocks, units) > (best["blocks"],
+                                               best["units"]):
+                rc = 0
+                best = dict(units=units, cluster=cluster, rows_per_warp=rw,
+                            blocks=blocks, j_per_rank=jr, smem_bytes=smem)
+            cluster *= 2
+    if rc != 0:
+        return rc, None
+    tiles = _cdiv(n, _BWD_WARPS * best["rows_per_warp"])
+    groups = min(sms // best["blocks"], tiles)
+    best.update(tiles=tiles, groups=groups, blocks=best["blocks"] * groups,
+                threads=32 * _BWD_WARPS)
+    return 0, {k: best[k] for k in BWD_PLAN_FIELDS}
+
+
+def gru_seq_bwd_source_plan(n, hsz, sms, device=None):
+    """The sweep's (code, plan) asked of the compiled source, nothing
+    launched; with ``sms`` <= 0 the plan this card launches (a cluster of
+    1 where it cannot hold the plan's clusters at once)."""
+    out = torch.zeros(len(BWD_PLAN_FIELDS), dtype=torch.int32)
+    device = torch.device("cuda") if device is None else device
+    rc = build.query("gru_seq_bwd", "gru_seq_bwd_plan", "gru_seq_bwd plan",
+                     [n, hsz, sms, out], device)
+    return rc, (dict(zip(BWD_PLAN_FIELDS, (int(x) for x in out)))
+                if rc == 0 else None)
+
+
+def gru_seq_bwd_cells(plan, n, hsz):
+    """The cells (ids row * hsz + unit) that each block of the sweep's
+    ``plan`` finalises, block after block, as the kernel assigns them:
+    block b is rank b % cluster of unit slice (b // cluster) % slices in
+    row group b // (cluster * slices); over each of its group's row tiles
+    the rank finalises its units' share (units / cluster of them, from
+    rank * units / cluster) of every row. A LongTensor; each cell of
+    [n, hsz] appears once."""
+    units, cluster, rw = plan["units"], plan["cluster"], plan["rows_per_warp"]
+    share = units // cluster
+    slices = _cdiv(hsz, units)
+    rows = torch.arange(_BWD_WARPS * rw)
+    out = []
+    for block in range(plan["blocks"]):
+        rank, cl_id = block % cluster, block // cluster
+        slice_, group = cl_id % slices, cl_id // slices
+        unit = slice_ * units + rank * share + torch.arange(share)
+        for tile in range(group, plan["tiles"], plan["groups"]):
+            row = tile * _BWD_WARPS * rw + rows
+            ids = row[:, None] * hsz + unit[None, :]
+            out.append(ids[(row < n)[:, None] & (unit < hsz)[None, :]])
+    return torch.cat(out)
+
+
+def gru_seq_bwd_j_ranges(plan, hsz):
+    """[jb, je) of the sweep's sum over j (3H) that each cluster rank
+    takes."""
+    jr = plan["j_per_rank"]
+    return [(q * jr, min(3 * hsz, (q + 1) * jr))
+            for q in range(plan["cluster"])]
+
+
+def gru_bwd_dr_plan(t, n, hsz, sms):
+    """The dR pass's plan (``csrc/gru_seq_bwd.cu`` ``make_dr_plan``; the
+    entry ``gru_seq_bwd_dr_plan``) for T = t steps at batch n and width
+    hsz on ``sms`` SMs: (code, plan), the plan a dict of
+    ``DR_PLAN_FIELDS``, or None with code -3.
+
+    dR's 128 x 128 tiles each sum over M = t * n rows; ``splits`` (1, 2 or
+    4) blocks of one cluster share a tile, split s summing rows [s * chunk,
+    (s + 1) * chunk). The plan takes the splits of least cost, counted as
+    waves of two blocks an SM times the 16-row steps of a chunk (plus 4
+    for the cluster's sum), the fewer splits where two tie."""
+    if min(t, n, hsz, sms) < 1:
+        return -3, None
+    tiles = _cdiv(hsz, _DR_TILE) * _cdiv(3 * hsz, _DR_TILE)
+    steps = _cdiv(t * n, _DR_BK)
+    best = None
+    splits = 1
+    while splits <= _DR_MAX_SPLITS:
+        chunk_steps = _cdiv(steps, splits)
+        if splits == 1 or (splits - 1) * chunk_steps < steps:
+            cost = (_cdiv(tiles * splits, sms * _DR_PER_SM) * chunk_steps
+                    + (_DR_REDUCE_STEPS if splits > 1 else 0))
+            if best is None or cost < best[0]:
+                best = (cost, splits, chunk_steps * _DR_BK)
+        splits *= 2
+    _, splits, chunk = best
+    smem = 4 * (_DR_STAGES * _DR_BK * 2 * _DR_TILE + _DR_TILE)
+    return 0, dict(tiles=tiles, splits=splits, chunk=chunk,
+                   blocks=tiles * splits, smem_bytes=smem)
+
+
+def gru_bwd_dr_source_plan(t, n, hsz, sms, device=None):
+    """The dR pass's (code, plan) asked of the compiled source; with
+    ``sms`` <= 0 for this card's SM count."""
+    out = torch.zeros(len(DR_PLAN_FIELDS), dtype=torch.int32)
+    device = torch.device("cuda") if device is None else device
+    rc = build.query("gru_seq_bwd", "gru_seq_bwd_dr_plan",
+                     "gru_seq_bwd dR plan", [t, n, hsz, sms, out], device)
+    return rc, (dict(zip(DR_PLAN_FIELDS, (int(x) for x in out)))
+                if rc == 0 else None)
+
+
+def gru_bwd_dr_model(hs, h0, drz, plan):
+    """dR and drb in the dR pass's order of summation: over the M = T*N
+    rows of hprev (h0, then hs[:-1]) and drz in the plan's chunks, each
+    chunk's sum formed alone, then the chunks' partials added in split
+    order, from zero. The CPU tests hold it against the JAX package."""
+    hsz = h0.shape[1]
+    a = torch.cat([h0[None], hs[:-1]]).reshape(-1, hsz)
+    b = drz.reshape(-1, 3 * hsz)
+    dr = torch.zeros((hsz, 3 * hsz), dtype=b.dtype, device=b.device)
+    drb = torch.zeros((3 * hsz,), dtype=b.dtype, device=b.device)
+    chunk = plan["chunk"]
+    for split in range(plan["splits"]):
+        rows = slice(split * chunk, (split + 1) * chunk)
+        dr = dr + a[rows].T @ b[rows]
+        drb = drb + b[rows].sum(dim=0)
+    return dr, drb
 
 
 # ---------------------------------------------------------------------------

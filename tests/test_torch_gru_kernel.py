@@ -18,11 +18,18 @@
   cluster ranks covering k, shared memory within 227 KiB, the grid
   following the SM count, and every (N, H) that the kernel before its
   redesign took (its rules copied below) still taken.
+- The backward's dR pass in its own order of summation (the T*N rows in
+  the plan's chunks, each chunk's partial formed alone, the partials added
+  in split order: ``gru.gru_bwd_dr_model``) against dR and drb of the JAX
+  VJP, with the plan's splits and with 2 and 4 forced. The backward's
+  launch plans themselves are in test_torch_gru_bwd_plan.py.
 
 Inputs come from a numpy seed. The CUDA kernels themselves are held against
 the plain versions on the card in the cuda-marked tests here and in
 chip_smoke.py.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -177,6 +184,43 @@ def test_forward_rejects_mismatched_shapes(bad):
     for fn in (gru.gru_seq_infer, gru.gru_seq_fwd, gru.gru_seq):
         with pytest.raises(ValueError):
             fn(xw, r, rb, h0)
+
+
+# -- the backward's dR pass: its order of summation -----------------------------
+
+DR_MODEL_SHAPES = [(7, 5, 37), (13, 3, 200)]
+
+
+@functools.lru_cache(maxsize=None)
+def _dr_case(t, n, h):
+    """dR and drb of the JAX package's VJP (interpret mode), and the plain
+    sweep's hs, h0 and drz (the candidate column of dxw times r), at one
+    shape from a numpy seed."""
+    arrays = _data(t, n, h, seed=30 + t)
+    cts = _cotangents(t, n, h, seed=t)
+    _, vjp = jax.vjp(lambda *a: jax_seq(*a, True), *map(jnp.asarray, arrays))
+    _, want_dr, want_drb, _ = vjp(tuple(map(jnp.asarray, cts)))
+    xw, r, rb, h0 = map(torch.from_numpy, arrays)
+    hs, ru, rzc, cand = gru.gru_seq_fwd_reference(xw, r, rb, h0)
+    dxw, *_ = gru.gru_seq_bwd_reference(*map(torch.from_numpy, cts), ru, rzc,
+                                        cand, hs, r, h0)
+    drz = torch.cat([dxw[..., :2 * h], dxw[..., 2 * h:] * ru[..., :h]], -1)
+    return np.asarray(want_dr), np.asarray(want_drb), hs, h0, drz
+
+
+@pytest.mark.parametrize("splits", [None, 2, 4])
+@pytest.mark.parametrize("t,n,h", DR_MODEL_SHAPES)
+def test_dr_pass_summation_order_matches_pallas_vjp(t, n, h, splits):
+    want_dr, want_drb, hs, h0, drz = _dr_case(t, n, h)
+    rc, plan = gru.gru_bwd_dr_plan(t, n, h, H100_SMS)
+    assert rc == 0
+    if splits is not None:   # chunks of 16 rows, as the plan rounds them
+        plan = dict(plan, splits=splits,
+                    chunk=-(-t * n // (16 * splits)) * 16)
+    assert plan["splits"] * plan["chunk"] >= t * n
+    got_dr, got_drb = gru.gru_bwd_dr_model(hs, h0, drz, plan)
+    _close(got_dr.numpy(), want_dr, GRAD_TOL, "dR")
+    _close(got_drb.numpy(), want_drb, GRAD_TOL, "drb")
 
 
 # -- the route ----------------------------------------------------------------
