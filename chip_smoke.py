@@ -4,7 +4,12 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), holds each against its plain PyTorch version
-at the shapes the training and serving paths give it (the GRU kernels also
+at the shapes the training and serving paths give it (the LSTM kernels'
+launch plans also against their Python mirrors for the clusters the card
+holds, the route query against the widths the kernels before their
+cluster redesign took, the three LSTM kernels at the top of those
+domains, and the backward's sweep and dR pass timed apart, single and back
+to back; the GRU kernels also
 against torch.nn.GRU on cuDNN, which is only timed and checked, never
 called by the port; the GRU backward's two launch plans, its sweep's and
 its dR pass's, also against their Python mirrors, its kernels at ragged
@@ -95,6 +100,10 @@ KERNEL_SHAPES = [(100, 1, 256), (100, 8, 256), (100, 32, 256),
 TRAIN_SHAPES = [(100, 32, 256), (100, 1, 256), (100, 1024, 256),
                 (1, 8, 256), (13, 3, 200)]
 REPORT_SHAPE = (100, 32, 256)   # the ladder's largest bucket, the batch
+# (T, N, H) at the top of the domains that the kernels before their
+# cluster redesign took: the forward to H = 431 at N <= 18, the backward
+# to H = 300 at any N and to H = 423 at N <= 18
+LSTM_EDGE_SHAPES = [(50, 16, 431), (50, 32, 300), (50, 8, 423)]
 # Backward tolerance, relative to each output's largest element: another
 # summation order over 4H in dz R^T (carried through T steps) and over T*N
 # in dR, where the plain version sums per step with cuBLAS.
@@ -255,11 +264,15 @@ def kernel_phase(torch, lstm):
             p_ms = time_ms(lambda: lstm.lstm_seq_infer_reference(
                 xw, r_d, h0_d, c0_d), max(3, reps // 3))
             lib_ms = time_ms(lambda: cudnn(x_d, hc), reps)
+            b2b = time_b2b_ms(lambda: lstm.lstm_seq_infer(xw, r_d, h0_d,
+                                                          c0_d), 20)
         bound_ms, bound_by = lstm_bound(t, n, h)
         rows[(t, n, h)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               b2b_ms=b2b)
         print(f"lstm_seq_infer T={t} N={n} H={h}: max|d| {err:.3e} "
-              f"(vs cuDNN {cudnn_err:.3e}); kernel {k_ms:.4f} ms, "
+              f"(vs cuDNN {cudnn_err:.3e}); kernel {k_ms:.4f} ms (back to "
+              f"back {b2b:.4f}), "
               f"projection+kernel {layer_ms:.4f} ms, plain {p_ms:.4f} ms, "
               f"cuDNN LSTM layer {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
@@ -366,20 +379,240 @@ def train_kernel_phase(torch, lstm):
         lf_ms = time_ms(lib_fwd, reps)
         lb_ms = time_ms(lambda: torch.autograd.grad(outs, wrt, cts,
                                                     retain_graph=True), reps)
-        for name, ms, p_ms, l_ms, bound in (
-                ("lstm_seq_fwd", f_ms, pf_ms, lf_ms, fwd_bound(t, n, h)),
-                ("lstm_seq_bwd", b_ms, pb_ms, lb_ms, bwd_bound(t, n, h))):
+        f_b2b = time_b2b_ms(lambda: fwd(xw, r, h0, c0), 20)
+        b_b2b = time_b2b_ms(lambda: bwd(dhs, dhT, dcT, gates, cs, hs, r, h0,
+                                        c0), 20)
+        dr_ms, dr_b2b = lstm_dr_pass_ms(torch, hs, h0, reps)
+        sweep_b, dr_b = lstm_sweep_bound(t, n, h)[0], lstm_dr_bound(t, n, h)[0]
+        print(f"lstm_seq_bwd T={t} N={n} H={h}: its dR pass alone "
+              f"{dr_ms:.4f} ms (back to back {dr_b2b:.4f}; bound "
+              f"{dr_b:.4f}), so the sweep {b_ms - dr_ms:.4f} ms (back to "
+              f"back {b_b2b - dr_b2b:.4f}; bound {sweep_b:.4f})", flush=True)
+        for name, ms, b2b, p_ms, l_ms, bound in (
+                ("lstm_seq_fwd", f_ms, f_b2b, pf_ms, lf_ms,
+                 fwd_bound(t, n, h)),
+                ("lstm_seq_bwd", b_ms, b_b2b, pb_ms, lb_ms,
+                 bwd_bound(t, n, h))):
             rows[name][(t, n, h)] = dict(ms=ms, plain_ms=p_ms,
                                          library_ms=l_ms, bound_ms=bound[0],
-                                         bound_by=bound[1])
+                                         bound_by=bound[1], b2b_ms=b2b)
             err = (f"{err_f:.3e}" if name == "lstm_seq_fwd" else
                    f"{abs_b:.3e} ({err_b:.3e} of the largest)")
             print(f"{name} T={t} N={n} H={h}: max|d| {err}; "
-                  f"kernel {ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN LSTM "
+                  f"kernel {ms:.4f} ms (back to back {b2b:.4f}), plain "
+                  f"{p_ms:.4f} ms, cuDNN LSTM "
                   f"layer {'backward' if name == 'lstm_seq_bwd' else 'training forward'} "
                   f"{l_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})",
                   flush=True)
+        rows["lstm_seq_bwd"][(t, n, h)]["halves"] = dict(
+            sweep_ms=b_ms - dr_ms, sweep_b2b_ms=b_b2b - dr_b2b,
+            sweep_bound_ms=sweep_b, dr_ms=dr_ms, dr_b2b_ms=dr_b2b,
+            dr_bound_ms=dr_b)
     return rows, errs
+
+
+def lstm_sweep_bound(t, n, h):
+    """The sweep's half of row 3's bound: reads dhs, dhT, dcT, gates, cs,
+    R, c0 once, writes dxw, dh0, dc0 once; 2*T*N*H*4H multiply-adds of
+    dz R^T."""
+    return _bound(4 * (t * n * h + 2 * n * h + 4 * t * n * h + t * n * h
+                       + 4 * h * h + n * h + 4 * t * n * h + 2 * n * h),
+                  2.0 * t * n * h * 4 * h)
+
+
+def lstm_dr_bound(t, n, h):
+    """The dR pass's: reads hs, h0 and dxw once, writes dR once;
+    2*T*N*H*4H multiply-adds."""
+    return _bound(4 * (t * n * h + n * h + 4 * t * n * h + 4 * h * h),
+                  2.0 * t * n * h * 4 * h)
+
+
+def lstm_dr_pass_ms(torch, hs, h0, reps):
+    """CUDA-event median of single calls of lstm_seq_bwd's second pass
+    alone (dR from a dxw), through its own entry point, so that the sweep
+    and the dR pass are timed apart, and its time back to back. Values do
+    not change its time."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.kernels import build
+
+    t, n, h = hs.shape
+    fn = build.load("lstm_seq_bwd").lstm_seq_bwd_dr_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dxw = torch.ones((t, n, 4 * h), device="cuda")
+    dr = torch.empty((h, 4 * h), device="cuda")
+
+    def run():
+        rc = fn(hs.data_ptr(), h0.data_ptr(), dxw.data_ptr(), dr.data_ptr(),
+                t, n, h, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"lstm_seq_bwd_dr_f32 returned {rc}")
+
+    return time_ms(run, reps), time_b2b_ms(run, 20)
+
+
+def old_lstm_fits(n, h, bwd, sms):
+    """The launch rules of csrc/lstm_seq_infer.cu (forward, either entry)
+    and csrc/lstm_seq_bwd.cu's sweep (bwd) before their cluster redesign,
+    on a card of ``sms`` SMs (tests/test_torch_lstm_plan.py holds the new
+    plans to them too): 32 units a block (256 threads), R's [H, 128] slice
+    (forward) or [32, 4H] (sweep) in shared memory beside the partial sums
+    and the staged rows of a row tile (16 / ksplit rows); the largest
+    ksplit of 8, 4, 2, 1 whose row tiles all fit in one co-resident wave
+    (a ksplit whose slice does not fit ends the search with -1), ksplit 1
+    looping over row tiles otherwise; ceil(H/32) co-resident blocks at
+    least. Blocks an SM by shared memory (233472 bytes an SM, 1 KiB
+    reserved a block) and threads; registers are taken not to limit them,
+    which can only widen the domain. 0 where it took (N, H), else -1 or
+    -2 as the source returned, -3 for an empty dimension."""
+    if min(n, h) < 1:
+        return -3
+    for ks in (8, 4, 2, 1):
+        rows = 16 // ks
+        smem = (4 * (4 * h * 32 + 512 + rows * 4 * h) if bwd else
+                4 * (h * 128 + 2048 + rows * h))
+        if smem > 232448:
+            return -1
+        capacity = min(2048 // 256, 233472 // (smem + 1024)) * sms
+        unit_tiles = -(-h // 32)
+        if ks > 1 and -(-n // rows) * unit_tiles > capacity:
+            continue
+        return 0 if capacity >= unit_tiles else -2
+
+
+# (N, H) where the route query must answer as the kernels before took them
+LSTM_DOMAIN_N = (1, 3, 8, 17, 18, 32, 40, 64, 130, 1024)
+LSTM_DOMAIN_H = (1, 13, 37, 200, 256, 300, 301, 336, 340, 389, 390, 412,
+                 423, 431, 432, 448)
+
+
+def lstm_plan_phase(torch, lstm):
+    """The forward's and the sweep's launch plans as their sources compute
+    them (lstm_seq_plan, lstm_seq_bwd_plan), for the clusters this card
+    holds, against their Python mirrors (kernels/lstm.py), and the dR
+    pass's (lstm_seq_bwd_dr_plan) against its mirror, at every LSTM shape
+    of this script; then every (N, H) of the domain grid that the kernels
+    before their redesign took (their rules copied) must still launch
+    (lstm_seq_fits, lstm_seq_bwd_fits: the launch's own checks), and past
+    H = 300 the sweep must leave every other batch to the step route
+    (-1)."""
+    from deeplearning4j_tpu_torch.kernels import build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    caps, bwd_caps = lstm.lstm_seq_clusters(), lstm.lstm_seq_clusters(True)
+    print(f"lstm plans: the card holds clusters (size: count) {caps} of "
+          f"the forward's blocks, {bwd_caps} of the sweep's", flush=True)
+    shapes = sorted(set(KERNEL_SHAPES) | set(TRAIN_SHAPES)
+                    | set(LSTM_EDGE_SHAPES))
+    for t, n, h in shapes:
+        want_f = lstm.lstm_seq_plan(n, h, caps)
+        want_b = lstm.lstm_seq_bwd_plan(n, h, bwd_caps)
+        want_d = lstm.lstm_bwd_dr_plan(t, n, h, sms)
+        got = ([lstm.lstm_seq_source_plan(n, h, save) for save in (0, 1)],
+               lstm.lstm_seq_bwd_source_plan(n, h),
+               lstm.lstm_bwd_dr_source_plan(t, n, h, 0))
+        if got != ([want_f, want_f], want_b, want_d):
+            fail(f"LSTM plans at {(t, n, h)}: sources {got} vs mirrors "
+                 f"{want_f}, {want_b}, {want_d}")
+        sweep_rc = 0 if h <= 300 or old_lstm_fits(n, h, True, sms) == 0 \
+            else -1
+        if (want_f[0], want_b[0]) != (0, sweep_rc):
+            fail(f"LSTM plans at {(t, n, h)}: codes {want_f[0]}, "
+                 f"{want_b[0]}")
+        f, b, d = want_f[1], want_b[1], want_d[1]
+        sweep = ("the step route's" if b is None else
+                 f"{b['tiles']} clusters of {b['cluster']}, {b['rows']} "
+                 f"rows, {b['threads']} threads, {b['splits']} j-splits")
+        print(f"lstm plans T={t} N={n} H={h} (source = mirror): forward "
+              f"{f['tiles']} clusters of {f['cluster']} x {f['units']} "
+              f"units, {f['rows']} rows, {f['threads']} threads, "
+              f"{f['splits']} k-splits, {f['smem_bytes']} B; sweep "
+              f"{sweep}; dR {d['tiles']} tiles x {d['splits']} splits",
+              flush=True)
+    took = left = 0
+    for n in LSTM_DOMAIN_N:
+        for h in LSTM_DOMAIN_H:
+            for bwd in (False, True):
+                rcs = ([build.query("lstm_seq_bwd", "lstm_seq_bwd_fits",
+                                    "fits", [n, h], "cuda")] if bwd else
+                       [build.query("lstm_seq_infer", "lstm_seq_fits",
+                                    "fits", [n, h, save], "cuda")
+                        for save in (0, 1)])
+                name = f"{'lstm_seq_bwd' if bwd else 'lstm_seq'}_fits"
+                if old_lstm_fits(n, h, bwd, sms) == 0:
+                    took += 1
+                    if any(rcs):
+                        fail(f"{name} N={n} H={h}: codes {rcs}; the kernel "
+                             f"before took it")
+                elif bwd and h > 300:
+                    left += 1
+                    if rcs != [-1]:
+                        fail(f"{name} N={n} H={h}: codes {rcs}; the step "
+                             f"route takes it")
+    print(f"lstm plans: every one of the {took} (N, H, kind) the kernels "
+          f"before took still launches; the sweep leaves the other {left} "
+          f"(N, H) past H = 300 to the step route", flush=True)
+
+
+def lstm_edge_phase(torch, lstm):
+    """The three LSTM kernels at the top of the domains the kernels before
+    took (LSTM_EDGE_SHAPES: clusters of 16 blocks, or of 8 blocks of 40
+    units), by the persistent route (the backward at the forward's edge,
+    past the sweep's batches, by the step route), against their plain
+    versions (KERNEL_TOL; GRAD_TOL of each output's largest), each
+    launched twice (the bits must repeat)."""
+    from deeplearning4j_tpu_torch.kernels import rnn_step
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for t, n, h in LSTM_EDGE_SHAPES:
+        # the sweep past H = 300 where the kernel before took it; at
+        # (16, 431), the forward's edge, the backward takes the step route
+        sweep = old_lstm_fits(n, h, True, sms) == 0
+        for kind in ("lstm_infer", "lstm_fwd", "lstm_bwd"):
+            if rnn_step.takes_persistent(kind, n, h, "cuda") != (
+                    sweep or kind != "lstm_bwd"):
+                fail(f"{kind} at N={n} H={h} takes the other route")
+        rng = np.random.default_rng([SEED, 15, t, n, h])
+
+        def dev(*shape, scale=1.0):
+            return torch.tensor((rng.normal(size=shape) * scale).astype(
+                np.float32), device="cuda")
+
+        xw, r = dev(t, n, 4 * h, scale=0.5), dev(h, 4 * h, scale=h ** -0.5)
+        h0, c0 = dev(n, h, scale=0.2), dev(n, h, scale=0.2)
+        dhs, dhT, dcT = dev(t, n, h), dev(n, h), dev(n, h)
+        fns = (lstm.lstm_seq_infer, lstm.lstm_seq_fwd,
+               lstm.lstm_seq_bwd if sweep else rnn_step.lstm_step_bwd)
+        before = [fn.launches for fn in fns]
+        with torch.no_grad():
+            infer = [lstm.lstm_seq_infer(xw, r, h0, c0) for _ in range(2)]
+        fwd = [lstm.lstm_seq_fwd(xw, r, h0, c0) for _ in range(2)]
+        hs, gates, cs = fwd[0]
+        bwd = [lstm.lstm_seq_bwd(dhs, dhT, dcT, gates, cs, hs, r, h0, c0)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        if [fn.launches for fn in fns] != [k + 2 for k in before]:
+            fail(f"LSTM kernels did not launch at {(t, n, h)}")
+        err_i = max(_abs_err(a, e) for a, e in zip(
+            infer[0], lstm.lstm_seq_infer_reference(xw, r, h0, c0)))
+        err_f = max(_abs_err(a, e) for a, e in zip(
+            fwd[0], lstm.lstm_seq_fwd_reference(xw, r, h0, c0)))
+        rel_b = max(_rel_err(a, e) for a, e in zip(
+            bwd[0], lstm.lstm_seq_bwd_reference(dhs, dhT, dcT, gates, cs,
+                                                hs, r, h0, c0)))
+        if max(err_i, err_f) > KERNEL_TOL or rel_b > GRAD_TOL:
+            fail(f"LSTM kernels at {(t, n, h)}: infer {err_i:.3e}, fwd "
+                 f"{err_f:.3e}, bwd {rel_b:.3e} of the largest")
+        for name, runs in zip(("lstm_seq_infer", "lstm_seq_fwd",
+                               "lstm_seq_bwd"), (infer, fwd, bwd)):
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"{name} gave other bits on a second run at "
+                     f"{(t, n, h)}")
+        print(f"lstm edge T={t} N={n} H={h}: infer max|d| {err_i:.3e}, fwd "
+              f"{err_f:.3e}, bwd max|d|/max {rel_b:.3e}; bits repeat",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2479,8 +2712,10 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
+    lstm_plan_phase(torch, lstm)
     rows, max_err = kernel_phase(torch, lstm)
     train_rows, train_errs = train_kernel_phase(torch, lstm)
+    lstm_edge_phase(torch, lstm)
     gru_rows, gru_errs = gru_kernel_phase(torch, gru)
     net, train_launches, _ = training_phase(torch, lstm)
     launches = slice_phase(torch, lstm, net)
@@ -2553,6 +2788,7 @@ def main():
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
+        **({"b2b_ms": rep["b2b_ms"]} if "b2b_ms" in rep else {}),
         **({"halves": rep["halves"]} if "halves" in rep else {}),
     } for name, source, where, n_launch, err, shape, rep in entries]}),
         flush=True)

@@ -2,9 +2,11 @@
 
 The persistent kernels (``csrc/lstm_seq_infer.cu``, ``lstm_seq_bwd.cu``,
 ``gru_seq.cu``, ``gru_seq_bwd.cu``) keep a slice of R in shared memory for
-a whole sequence and need their grid co-resident. Past a width that
-depends on N (the LSTM forward near H = 435, its backward near 300, the
-GRU near 1,056) they cannot launch. There the JAX package leaves its
+a whole sequence: the LSTM's across the blocks of a thread-block cluster
+(16 at most), the GRU's across a co-resident grid. Past a width they
+cannot launch (the LSTM's H = 448 at any N, the GRU's near 1,056,
+depending on N); past H = 300 the LSTM's backward also leaves to the
+step route the batches where it is faster. There the JAX package leaves its
 Pallas kernels for a ``lax.scan``; here ``csrc/rnn_step.cu`` takes over:
 one launch per time step, R read from L2/HBM once a step, the reduction
 split across a thread-block cluster, the steps chained by programmatic
@@ -17,7 +19,7 @@ The persistent sources answer, by shape and before any launch, whether
 their kernel would launch on this card (``lstm_seq_fits``,
 ``lstm_seq_bwd_fits``, ``gru_seq_fits``, ``gru_seq_bwd_fits``: the launch's
 own checks, shared memory and the occupancy calculator's co-resident
-blocks, with nothing launched); the wrappers in ``lstm.py`` and ``gru.py``
+blocks or clusters, with nothing launched); the wrappers in ``lstm.py`` and ``gru.py``
 ask through ``takes_persistent`` on CUDA tensors and never route by
 catching a failed launch. The step wrappers below are what they call
 otherwise; each counts one launch per sequence (T or T+1 kernel launches)
@@ -56,8 +58,8 @@ def takes_persistent(kind, n, hsz, device) -> bool:
     """The route for a CUDA launch of ``kind`` (a key of ``_FITS``): the
     persistent kernel when its source finds it would launch at batch n and
     width hsz on this card (0); else, where R's slice does not fit in
-    shared memory (-1) or the grid cannot be co-resident (-2), the step
-    route."""
+    shared memory (-1) or the card cannot hold the plan's grid (GRU) or
+    one cluster of its size (LSTM) at once (-2), the step route."""
     if kind not in _FITS:
         raise ValueError(f"unknown persistent kernel {kind!r}")
     rc = _fits(kind, n, hsz, torch.device(device))

@@ -183,6 +183,12 @@ def cuda():
     ("lstm_fwd", 64, 1024, False),
     ("lstm_bwd", 64, 1024, False),
     ("lstm_bwd", 1024, 320, False),  # the backward's limit falls with N
+    ("lstm_bwd", 18, 423, True),
+    ("lstm_bwd", 19, 423, False),
+    ("lstm_bwd", 1024, 431, False),
+    ("lstm_infer", 1024, 431, True),  # the forward's does not, to 448
+    ("lstm_fwd", 1024, 448, True),
+    ("lstm_fwd", 1, 449, False),
     ("gru_fwd", 64, 1024, True),     # the GRU char-RNN's shapes stay
     ("gru_bwd", 64, 1024, True),
     ("gru_infer", 1, 1024, True),
