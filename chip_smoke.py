@@ -29,6 +29,16 @@ weights from a numpy seed:
   one GRU forward and one backward launch per step; then a burst of token
   requests through InferenceSession and 20 tokens of ``rnnTimeStep``
   generation at N=1 against ``net.output``;
+- the bidirectional LSTM classifier of Keras's IMDB example at its widths
+  (Embedding 20000 -> 128, Bidirectional(LSTM 64), LastTimeStep(
+  Bidirectional(LSTM 64)), two-way softmax, T=200, batch 32, Adam(1e-3)),
+  with random token ids: ``gradients`` and 5 ``fit`` steps on the card
+  against the CPU, 4 forward and 4 backward LSTM launches a step;
+  ``evaluate`` over 10 batches of 32 and a ragged 17, 4 inference
+  launches a batch, the confusion matrices equal but for rows within 1e-5
+  of a tie; ``rnnTimeStep`` refused; a ModelSerializer round trip on the
+  card, bit-equal; the step and evaluation times; and a small SimpleRnn
+  net against the CPU;
 - the step route (csrc/rnn_step.cu) at the widths the persistent LSTM and
   GRU kernels refuse (LSTM H=512 and 1024, GRU H=2048), which
   kernels/rnn_step.py must choose by shape there, against the plain
@@ -94,11 +104,14 @@ SERVE_TOL = 1e-5     # served rows vs net.output of the same rows (GPU)
 PLAIN_TOL = 1e-4     # served rows vs the CPU plain-version forward
 # (T, N, H): the serving path's shapes (T=100, H=256, N over the batch
 # ladder and a large batch), one step, and a ragged edge in N and H
+# (T, N, H) of the bidirectional IMDB classifier (maxlen 200, batch 32,
+# 64 units a direction): the LSTM kernels' shape on its path
+IMDB_SHAPE = (200, 32, 64)
 KERNEL_SHAPES = [(100, 1, 256), (100, 8, 256), (100, 32, 256),
-                 (100, 1024, 256), (1, 8, 256), (13, 3, 200)]
+                 (100, 1024, 256), (1, 8, 256), (13, 3, 200), IMDB_SHAPE]
 # the training kernels: the training batch (100, 32, 256) and the others
 TRAIN_SHAPES = [(100, 32, 256), (100, 1, 256), (100, 1024, 256),
-                (1, 8, 256), (13, 3, 200)]
+                (1, 8, 256), (13, 3, 200), IMDB_SHAPE]
 REPORT_SHAPE = (100, 32, 256)   # the ladder's largest bucket, the batch
 # (T, N, H) at the top of the domains that the kernels before their
 # cluster redesign took: the forward to H = 431 at N <= 18, the backward
@@ -269,7 +282,7 @@ def kernel_phase(torch, lstm):
         bound_ms, bound_by = lstm_bound(t, n, h)
         rows[(t, n, h)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
-                               b2b_ms=b2b)
+                               b2b_ms=b2b, err=err)
         print(f"lstm_seq_infer T={t} N={n} H={h}: max|d| {err:.3e} "
               f"(vs cuDNN {cudnn_err:.3e}); kernel {k_ms:.4f} ms (back to "
               f"back {b2b:.4f}), "
@@ -395,7 +408,9 @@ def train_kernel_phase(torch, lstm):
                  bwd_bound(t, n, h))):
             rows[name][(t, n, h)] = dict(ms=ms, plain_ms=p_ms,
                                          library_ms=l_ms, bound_ms=bound[0],
-                                         bound_by=bound[1], b2b_ms=b2b)
+                                         bound_by=bound[1], b2b_ms=b2b,
+                                         err=(err_f if name == "lstm_seq_fwd"
+                                              else abs_b))
             err = (f"{err_f:.3e}" if name == "lstm_seq_fwd" else
                    f"{abs_b:.3e} ({err_b:.3e} of the largest)")
             print(f"{name} T={t} N={n} H={h}: max|d| {err}; "
@@ -1036,17 +1051,29 @@ def _net_pair(conf_json, arrays):
     return gpu, cpu
 
 
+def _at(tree, path):
+    """The leaf of nested dicts at ``path`` (a tuple of keys)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def _compare_trained(gpu, cpu, what, lr, steps):
-    """Params and Adam moments of two nets trained alike (see PARAM_TOL)."""
+    """Params and Adam moments of two nets trained alike (see PARAM_TOL);
+    a nested group's leaves (Bidirectional's fwd and bwd) one by one."""
+    from deeplearning4j_tpu_torch.tree_util import tree_items
+
     worst_p = worst_m = worst_tiny = 0.0
     n_tiny_off = 0
     for i, (pg, pc) in enumerate(zip(gpu._params, cpu._params)):
-        for k in pc:
-            mg, mc = (net._opt_states[i]["m"][k].cpu() for net in (gpu, cpu))
-            vg, vc = (net._opt_states[i]["v"][k].cpu() for net in (gpu, cpu))
+        for k, leaf in tree_items(pc):
+            mg, mc = (_at(net._opt_states[i]["m"], k).cpu()
+                      for net in (gpu, cpu))
+            vg, vc = (_at(net._opt_states[i]["v"], k).cpu()
+                      for net in (gpu, cpu))
             worst_m = max(worst_m, _rel_err(mg, mc), _rel_err(vg, vc))
             tiny = mc.abs() < MOMENT_FLOOR * mc.abs().max()
-            d = (pg[k].cpu() - pc[k]).abs()
+            d = (_at(pg, k).cpu() - leaf).abs()
             if (~tiny).any():
                 worst_p = max(worst_p, float(d[~tiny].max()))
             if tiny.any():
@@ -1432,6 +1459,332 @@ def gru_slice_phase(torch, gru, net):
     if generated != 20:
         fail("rnnTimeStep did not launch gru_seq_infer once per token")
     return served + generated
+
+
+# ---------------------------------------------------------------------------
+# the bidirectional LSTM classifier at Keras's IMDB widths
+# ---------------------------------------------------------------------------
+
+IMDB_VOCAB, IMDB_EMBED = 20000, 128
+IMDB_EVAL_BATCHES, IMDB_RAGGED = 10, 17
+TIE_TOL = 1e-5   # rows whose two probabilities are this close are ties
+# the small SimpleRnn net: vocab, embedding, units, T, N
+SIMPLE_RNN = (50, 16, 32, 20, 8)
+
+
+def bilstm_imdb_conf():
+    """Keras's "Bidirectional LSTM on IMDB" example at its widths in the
+    port's DSL: Embedding(20000, 128), Bidirectional(LSTM(64)),
+    LastTimeStep(Bidirectional(LSTM(64))), both concatenated, then a two-way
+    softmax OutputLayer with MCXENT (DL4J's sentiment head, where Keras has
+    Dense(1, sigmoid)); Adam(1e-3), token ids of maxlen 200."""
+    from deeplearning4j_tpu_torch.nn import (
+        LSTM, Bidirectional, EmbeddingSequenceLayer, InputType, LastTimeStep,
+        NeuralNetConfiguration, OutputLayer)
+    from deeplearning4j_tpu_torch.optimize import Adam
+
+    t, _, h = IMDB_SHAPE
+    return (NeuralNetConfiguration.Builder().seed(SEED).updater(Adam(1e-3))
+            .list()
+            .layer(EmbeddingSequenceLayer.Builder().nIn(IMDB_VOCAB)
+                   .nOut(IMDB_EMBED).build())
+            .layer(Bidirectional(LSTM.Builder().nOut(h).build(),
+                                 mode=Bidirectional.CONCAT))
+            .layer(LastTimeStep(Bidirectional(LSTM.Builder().nOut(h).build(),
+                                              mode=Bidirectional.CONCAT)))
+            .layer(OutputLayer.Builder().nOut(2).activation("softmax")
+                   .lossFunction("mcxent").build())
+            .setInputType(InputType.recurrent(1, t)).build())
+
+
+def _random_group(shapes, rng):
+    """Float32 arrays for a layer's param shapes (nested groups alike):
+    matrices N(0, 1/min(rows, 128)), vectors N(0, 0.05^2)."""
+    if isinstance(shapes, dict):
+        return {k: _random_group(v, rng) for k, v in shapes.items()}
+    scale = min(shapes[0], 128) ** -0.5 if len(shapes) == 2 else 0.05
+    return (rng.normal(size=shapes) * scale).astype(np.float32)
+
+
+def review_batch(rng, n, vocab=IMDB_VOCAB, t=IMDB_SHAPE[0]):
+    """n reviews of token ids [n, 1, t] (int64) and one-hot sentiment
+    labels [n, 2]."""
+    return (rng.integers(0, vocab, size=(n, 1, t)),
+            np.eye(2, dtype=np.float32)[rng.integers(0, 2, size=n)])
+
+
+def _worst_grad(torch, g_gpu, g_cpu):
+    """max over layers of max |d| / max |want| of the layer's gradients."""
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    return max(_rel_err(torch.cat([g.cpu().reshape(-1)
+                                   for g in tree_leaves(gg)]),
+                        torch.cat([g.reshape(-1) for g in tree_leaves(gc)]))
+               for gg, gc in zip(g_gpu, g_cpu) if gc)
+
+
+def _imdb_sweep_check(torch, lstm):
+    """Row 3 as the second layer's backward meets it: dhs zero except at
+    the last step (LastTimeStep's gradient), dhT and dcT zero; against its
+    plain version."""
+    t, n, h = IMDB_SHAPE
+    rng = np.random.default_rng([SEED, 5, t, n, h])
+
+    def dev(*shape, scale=1.0):
+        return torch.tensor((rng.normal(size=shape) * scale).astype(
+            np.float32), device="cuda")
+
+    xw, r = dev(t, n, 4 * h), dev(h, 4 * h, scale=0.1)
+    # a forget-gate bias of 3 carries the gradient back to h0 and c0 (at
+    # f ~ 0.5 it is denormal after 200 steps, where the kernel flushes)
+    xw[:, :, h:2 * h] += 3.0
+    h0, c0 = torch.zeros(n, h, device="cuda"), torch.zeros(n, h,
+                                                           device="cuda")
+    hs, gates, cs = lstm.lstm_seq_fwd(xw, r, h0, c0)
+    dhs = torch.zeros_like(hs)
+    dhs[-1] = dev(n, h)
+    args = (dhs, torch.zeros_like(h0), torch.zeros_like(c0), gates, cs, hs,
+            r, h0, c0)
+    got = lstm.lstm_seq_bwd(*args)
+    want = lstm.lstm_seq_bwd_reference(*args)
+    err = max(_rel_err(a, e) for a, e in zip(got, want))
+    print(f"bilstm: lstm_seq_bwd at {IMDB_SHAPE} with dhs only at the last "
+          f"step: max|d|/max {err:.3e} (dxw, dR, dh0, dc0)", flush=True)
+    if err > GRAD_TOL or not all(bool(torch.isfinite(a).all()) for a in got):
+        fail(f"lstm_seq_bwd with a last-step dhs: {err:.3e} > {GRAD_TOL}")
+
+
+def _evaluation_check(torch, gpu, cpu, sets, ev_gpu, ev_cpu):
+    """The card's and the CPU's confusion matrices, equal but for rows
+    whose two probabilities lie within TIE_TOL of a tie on either device;
+    returns the number of such rows."""
+    from deeplearning4j_tpu_torch.evaluation import Evaluation
+
+    labels = np.concatenate([l for _, l in sets])
+    out_g = np.concatenate([gpu.output(f).toNumpy() for f, _ in sets])
+    out_c = np.concatenate([cpu.output(f).toNumpy() for f, _ in sets])
+    worst = float(np.abs(out_g - out_c).max())
+    if not np.isfinite(out_g).all() or out_g.shape != labels.shape:
+        fail(f"bilstm outputs: shape {out_g.shape}, finite "
+             f"{np.isfinite(out_g).all()}")
+    if np.abs(out_g.sum(axis=1) - 1.0).max() > 1e-5:
+        fail("bilstm softmax rows do not sum to 1")
+    ties = ((np.abs(out_g[:, 0] - out_g[:, 1]) <= TIE_TOL)
+            | (np.abs(out_c[:, 0] - out_c[:, 1]) <= TIE_TOL))
+    differ = out_g.argmax(axis=1) != out_c.argmax(axis=1)
+    print(f"bilstm evaluate: {len(labels)} rows, card vs CPU outputs "
+          f"max|d| {worst:.3e}; {int(ties.sum())} rows within {TIE_TOL} of "
+          f"a tie, {int(differ.sum())} whose class differs; accuracy card "
+          f"{ev_gpu.accuracy():.6f} CPU {ev_cpu.accuracy():.6f}; confusion "
+          f"card {ev_gpu.confusionMatrix().tolist()} CPU "
+          f"{ev_cpu.confusionMatrix().tolist()}", flush=True)
+    if worst > PLAIN_TOL:
+        fail(f"bilstm outputs card vs CPU {worst:.3e} > {PLAIN_TOL}")
+    if (differ & ~ties).any():
+        fail(f"{int((differ & ~ties).sum())} rows away from a tie take "
+             f"another class on the card")
+    # evaluate (padded ragged batch) agrees with the rows taken one batch
+    # at a time, and without the tie rows the two devices agree exactly
+    for ev, out in ((ev_gpu, out_g), (ev_cpu, out_c)):
+        if not np.array_equal(ev.confusionMatrix(), Evaluation(2).eval(
+                labels, out).confusionMatrix()):
+            fail("evaluate's confusion matrix is not that of its outputs")
+    keep = ~ties
+    cm_g = Evaluation(2).eval(labels[keep], out_g[keep]).confusionMatrix()
+    cm_c = Evaluation(2).eval(labels[keep], out_c[keep]).confusionMatrix()
+    if not np.array_equal(cm_g, cm_c):
+        fail(f"confusion matrices without ties differ: {cm_g} vs {cm_c}")
+    if ev_gpu.confusionMatrix().sum() != len(labels):
+        fail("evaluate did not count every row")
+    return int(ties.sum())
+
+
+def _serializer_check(torch, gpu, x):
+    """Write the trained net and restore it on the card: params, updater
+    state and counters equal, ``output`` bit-equal."""
+    import tempfile
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "bilstm.zip")
+        ModelSerializer.writeModel(gpu, path)
+        size = Path(path).stat().st_size
+        back = ModelSerializer.restoreMultiLayerNetwork(path)
+    if back.device.type != "cuda":
+        fail(f"restored on {back.device}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(back._params) + tree_leaves(back._opt_states),
+        tree_leaves(gpu._params) + tree_leaves(gpu._opt_states)))
+    bits = torch.equal(back.output(x).torch(), gpu.output(x).torch())
+    print(f"bilstm: ModelSerializer zip {size} bytes, restored on the card: "
+          f"params and Adam state equal {same}, iteration "
+          f"{back.getIterationCount()}, output bit-equal {bits}", flush=True)
+    if not (same and bits) or back.getIterationCount() != \
+            gpu.getIterationCount():
+        fail("the restored bidirectional net differs from the saved one")
+
+
+def _simple_rnn_check(torch):
+    """A small SimpleRnn net, Embedding -> SimpleRnn -> LastTimeStep(
+    SimpleRnn) -> softmax, on the card against the CPU: output and 2 Adam
+    steps."""
+    from deeplearning4j_tpu_torch.nn import (
+        EmbeddingSequenceLayer, InputType, LastTimeStep,
+        NeuralNetConfiguration, OutputLayer, SimpleRnn)
+    from deeplearning4j_tpu_torch.optimize import Adam
+
+    vocab, embed, units, t, n = SIMPLE_RNN
+    conf = (NeuralNetConfiguration.Builder().seed(SEED).updater(Adam(1e-3))
+            .list()
+            .layer(EmbeddingSequenceLayer.Builder().nIn(vocab).nOut(embed)
+                   .build())
+            .layer(SimpleRnn.Builder().nOut(units).build())
+            .layer(LastTimeStep(SimpleRnn.Builder().nOut(units).build()))
+            .layer(OutputLayer.Builder().nOut(2).activation("softmax")
+                   .lossFunction("mcxent").build())
+            .setInputType(InputType.recurrent(1, t)).build())
+    rng = np.random.default_rng(SEED + 6)
+    arrays = [_random_group(lr_.param_shapes(), rng) for lr_ in conf.layers]
+    gpu, cpu = _net_pair(conf.to_json(), arrays)
+    x, y = review_batch(rng, n, vocab, t)
+    worst = float(np.abs(gpu.output(x).toNumpy()
+                         - cpu.output(x).toNumpy()).max())
+    losses = []
+    for _ in range(2):
+        gpu.fit(x, y)
+        cpu.fit(x, y)
+        losses.append((gpu.score(), cpu.score()))
+    rel = max(abs(a - b) / abs(b) for a, b in losses)
+    print(f"simple rnn: card vs CPU output max|d| {worst:.3e}; 2 Adam steps, "
+          f"losses {losses} (max rel {rel:.3e})", flush=True)
+    if worst > PLAIN_TOL or rel > TRAIN_LOSS_TOL:
+        fail(f"SimpleRnn net card vs CPU: output {worst:.3e}, loss {rel:.3e}")
+    _compare_trained(gpu, cpu, "SimpleRnn 2 fit steps",
+                     conf.defaults["updater"].learningRate, 2)
+
+
+def bilstm_phase(torch, lstm):
+    """Train the bidirectional IMDB classifier at full width (vocab 20000,
+    embedding 128, 64 units a direction, T=200, N=32, Adam(1e-3)) on the
+    card and on the CPU from the same weights and batch, evaluate it on both
+    over 10 batches of 32 and a ragged 17, refuse rnnTimeStep, round-trip
+    it through ModelSerializer, and check a small SimpleRnn net. Returns
+    the LSTM kernels' launches in the 5 fit steps and in the evaluation,
+    and the times."""
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, ListDataSetIterator)
+
+    t0 = time.perf_counter()
+    _imdb_sweep_check(torch, lstm)
+    conf = bilstm_imdb_conf()
+    lr = conf.defaults["updater"].learningRate
+    rng = np.random.default_rng(SEED + 4)
+    arrays = [_random_group(lr_.param_shapes(), rng) for lr_ in conf.layers]
+    x, y = review_batch(rng, IMDB_SHAPE[1])
+    gpu, cpu = _net_pair(conf.to_json(), arrays)
+    print(f"bilstm: {gpu.numParams()} params; layers "
+          f"{[type(lr_).__name__ for lr_ in conf.layers]}", flush=True)
+
+    worst_g = _worst_grad(torch, gpu.gradients(x, y), cpu.gradients(x, y))
+    print(f"bilstm: gradients card vs CPU max|d|/max per layer "
+          f"{worst_g:.3e}", flush=True)
+    if worst_g > GRAD_TOL:
+        fail(f"bilstm gradients differ by {worst_g:.3e} > {GRAD_TOL}")
+
+    # (a) STEPS fit steps: 4 forward and 4 backward launches a step
+    kernels = (lstm.lstm_seq_infer, lstm.lstm_seq_fwd, lstm.lstm_seq_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    losses_gpu, per_step = [], []
+    for _ in range(STEPS):
+        before = [fn.launches for fn in kernels]
+        gpu.fit(x, y)
+        losses_gpu.append(gpu.score())
+        per_step.append(tuple(fn.launches - k
+                              for fn, k in zip(kernels, before)))
+    fit_launches = {fn.__name__: fn.launches for fn in kernels}
+    losses_cpu = []
+    for _ in range(STEPS):
+        cpu.fit(x, y)
+        losses_cpu.append(cpu.score())
+    print(f"bilstm train: {STEPS} Adam steps, losses card {losses_gpu}, CPU "
+          f"{losses_cpu}; launches {fit_launches}", flush=True)
+    if per_step != [(0, 4, 4)] * STEPS:
+        fail(f"bilstm launches per fit step (infer, fwd, bwd): {per_step}")
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses_gpu,
+                                                         losses_cpu))
+    if worst_loss > TRAIN_LOSS_TOL:
+        fail(f"bilstm losses differ by {worst_loss:.3e} relative")
+    if not losses_gpu[-1] < losses_gpu[0]:
+        fail(f"the bilstm loss did not fall: {losses_gpu}")
+    _compare_trained(gpu, cpu, f"bilstm {STEPS} fit steps", lr, STEPS)
+
+    # (b) evaluate 10 batches of 32 and a ragged 17 (padded to 32): 4
+    # inference launches a batch
+    sets = ([review_batch(rng, IMDB_SHAPE[1])
+             for _ in range(IMDB_EVAL_BATCHES)]
+            + [review_batch(rng, IMDB_RAGGED)])
+    it = ListDataSetIterator([DataSet(f, l) for f, l in sets])
+    for fn in kernels:
+        fn.launches = 0
+    ev_gpu = gpu.evaluate(it)
+    eval_launches = {fn.__name__: fn.launches for fn in kernels}
+    if eval_launches != {"lstm_seq_infer": 4 * len(sets),
+                         "lstm_seq_fwd": 0, "lstm_seq_bwd": 0}:
+        fail(f"bilstm evaluate launches over {len(sets)} batches: "
+             f"{eval_launches}")
+    ev_cpu = cpu.evaluate(it)
+    n_ties = _evaluation_check(torch, gpu, cpu, sets, ev_gpu, ev_cpu)
+    eval_times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        gpu.evaluate(it)
+        torch.cuda.synchronize()
+        eval_times.append((time.perf_counter() - t1) * 1e3 / len(sets))
+    eval_ms = statistics.median(eval_times)
+    print(f"bilstm evaluate: {len(sets)} batches, launches {eval_launches}; "
+          f"{eval_ms:.3f} ms a batch (host clock, median of 3 passes: "
+          f"{[round(v, 3) for v in eval_times]})", flush=True)
+
+    # (c) no streaming through a Bidirectional layer
+    try:
+        gpu.rnnTimeStep(x[:, :, 0].astype(np.float32))
+        fail("rnnTimeStep ran through a Bidirectional layer")
+    except ValueError as e:
+        if "Bidirectional" not in str(e):
+            fail(f"rnnTimeStep raised {e!r}")
+        print(f"bilstm: rnnTimeStep refused: {e}", flush=True)
+
+    _serializer_check(torch, gpu, x)
+
+    # (d) the step time, host clock and CUDA events, after a warm-up
+    host, dev = [], []
+    for k in range(12):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        gpu.fit(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        if k >= 2:
+            host.append((time.perf_counter() - t1) * 1e3)
+            dev.append(start.elapsed_time(end))
+    step_ms, step_ev_ms = statistics.median(host), statistics.median(dev)
+    print(f"bilstm train: step time at N={IMDB_SHAPE[1]} T={IMDB_SHAPE[0]} "
+          f"H={IMDB_SHAPE[2]}x2 vocab={IMDB_VOCAB}: median {step_ms:.3f} ms "
+          f"host clock (min {min(host):.3f}, max {max(host):.3f}), "
+          f"{step_ev_ms:.3f} ms CUDA events, over {len(host)} steps",
+          flush=True)
+    del gpu, cpu
+
+    _simple_rnn_check(torch)
+    print(f"bilstm: phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return dict(fit=fit_launches, eval=eval_launches, step_ms=step_ms,
+                step_ev_ms=step_ev_ms, eval_ms=eval_ms, ties=n_ties)
 
 
 # ---------------------------------------------------------------------------
@@ -2722,6 +3075,7 @@ def main():
     gru_net, gru_launches, _ = gru_training_phase(torch, gru)
     gru_launches["gru_seq_infer"] = gru_slice_phase(torch, gru, gru_net)
     del net, gru_net
+    bilstm = bilstm_phase(torch, lstm)
     step_rows, step_errs = step_route_phase(torch, lstm, gru, rnn_step)
     step_launches = wide_rnn_phase(torch, lstm, gru, rnn_step)
     flash_rows, flash_errs = flash_phase(torch, flash)
@@ -2743,6 +3097,19 @@ def main():
         (name, source, f"kernels/lstm.py:{line}", train_launches[name],
          train_errs[name], REPORT_SHAPE, train_rows[name][REPORT_SHAPE])
         for name, source, line in (("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
+                                   ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
+    ] + [
+        # rows 1-3 on the bidirectional classifier's path: row 2 launched
+        # by evaluate, rows 1 and 3 by fit
+        (name, source, f"kernels/lstm.py:{line}",
+         bilstm["eval" if name == "lstm_seq_infer" else "fit"][name],
+         (rows if name == "lstm_seq_infer" else
+          train_rows[name])[IMDB_SHAPE]["err"], IMDB_SHAPE,
+         dict((rows if name == "lstm_seq_infer" else
+               train_rows[name])[IMDB_SHAPE], path="bilstm_imdb"))
+        for name, source, line in (("lstm_seq_infer", "lstm_seq_infer.cu",
+                                    115),
+                                   ("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
                                    ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
     ] + [
         (name, source, f"kernels/gru.py:{line}", gru_launches[name],
@@ -2789,6 +3156,7 @@ def main():
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
         **({"b2b_ms": rep["b2b_ms"]} if "b2b_ms" in rep else {}),
+        **({"path": rep["path"]} if "path" in rep else {}),
         **({"halves": rep["halves"]} if "halves" in rep else {}),
     } for name, source, where, n_launch, err, shape, rep in entries]}),
         flush=True)

@@ -1,11 +1,10 @@
-"""Recurrent ops: ``lstmCell``, ``lstmLayer``, ``gruCell`` and
-``gruLayer``.
+"""Recurrent ops: ``lstmCell``, ``lstmLayer``, ``gruCell``, ``gruLayer``
+and ``simpleRnnLayer``, registered in ``OPS`` by the JAX package's names.
 
-Counterpart of the LSTM and GRU part of
-``deeplearning4j_tpu/autodiff/ops.py`` (the rest of its op registry comes
-with later slices). LSTM gate order is i, f, g(cell), o, as in DL4J's
-lstmLayer packing, and ``forgetBias`` is added to the f pre-activation at
-every step. GRU gate order is r, u, then the candidate c, as in libnd4j's
+Counterpart of the recurrent part of ``deeplearning4j_tpu/autodiff/ops.py``
+(the rest of its op registry comes with later slices). LSTM gate order is
+i, f, g(cell), o, as in DL4J's lstmLayer packing, and ``forgetBias`` is
+added to the f pre-activation at every step. GRU gate order is r, u, then the candidate c, as in libnd4j's
 gruCell.
 """
 
@@ -145,3 +144,32 @@ def gruLayer(x, w, r, b=None, h0=None, resetAfter=True, activation="tanh"):
         h = u * h + (1.0 - u) * cand
         hs.append(h)
     return torch.stack(hs, dim=2), h
+
+
+def simpleRnnLayer(x, w, r, b=None, h0=None, activation="tanh"):
+    """x: [N, I, T] (DL4J NCW layout). Returns ([N,H,T], hT) of
+    h_t = act(x_t W + b + h_{t-1} R).
+
+    The input projection for ALL timesteps is hoisted out of the
+    recurrence as one [T*N, I] x [I, H] matmul with the bias folded in, as
+    the JAX package does; each step is then one ``addmm`` and the
+    activation, a plain PyTorch loop on any device (the JAX package runs
+    it as a ``lax.scan`` with no Pallas kernel)."""
+    n = x.shape[0]
+    hsz = r.shape[0]
+    if h0 is None:
+        h0 = torch.zeros((n, hsz), dtype=x.dtype, device=x.device)
+    act = resolve_activation(activation)
+    xw = x.permute(2, 0, 1) @ w     # [T, N, H]: one batched matmul
+    if b is not None:
+        xw = xw + b
+    h = h0
+    hs = []
+    for xw_t in xw:
+        h = act(torch.addmm(xw_t, h, r))
+        hs.append(h)
+    return torch.stack(hs, dim=2), h
+
+
+OPS = {"lstmCell": lstmCell, "lstmLayer": lstmLayer, "gruCell": gruCell,
+       "gruLayer": gruLayer, "simpleRnnLayer": simpleRnnLayer}

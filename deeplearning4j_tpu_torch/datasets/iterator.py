@@ -1,7 +1,7 @@
-"""DataSetIterator and ListDataSetIterator.
+"""DataSetIterator, ListDataSetIterator and ExistingDataSetIterator.
 
 Copied from ``deeplearning4j_tpu/datasets/iterator.py`` (the base protocol
-and the in-memory iterator). Iterators are python-iterable AND expose the
+and the in-memory iterators). Iterators are python-iterable AND expose the
 reference's hasNext/next/reset protocol. AsyncDataSetIterator and the
 device prefetcher come with the data-tier slice.
 """
@@ -97,3 +97,7 @@ class ListDataSetIterator(DataSetIterator):
     def totalExamples(self):
         return sum(d.numExamples() if isinstance(d, DataSet) else len(d[0])
                    for d in self._list)
+
+
+class ExistingDataSetIterator(ListDataSetIterator):
+    """Reference: ExistingDataSetIterator — wraps an existing collection."""

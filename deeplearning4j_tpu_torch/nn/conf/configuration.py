@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/configuration.py``: global
 defaults cloned into per-layer configs, nIn inference front to back, and
 the same canonical JSON, so a ``configuration.json`` written by either
 package builds the same network in the other. The layers ported so far
-are dense, embedding and recurrent, which need no preprocessors.
+are dense, embedding, recurrent and the recurrent wrappers, which need no
+preprocessors.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 from deeplearning4j_tpu_torch.backend import torch_dtype
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    LSTM, BaseLayer, DenseLayer, EmbeddingSequenceLayer)
+    LSTM, BaseLayer, DenseLayer, EmbeddingSequenceLayer, SimpleRnn)
 from deeplearning4j_tpu_torch.optimize.updaters import (
     IUpdater, Sgd, updater_from_config)
 
@@ -57,7 +58,7 @@ class MultiLayerConfiguration:
             n_in = getattr(first, "nIn", None)
             if n_in is None:
                 return
-            if isinstance(first, (LSTM, EmbeddingSequenceLayer)):
+            if isinstance(first, (LSTM, SimpleRnn, EmbeddingSequenceLayer)):
                 it = InputType.recurrent(n_in)
             elif isinstance(first, DenseLayer):
                 it = InputType.feedForward(n_in)

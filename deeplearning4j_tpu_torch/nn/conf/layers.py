@@ -1,8 +1,9 @@
 """Layer configuration classes.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py`` for the layers the
-char-RNNs train and serve through: DenseLayer, EmbeddingLayer,
-EmbeddingSequenceLayer, LSTM, GravesLSTM, GRU, OutputLayer and
+char-RNNs and the recurrent classifiers train and serve through:
+DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer, LSTM, GravesLSTM, GRU,
+SimpleRnn, the wrappers Bidirectional and LastTimeStep, OutputLayer and
 RnnOutputLayer. As in the JAX package a layer config IS the
 runtime:
 
@@ -13,7 +14,10 @@ runtime:
     compute_loss(params, x, labels, mask)   (output layers)
 
 with the same config fields, JSON and param names, so a configuration or
-a set of weights moves between the two packages unchanged. Dropout runs
+a set of weights moves between the two packages unchanged. A wrapper's
+inner layer is written into the JSON as ``{"__layer__": {...}}``, and
+Bidirectional's params are the nested group ``{"fwd": {...}, "bwd":
+{...}}`` (``param_shapes`` nests alike). Dropout runs
 only in training and draws its mask from the ``torch.Generator`` passed
 in (the JAX package draws from a threefry key, so masks are not shared).
 
@@ -27,7 +31,9 @@ import copy
 
 import torch
 
-from deeplearning4j_tpu_torch.autodiff.ops import gruLayer, lstmLayer
+# the module, not its names: autodiff.ops imports nn.activations, whose
+# package imports this module, so the ops are looked up at call time
+from deeplearning4j_tpu_torch.autodiff import ops
 from deeplearning4j_tpu_torch.nn.activations import resolve_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType, RecurrentType
 from deeplearning4j_tpu_torch.nn.losses import resolve_loss
@@ -162,7 +168,8 @@ class BaseLayer:
             if k.startswith("_") or v is None:
                 continue
             if hasattr(v, "to_json"):
-                v = v.to_json()
+                v = {"__layer__": v.to_json()} if isinstance(
+                    v, BaseLayer) else v.to_json()
             elif isinstance(v, tuple):
                 v = list(v)
             d[k] = v
@@ -177,7 +184,9 @@ class BaseLayer:
                 f"layer {name} is not ported to deeplearning4j_tpu_torch yet "
                 f"(ported: {sorted(LAYER_REGISTRY)})")
         for k, v in list(d.items()):
-            if isinstance(v, dict) and "@class" in v:
+            if isinstance(v, dict) and "__layer__" in v:
+                d[k] = BaseLayer.from_json(v["__layer__"])
+            elif isinstance(v, dict) and "@class" in v:
                 d[k] = updater_from_config(v)
         return LAYER_REGISTRY[name](**d)
 
@@ -358,7 +367,7 @@ class LSTM(BaseLayer):
         x = self._dropout(x, training, generator)
         h0 = state.get("h") if isinstance(state, dict) else None
         c0 = state.get("c") if isinstance(state, dict) else None
-        out, hT, cT = lstmLayer(
+        out, hT, cT = ops.lstmLayer(
             x, params["W"], params["R"], params["b"], h0=h0, c0=c0,
             forgetBias=self.forgetGateBiasInit)
         if h0 is not None:
@@ -421,9 +430,9 @@ class GRU(BaseLayer):
         """As ``LSTM.apply``, with the carried state {"h"}."""
         x = self._dropout(x, training, generator)
         h0 = state.get("h") if isinstance(state, dict) else None
-        out, hT = gruLayer(x, params["W"], params["R"], params["b"], h0=h0,
-                           resetAfter=self.resetAfter,
-                           activation=self.activation)
+        out, hT = ops.gruLayer(x, params["W"], params["R"], params["b"],
+                               h0=h0, resetAfter=self.resetAfter,
+                               activation=self.activation)
         if h0 is not None:
             return out, {"h": hT}
         return out, state
@@ -432,6 +441,136 @@ class GRU(BaseLayer):
         """Zero carried state for rnnTimeStep."""
         return {"h": torch.zeros((batch_size, self.nOut), dtype=dtype,
                                  device=device)}
+
+
+@_register
+class SimpleRnn(BaseLayer):
+    """Elman recurrence h_t = act(x_t W + h_{t-1} R + b), in
+    ``autodiff.ops.simpleRnnLayer`` (plain PyTorch: the JAX package runs it
+    as a ``lax.scan`` with no Pallas kernel). No dropout, as there."""
+
+    IS_RECURRENT = True
+
+    def __init__(self, nIn=None, nOut=None, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        if self.activation is None:
+            self.activation = "tanh"
+
+    def infer(self, input_type):
+        self.nIn = self.nIn or input_type.size
+        t = getattr(input_type, "timeSeriesLength", None)
+        return InputType.recurrent(self.nOut, t)
+
+    def param_shapes(self):
+        return {"W": (self.nIn, self.nOut), "R": (self.nOut, self.nOut),
+                "b": (self.nOut,)}
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        return {
+            "W": init_weight(self.weightInit, generator,
+                             (self.nIn, self.nOut), self.nIn, self.nOut,
+                             dtype, device),
+            "R": init_weight(self.weightInit, generator,
+                             (self.nOut, self.nOut), self.nOut, self.nOut,
+                             dtype, device),
+            "b": torch.zeros((self.nOut,), dtype=dtype, device=device),
+        }
+
+    def apply(self, params, state, x, training=False, generator=None):
+        """As ``LSTM.apply``, with the carried state {"h"}."""
+        h0 = state.get("h") if isinstance(state, dict) else None
+        out, hT = ops.simpleRnnLayer(x, params["W"], params["R"],
+                                     params["b"], h0=h0,
+                                     activation=self.activation)
+        if h0 is not None:
+            return out, {"h": hT}
+        return out, state
+
+    def streaming_state(self, batch_size, dtype=torch.float32, device="cpu"):
+        """Zero carried state for rnnTimeStep."""
+        return {"h": torch.zeros((batch_size, self.nOut), dtype=dtype,
+                                 device=device)}
+
+
+@_register
+class Bidirectional(BaseLayer):
+    """Wrapper running the inner layer forward and on the time-reversed
+    input (modes CONCAT/ADD/AVERAGE/MUL). Params ``{"fwd": {...}, "bwd":
+    {...}}``, each the inner layer's. Each direction starts from zero
+    state; the layer consumes the whole sequence, so the network refuses
+    rnnTimeStep and TBPTT through it."""
+
+    CONCAT, ADD, AVERAGE, MUL = "concat", "add", "average", "mul"
+
+    def __init__(self, rnn=None, mode="concat", **kw):
+        super().__init__(**kw)
+        self.rnn = rnn
+        self.mode = mode
+
+    def apply_defaults(self, defaults):
+        super().apply_defaults(defaults)
+        self.rnn.apply_defaults(defaults)
+
+    def infer(self, input_type):
+        out = self.rnn.infer(input_type)
+        size = out.size * 2 if self.mode == self.CONCAT else out.size
+        return InputType.recurrent(size, getattr(out, "timeSeriesLength",
+                                                 None))
+
+    def param_shapes(self):
+        return {"fwd": self.rnn.param_shapes(),
+                "bwd": self.rnn.param_shapes()}
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        return {"fwd": self.rnn.init_params(generator, dtype, device),
+                "bwd": self.rnn.init_params(generator, dtype, device)}
+
+    def apply(self, params, state, x, training=False, generator=None):
+        yf, _ = self.rnn.apply(params["fwd"], {}, x, training, generator)
+        yb, _ = self.rnn.apply(params["bwd"], {}, torch.flip(x, dims=[2]),
+                               training, generator)
+        yb = torch.flip(yb, dims=[2])
+        if self.mode == self.CONCAT:
+            return torch.cat([yf, yb], dim=1), state
+        if self.mode == self.ADD:
+            return yf + yb, state
+        if self.mode == self.MUL:
+            return yf * yb, state
+        return (yf + yb) / 2.0, state
+
+
+@_register
+class LastTimeStep(BaseLayer):
+    """Wrapper: [N, C, T] -> [N, C], the inner layer's output at the last
+    timestep. Params and state are the inner layer's."""
+
+    def __init__(self, rnn=None, **kw):
+        super().__init__(**kw)
+        self.rnn = rnn
+
+    def apply_defaults(self, defaults):
+        super().apply_defaults(defaults)
+        if self.rnn is not None:
+            self.rnn.apply_defaults(defaults)
+
+    def infer(self, input_type):
+        out = self.rnn.infer(input_type)
+        return InputType.feedForward(out.size)
+
+    def param_shapes(self):
+        return self.rnn.param_shapes()
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        return self.rnn.init_params(generator, dtype, device)
+
+    def init_state(self, dtype=torch.float32, device="cpu"):
+        return self.rnn.init_state(dtype, device)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        y, state = self.rnn.apply(params, state, x, training, generator)
+        return y[..., -1], state
 
 
 # ---------------------------------------------------------------------------

@@ -5,21 +5,35 @@ list of per-layer ``{name: Tensor}`` dicts in the JAX package's order and
 with its names, on one explicit device, and so is the updater state. The
 network runs on the GPU unless the caller passes ``device="cpu"``.
 
-As in the JAX package, ``output``, ``rnnTimeStep``, ``params``,
-``getParam``, ``paramTable`` and ``rnnGetPreviousState`` (a dict of them)
-return the port's ``INDArray``, and every call that takes an array takes
-an ``INDArray``, a tensor or numpy. ``getParam``, ``paramTable`` and
+As in the JAX package, ``output``, ``feedForward`` (a list of them),
+``rnnTimeStep``, ``params``, ``getParam``, ``paramTable`` and
+``rnnGetPreviousState`` (a dict of them) return the port's ``INDArray``,
+and every call that takes an array takes an ``INDArray``, a tensor or
+numpy. ``getParam``, ``paramTable`` and
 ``rnnGetPreviousState`` hand out copies, so an in-place op on what they
 return (which the port's ``INDArray`` writes into its tensor) leaves the
 network as it was, as in the JAX package. Serving and the optimizer work
 on the tensors underneath (``_infer_fn``, ``_params``), with no wrapper.
+
+A layer's group may nest groups (Bidirectional's ``{"fwd": {...}, "bwd":
+{...}}``). Every call that walks the params (``params``, ``setParams``,
+``numParams``, L1/L2, the gradient normalizations, the updaters,
+``summary``) takes the leaves in ``jax.tree_util.tree_leaves`` order, dict
+keys sorted at every level, so ``params()`` is the JAX package's leaves
+concatenated. The JAX package's ``params``, ``numParams`` and ``summary``
+raise on such groups; the port computes them.
+
+``evaluate`` and ``evaluateRegression`` score an iterator with the port's
+``evaluation`` package, padding a ragged last batch up to the largest
+batch seen with ``serving.buckets.pad_rows`` and slicing it off again.
 
 A training step is eager PyTorch: the forward with the fused loss,
 ``torch.autograd.grad`` (through the LSTM kernels' autograd Function on the
 GPU), per-layer gradient normalization, the updater, and ``p -= u`` in
 place. Left for later slices, as in ROADMAP.md: the precision policies'
 compute cast and loss scaler, the loss-state and aux-loss channels of
-``_loss_from``, training health, telemetry, prefetch and fitMultiBatch.
+``_loss_from``, training health, telemetry, listeners, pretraining,
+prefetch and fitMultiBatch.
 """
 
 from __future__ import annotations
@@ -28,13 +42,19 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.autodiff.samediff import (
-    _host_array, _ones_mask, _pad_to_bucket, _prepare_batches,
+    _as_batches, _host_array, _ones_mask, _pad_to_bucket, _prepare_batches,
     _split_dataset_full)
 from deeplearning4j_tpu_torch.backend import resolve_device
+from deeplearning4j_tpu_torch.evaluation import (
+    Evaluation, RegressionEvaluation)
 from deeplearning4j_tpu_torch.ndarray import INDArray
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     BackpropType, MultiLayerConfiguration)
-from deeplearning4j_tpu_torch.nn.conf.layers import OUTPUT_LAYER_TYPES
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    OUTPUT_LAYER_TYPES, Bidirectional)
+from deeplearning4j_tpu_torch.serving.buckets import pad_rows
+from deeplearning4j_tpu_torch.tree_util import (
+    tree_fill, tree_items, tree_leaves, tree_map)
 
 
 class GradientNormalization:
@@ -45,26 +65,31 @@ class GradientNormalization:
 
 
 def _normalize_grads(grads, mode, threshold):
-    """One layer's {name: gradient}; the L2 modes take the norm over all
-    of the layer's gradients (as the JAX package does, per-param-type
-    included)."""
+    """One layer's {name: gradient} (nested groups included); the L2 modes
+    take the norm over all of the layer's gradients in leaf order (as the
+    JAX package does, per-param-type included)."""
     if mode is None:
         return grads
     if mode == GradientNormalization.ClipElementWiseAbsoluteValue:
-        return {k: torch.clamp(g, -threshold, threshold)
-                for k, g in grads.items()}
-    norm = torch.sqrt(sum((grads[k] * grads[k]).sum() for k in sorted(grads))
+        return tree_map(lambda g: torch.clamp(g, -threshold, threshold),
+                        grads)
+    norm = torch.sqrt(sum((g * g).sum() for g in tree_leaves(grads))
                       + 1e-12)
     if mode == GradientNormalization.RenormalizeL2PerLayer:
-        return {k: g / norm for k, g in grads.items()}
+        return tree_map(lambda g: g / norm, grads)
     scale = torch.clamp(threshold / norm, max=1.0)
-    return {k: g * scale for k, g in grads.items()}
+    return tree_map(lambda g: g * scale, grads)
 
 
 def _detached(states):
     """Layer states with no graph: carried state never takes a gradient
     across steps or TBPTT segments."""
-    return [{k: v.detach() for k, v in st.items()} for st in states]
+    return [tree_map(torch.Tensor.detach, st) for st in states]
+
+
+def _shapes(group):
+    """A param group's {name: shape} (nested alike)."""
+    return tree_map(lambda v: tuple(v.shape), group)
 
 
 class MultiLayerNetwork:
@@ -107,11 +132,11 @@ class MultiLayerNetwork:
                                  f"{len(self.layers)} layers")
             for i, (lr, p) in enumerate(zip(self.layers, params)):
                 want = lr.param_shapes()
-                got = {k: tuple(v.shape) for k, v in p.items()}
+                got = _shapes(p)
                 if got != want:
                     raise ValueError(f"layer {i} params {got} do not match "
                                      f"the configuration's {want}")
-                for v in p.values():
+                for v in tree_leaves(p):
                     if v.device != self.device or v.dtype != dtype:
                         raise ValueError(
                             f"layer {i} params must be {dtype} on "
@@ -175,16 +200,45 @@ class MultiLayerNetwork:
         return INDArray(self._infer_fn(train)(self._params, self._states,
                                               self._input(x)))
 
+    def feedForward(self, x, train: bool = False) -> list:
+        """The input and every layer's activation, as ``INDArray``s (in
+        training mode without a generator, dropout off, with ``train``)."""
+        self._check_init()
+        x = self._input(x)
+        acts = [INDArray(x)]
+        with torch.inference_mode():
+            for i, lr in enumerate(self.layers):
+                x, _ = lr.apply(self._params[i], self._states[i], x, train)
+                acts.append(INDArray(x))
+        return acts
+
     # -- streaming inference (rnnTimeStep / rnnClearPreviousState) -----------
-    def _recurrent_indices(self):
-        return [i for i, lr in enumerate(self.layers)
-                if getattr(lr, "IS_RECURRENT", False)]
+    def _recurrent_indices(self, forbid_bidirectional=False):
+        """The layers that carry streaming state: recurrent layers and
+        wrappers of one (LastTimeStep(LSTM)). A Bidirectional layer
+        carries none; with ``forbid_bidirectional`` (rnnTimeStep, TBPTT) it
+        raises, since its backward direction needs the whole sequence."""
+        out = []
+        for i, lr in enumerate(self.layers):
+            if isinstance(lr, Bidirectional):
+                if forbid_bidirectional:
+                    raise ValueError(
+                        f"layer {i} is Bidirectional: streaming rnnTimeStep"
+                        f"/TBPTT cannot carry state through a layer that "
+                        f"consumes the whole sequence")
+                continue
+            if getattr(lr, "IS_RECURRENT", False) or getattr(
+                    getattr(lr, "rnn", None), "IS_RECURRENT", False):
+                out.append(i)
+        return out
 
     def _seed_rnn_states(self, states, batch_size):
         out = list(states)
         for i in self._recurrent_indices():
-            out[i] = self.layers[i].streaming_state(
-                batch_size, self.conf.dtype, self.device)
+            lr = self.layers[i]
+            target = lr if getattr(lr, "IS_RECURRENT", False) else lr.rnn
+            out[i] = target.streaming_state(batch_size, self.conf.dtype,
+                                            self.device)
         return out
 
     def rnnTimeStep(self, x) -> INDArray:
@@ -197,7 +251,7 @@ class MultiLayerNetwork:
         if single:
             x = x[:, :, None]
         n = x.shape[0]
-        rec = set(self._recurrent_indices())
+        rec = set(self._recurrent_indices(forbid_bidirectional=True))
         if self._stream_states is None or self._stream_batch != n:
             seeded = self._seed_rnn_states(self._states, n)
             self._stream_states = {i: seeded[i] for i in rec}
@@ -246,7 +300,7 @@ class MultiLayerNetwork:
         loss = self.layers[out_idx].compute_loss(params[out_idx], h, l, mask)
         reg = 0.0
         for lr, p in zip(self.layers, params):
-            leaves = [p[k] for k in sorted(p)]
+            leaves = tree_leaves(p)
             if lr.l2:
                 reg = reg + lr.l2 * sum((w * w).sum() for w in leaves) * 0.5
             if lr.l1:
@@ -258,14 +312,14 @@ class MultiLayerNetwork:
 
     def _value_and_grad(self, states, f, l, mask, training, generator):
         """(loss, new_states, per-layer gradients) at the current params."""
-        leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+        leaves = [tree_map(lambda v: v.detach().requires_grad_(), p)
                   for p in self._params]
         loss, new_states = self._loss_from(leaves, states, f, l, training,
                                            generator, mask=mask)
-        flat = [v for p in leaves for v in p.values()]
+        flat = tree_leaves(leaves)
         grads = iter(torch.autograd.grad(loss, flat) if flat else ())
         return (loss.detach(), _detached(new_states),
-                [{k: next(grads) for k in p} for p in leaves])
+                [tree_fill(p, grads) for p in leaves])
 
     def _dropout_generator(self, it):
         """The step's dropout generator, seeded from conf.seed + 1 and the
@@ -290,8 +344,9 @@ class MultiLayerNetwork:
                                      lr.gradientNormalizationThreshold or 1.0)
                 upd, self._opt_states[i] = self._layer_updater(i).apply_mixed(
                     g, self._opt_states[i], self._params[i], it)
-                for k, u in upd.items():
-                    self._params[i][k].sub_(u)
+                for p, u in zip(tree_leaves(self._params[i]),
+                                tree_leaves(upd)):
+                    p.sub_(u)
         self._iteration += 1
         return loss, new_states
 
@@ -346,6 +401,7 @@ class MultiLayerNetwork:
         optimizer step; h and c carry across segments, detached, and reset
         at the next minibatch."""
         seg = self.conf.tbpttLength
+        self._recurrent_indices(forbid_bidirectional=True)
         states = self._seed_rnn_states(self._states, f.shape[0])
         loss = None
         for t0 in range(0, f.shape[2], seg):
@@ -387,6 +443,36 @@ class MultiLayerNetwork:
                                       mask=mask)
         return float(loss)
 
+    def _eval_outputs(self, iterator):
+        """(labels, predictions, mask) per batch, the predictions as numpy.
+        A ragged batch is padded up to the largest batch seen so far with
+        ``pad_rows`` (its last row repeated) and the padding sliced off the
+        output, so the rows' answers are those of an unpadded batch of a
+        row-wise network; the masks are left as they are."""
+        bucket = None
+        for ds in _as_batches(iterator):
+            feats, labels, _, lmasks = _split_dataset_full(ds)
+            f = _host_array(feats[0])
+            n = f.shape[0]
+            if bucket is None or n > bucket:
+                bucket = n
+            out = self.output(pad_rows(f, bucket))
+            yield labels[0], out.toNumpy()[:n], lmasks[0]
+
+    def evaluate(self, iterator, numClasses=None) -> Evaluation:
+        self._check_init()
+        ev = Evaluation(numClasses)
+        for labels, out, mask in self._eval_outputs(iterator):
+            ev.eval(labels, out, mask=mask)
+        return ev
+
+    def evaluateRegression(self, iterator) -> RegressionEvaluation:
+        self._check_init()
+        ev = RegressionEvaluation()
+        for labels, out, mask in self._eval_outputs(iterator):
+            ev.eval(labels, out, mask=mask)
+        return ev
+
     def gradients(self, features, labels) -> list[dict]:
         """Per-layer gradients of the loss (inference mode: no dropout)."""
         self._check_init()
@@ -404,10 +490,10 @@ class MultiLayerNetwork:
 
     # -- params --------------------------------------------------------------
     def params(self) -> INDArray:
-        """Flat parameter vector in layer order, keys sorted within each
-        layer (the JAX package's order); a copy."""
+        """Flat parameter vector in layer order, each layer's leaves in
+        tree-leaves order (the JAX package's order); a copy."""
         self._check_init()
-        leaves = [p[k].reshape(-1) for p in self._params for k in sorted(p)]
+        leaves = [v.reshape(-1) for v in tree_leaves(self._params)]
         if not leaves:
             return INDArray(torch.zeros((0,), dtype=self.conf.dtype,
                                         device=self.device))
@@ -423,34 +509,77 @@ class MultiLayerNetwork:
                              f"parameters")
         off = 0
         with torch.no_grad():
-            for p in self._params:
-                for k in sorted(p):
-                    n = p[k].numel()
-                    p[k].copy_(flat[off:off + n].reshape(p[k].shape))
-                    off += n
+            for v in tree_leaves(self._params):
+                n = v.numel()
+                v.copy_(flat[off:off + n].reshape(v.shape))
+                off += n
 
     def numParams(self) -> int:
-        return sum(v.numel() for p in self._params for v in p.values())
+        return sum(v.numel() for v in tree_leaves(self._params))
 
-    def getParam(self, layer_idx: int, name: str) -> INDArray:
-        """A copy of one parameter."""
-        return INDArray(self._params[layer_idx][name].clone())
+    def getParam(self, layer_idx: int, name: str):
+        """A copy of one parameter, or of a nested group as
+        {name: INDArray}."""
+        return tree_map(lambda v: INDArray(v.clone()),
+                        self._params[layer_idx][name])
 
     def setParam(self, layer_idx: int, name: str, value):
+        """Replace one parameter, or a nested group from a dict of
+        arrays, with a copy of the same shape."""
         old = self._params[layer_idx][name]
-        value = self._input(value)
-        if value.shape != old.shape:
-            raise ValueError(f"param {layer_idx}_{name} has shape "
-                             f"{tuple(old.shape)}, got {tuple(value.shape)}")
-        self._params[layer_idx][name] = value.to(old.dtype).clone()
+
+        def put(o, v, where):
+            v = self._input(v)
+            if v.shape != o.shape:
+                raise ValueError(f"param {where} has shape "
+                                 f"{tuple(o.shape)}, got {tuple(v.shape)}")
+            return v.to(o.dtype).clone()
+
+        if isinstance(old, dict):
+            if not isinstance(value, dict) or set(value) != set(old):
+                raise ValueError(f"param group {layer_idx}_{name} takes a "
+                                 f"dict of {sorted(old)}")
+            self._params[layer_idx][name] = {
+                k: put(old[k], v, f"{layer_idx}_{name}_{k}")
+                for k, v in value.items()}
+        else:
+            self._params[layer_idx][name] = put(old, value,
+                                                f"{layer_idx}_{name}")
 
     def paramTable(self) -> dict:
-        """{"<layer>_<name>": INDArray}, copies."""
-        return {f"{i}_{k}": INDArray(v.clone())
-                for i, p in enumerate(self._params) for k, v in p.items()}
+        """{"<layer>_<name>": INDArray}, copies; a nested group's leaves
+        as "<layer>_<group>_<name>"."""
+        return {"_".join(map(str, (i, *path))): INDArray(v.clone())
+                for i, p in enumerate(self._params)
+                for path, v in tree_items(p)}
 
     def getIterationCount(self):
         return self._iteration
 
     def getEpochCount(self):
         return self._epoch
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A new network from this one's configuration JSON on the same
+        device, with copies of the params, layer states and updater state
+        (the counters start at 0, as in the JAX package)."""
+        other = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(self.conf.to_json()),
+            device=self.device)
+        if self._initialized:
+            copy = lambda v: v.detach().clone()  # noqa: E731
+            other.init([tree_map(copy, p) for p in self._params])
+            other._states = [tree_map(copy, s) for s in self._states]
+            other._opt_states = [tree_map(copy, s)
+                                 for s in self._opt_states]
+        return other
+
+    def summary(self) -> str:
+        """One line a layer: index, type, parameter count and shapes."""
+        lines = [f"{'idx':<4}{'layer':<28}{'nParams':<10}{'shape'}"]
+        for i, (lr, p) in enumerate(zip(self.layers, self._params)):
+            n = sum(v.numel() for v in tree_leaves(p))
+            lines.append(f"{i:<4}{type(lr).__name__:<28}{n:<10}"
+                         f"{_shapes(p)}")
+        lines.append(f"Total params: {self.numParams()}")
+        return "\n".join(lines)

@@ -11,9 +11,12 @@ unchanged, and the same update math. Each updater has
 on one layer's ``{name: Tensor}`` dict, where ``updates`` is what gets
 SUBTRACTED from the params. The state keeps the JAX package's structure
 (``{"m": {...}, "v": {...}}`` for Adam), so it is written in the same leaf
-order. Memory: every moment in the state (m, v, vhat, h, g2, msg, msdx) is
-updated IN PLACE and the same dicts are returned; only the updates are new
-tensors.
+order. A layer whose group nests groups (Bidirectional's
+``{"fwd": {...}, "bwd": {...}}``) gets state of the same nesting under each
+moment, as the JAX package's tree maps give it; ``apply_mixed`` runs the
+math on the leaves keyed by path. Memory: every moment in the state (m,
+v, vhat, h, g2, msg, msdx) is updated IN PLACE and the same dicts are
+returned; only the updates are new tensors.
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ import torch
 
 from deeplearning4j_tpu_torch.optimize.schedules import (
     resolve_lr, schedule_from_json)
+from deeplearning4j_tpu_torch.tree_util import (
+    flatten_group, is_nested, tree_map, unflatten_group)
 
 
 def _zeros(params):
-    return {k: torch.zeros_like(v) for k, v in params.items()}
+    return tree_map(torch.zeros_like, params)
 
 
 class IUpdater:
@@ -46,7 +51,15 @@ class IUpdater:
     def apply_mixed(self, grads, state, params, step):
         """Master-dtype guard: each gradient takes its parameter's dtype
         before the updater math, so the state and the update stay in the
-        master dtype. Identity when the dtypes already match."""
+        master dtype. Identity when the dtypes already match. A nested
+        group runs as one flat group keyed by leaf path: the moments are
+        updated in place, so the nested state moves with them."""
+        if is_nested(params):
+            state_flat = (state if not isinstance(state, dict) else
+                          {k: flatten_group(v) for k, v in state.items()})
+            updates, _ = self.apply_mixed(flatten_group(grads), state_flat,
+                                          flatten_group(params), step)
+            return unflatten_group(updates), state
         grads = {k: g.to(params[k].dtype) if g.dtype != params[k].dtype
                  else g for k, g in grads.items()}
         return self.apply(grads, state, params, step)

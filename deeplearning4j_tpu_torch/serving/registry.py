@@ -108,6 +108,10 @@ class ModelRegistry:
             except KeyError:
                 raise ModelNotFound(f"{name}:{version}") from None
 
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._models)
+
     def entries(self) -> list[_Entry]:
         with self._lock:
             return [e for vs in self._models.values()

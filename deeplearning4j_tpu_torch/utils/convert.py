@@ -4,7 +4,9 @@ No JAX counterpart. ``params_from_numpy`` takes the per-layer
 ``{name: ndarray}`` dicts of a network (the JAX package's
 ``net._params`` as numpy arrays, or the arrays of a ``params.npz``) and
 returns the port's per-layer ``{name: Tensor}`` dicts, checked against the
-configuration's shapes. Both packages then compute the same function.
+configuration's shapes. A layer whose params nest groups (Bidirectional's
+``{"fwd": {...}, "bwd": {...}}``) takes nested dicts alike. Both packages
+then compute the same function.
 ``opt_states_from_numpy`` does the same for the updater state (the JAX
 package's ``net._opt_states`` as numpy: per layer ``()`` or nested dicts
 such as Adam's ``{"m": {...}, "v": {...}}``), and ``opt_states_to_numpy``
@@ -20,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.tree_util import tree_map
+
 
 def params_from_numpy(conf, arrays, device):
     """``arrays``: one dict per layer of ``conf``, each holding exactly the
@@ -28,30 +32,29 @@ def params_from_numpy(conf, arrays, device):
     if len(arrays) != len(conf.layers):
         raise ValueError(f"{len(arrays)} param dicts for "
                          f"{len(conf.layers)} layers")
-    out = []
-    for i, (lr, arrs) in enumerate(zip(conf.layers, arrays)):
-        want = lr.param_shapes()
-        if set(arrs) != set(want):
-            raise ValueError(f"layer {i} ({type(lr).__name__}) has params "
-                             f"{sorted(want)}, got {sorted(arrs)}")
-        p = {}
-        for name, shape in want.items():
-            a = np.asarray(arrs[name])
-            if a.shape != shape:
-                raise ValueError(f"layer {i} param {name}: shape {a.shape},"
-                                 f" configuration says {shape}")
-            p[name] = torch.tensor(a, dtype=conf.dtype, device=device)
-        out.append(p)
-    return out
+    return [_group_from_numpy(lr.param_shapes(), arrs, conf.dtype, device,
+                              f"layer {i} ({type(lr).__name__})")
+            for i, (lr, arrs) in enumerate(zip(conf.layers, arrays))]
 
 
-def _tree_map(fn, tree):
-    """``fn`` on every leaf of nested dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+def _group_from_numpy(want, arrs, dtype, device, where):
+    """One param group (nested groups recursively) in ``want``'s names
+    and order, each array checked against its shape."""
+    if not isinstance(arrs, dict) or set(arrs) != set(want):
+        got = sorted(arrs) if isinstance(arrs, dict) else type(arrs).__name__
+        raise ValueError(f"{where} has params {sorted(want)}, got {got}")
+    p = {}
+    for name, shape in want.items():
+        if isinstance(shape, dict):
+            p[name] = _group_from_numpy(shape, arrs[name], dtype, device,
+                                        f"{where} group {name}")
+            continue
+        a = np.asarray(arrs[name])
+        if a.shape != shape:
+            raise ValueError(f"{where} param {name}: shape {a.shape}, "
+                             f"configuration says {shape}")
+        p[name] = torch.tensor(a, dtype=dtype, device=device)
+    return p
 
 
 def opt_states_from_numpy(conf, arrays, device):
@@ -61,7 +64,7 @@ def opt_states_from_numpy(conf, arrays, device):
     if len(arrays) != len(conf.layers):
         raise ValueError(f"{len(arrays)} updater states for "
                          f"{len(conf.layers)} layers")
-    return [_tree_map(lambda a: torch.tensor(np.asarray(a), dtype=conf.dtype,
+    return [tree_map(lambda a: torch.tensor(np.asarray(a), dtype=conf.dtype,
                                              device=device), st)
             for st in arrays]
 
@@ -69,7 +72,7 @@ def opt_states_from_numpy(conf, arrays, device):
 def opt_states_to_numpy(states):
     """The port's per-layer updater states with numpy leaves (host
     copies)."""
-    return [_tree_map(lambda t: t.detach().cpu().numpy(), st)
+    return [tree_map(lambda t: t.detach().cpu().numpy(), st)
             for st in states]
 
 
@@ -94,14 +97,14 @@ def bert_params_from_numpy(tree, device):
         if set(layer) != _BERT_LAYER:
             raise ValueError(f"BERT layer {i} has {sorted(_BERT_LAYER)}, "
                              f"got {sorted(layer)}")
-    return _tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
                                             device=device), tree)
 
 
 def bert_params_to_numpy(params):
     """The inverse of ``bert_params_from_numpy``: numpy leaves (host
     copies), in the JAX package's layout."""
-    return _tree_map(lambda t: t.detach().cpu().numpy(), params)
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
 
 
 _BOTTLENECK = {"w1": torch.bfloat16, "w2": torch.bfloat16,

@@ -3,10 +3,13 @@
 Counterpart of the single-file half of
 ``deeplearning4j_tpu/utils/serializer.py``. The zip holds ``modelType``, ``configuration.json`` and ``params.npz``,
 whose keys are ``p<SEP>layer<SEP>name`` (parameters) and
-``s<SEP>layer<SEP>name`` (layer state) with SEP the unit separator; with
+``s<SEP>layer<SEP>name`` (layer state) with SEP the unit separator, and
+``p<SEP>layer<SEP>group<SEP>name`` for a nested group's leaves
+(Bidirectional's ``fwd`` and ``bwd``); with
 the updater, ``updaterState.npz`` (the updater state's leaves keyed
 "0", "1", ... in ``jax.tree_util.tree_flatten`` order: layers in order,
-dict keys sorted, so Adam writes m.R, m.W, m.b, v.R, v.W, v.b) and
+dict keys sorted at every level, so Adam writes m.R, m.W, m.b, v.R, v.W,
+v.b, and under Bidirectional m.bwd.R, ..., m.fwd.b, v.bwd.R, ...) and
 ``trainingState.json`` (iteration and epoch). A zip written by either
 package restores in the other. Sharded checkpoints, normalizers and
 bfloat16 parameters come with later slices.
@@ -25,31 +28,11 @@ from deeplearning4j_tpu_torch.backend import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.tree_util import (
+    tree_fill, tree_items, tree_leaves)
 from deeplearning4j_tpu_torch.utils.convert import params_from_numpy
 
 _SEP = "\x1f"  # unit separator: cannot appear in layer names
-
-
-def _leaves(tree):
-    """The leaves of nested dicts/lists/tuples in tree_flatten order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    elif tree is not None:
-        yield tree
-
-
-def _fill(tree, leaves):
-    """``tree``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
-    if isinstance(tree, dict):
-        return {k: _fill(tree[k], leaves) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_fill(v, leaves) for v in tree)
-    return None if tree is None else next(leaves)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -75,14 +58,19 @@ class ModelSerializer:
         named = {}
         for kind, groups in (("p", model._params), ("s", model._states)):
             for i, group in enumerate(groups):
-                for k, v in group.items():
-                    named[_SEP.join((kind, str(i), k))] = _host(v)
+                for keys, v in tree_items(group):
+                    if len(keys) > 2:
+                        raise ValueError(
+                            f"layer {i}'s {'/'.join(keys)} nests deeper "
+                            f"than one group, which the zip's keys cannot "
+                            f"hold")
+                    named[_SEP.join((kind, str(i), *keys))] = _host(v)
         with zipfile.ZipFile(path, "w") as zf:
             zf.writestr("configuration.json", model.conf.to_json())
             zf.writestr("modelType", "MultiLayerNetwork")
             zf.writestr("params.npz", _npz_bytes(named))
             if saveUpdater:
-                leaves = _leaves(model._opt_states)
+                leaves = tree_leaves(model._opt_states)
                 zf.writestr("updaterState.npz", _npz_bytes(
                     {str(i): _host(v) for i, v in enumerate(leaves)}))
                 zf.writestr("trainingState.json", json.dumps(
@@ -111,13 +99,15 @@ class ModelSerializer:
             arrays = [{} for _ in conf.layers]
             for key in npz.files:
                 parts = key.split(_SEP)
-                if len(parts) != 3:
-                    raise NotImplementedError(
-                        f"nested parameter groups ({key!r}) belong to layers "
-                        f"not ported yet")
-                kind, idx, name = parts
+                if len(parts) not in (3, 4):
+                    raise ValueError(f"params.npz key {key!r} has "
+                                     f"{len(parts)} parts, not 3 or 4")
+                kind, idx, *path = parts
                 if kind == "p":
-                    arrays[int(idx)][name] = npz[key]
+                    group = arrays[int(idx)]
+                    for name in path[:-1]:   # a nested group
+                        group = group.setdefault(name, {})
+                    group[path[-1]] = npz[key]
                 elif kind == "s":
                     # the layers ported so far keep no state between fits
                     raise ValueError(f"unexpected layer state {key!r}")
@@ -125,7 +115,7 @@ class ModelSerializer:
             net.init(params_from_numpy(conf, arrays, device))
             if loadUpdater and "updaterState.npz" in names:
                 data = np.load(io.BytesIO(zf.read("updaterState.npz")))
-                n_leaves = sum(1 for _ in _leaves(net._opt_states))
+                n_leaves = len(tree_leaves(net._opt_states))
                 if len(data.files) != n_leaves:
                     raise ValueError(
                         f"updaterState.npz holds {len(data.files)} arrays; "
@@ -133,7 +123,7 @@ class ModelSerializer:
                 leaves = (torch.tensor(data[str(i)], dtype=conf.dtype,
                                        device=device)
                           for i in range(n_leaves))
-                net._opt_states = _fill(net._opt_states, leaves)
+                net._opt_states = tree_fill(net._opt_states, leaves)
                 ts = json.loads(zf.read("trainingState.json"))
                 net._iteration = ts["iteration"]
                 net._epoch = ts["epoch"]
