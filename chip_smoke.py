@@ -29,6 +29,17 @@ weights from a numpy seed:
   one GRU forward and one backward launch per step; then a burst of token
   requests through InferenceSession and 20 tokens of ``rnnTimeStep``
   generation at N=1 against ``net.output``;
+- the same GRU char-RNN built as a SameDiff graph from the same weights
+  (gather -> permute -> rnn.gruLayer -> permute -> reshape -> nn.linear
+  -> logits [N, T, V] -> loss.sparseSoftmaxCrossEntropy): ``output``
+  against the network's on the card, ``calculateGradients`` and 5
+  Adam ``fit`` steps on the card against the CPU (one GRU forward and
+  one backward launch a step), a save/load round trip that continues
+  bit-equal, a control (R + 1e-3) the output check must catch, the graph
+  served through InferenceSession (a request with ids outside the
+  vocabulary gives NaN rows where ``sd.output`` does, and the requests
+  after it still match); then an ``lstmLayer`` graph at the LSTM
+  char-RNN's width, card against CPU;
 - the bidirectional LSTM classifier of Keras's IMDB example at its widths
   (Embedding 20000 -> 128, Bidirectional(LSTM 64), LastTimeStep(
   Bidirectional(LSTM 64)), two-way softmax, T=200, batch 32, Adam(1e-3)),
@@ -1063,22 +1074,29 @@ def _compare_trained(gpu, cpu, what, lr, steps):
     a nested group's leaves (Bidirectional's fwd and bwd) one by one."""
     from deeplearning4j_tpu_torch.tree_util import tree_items
 
+    _compare_leaves([
+        (_at(pg, k), leaf,
+         *(_at(net._opt_states[i][m], k) for m in ("m", "v")
+           for net in (gpu, cpu)))
+        for i, (pg, pc) in enumerate(zip(gpu._params, cpu._params))
+        for k, leaf in tree_items(pc)], what, lr, steps)
+
+
+def _compare_leaves(leaves, what, lr, steps):
+    """``_compare_trained`` over (param card, param CPU, m card, m CPU, v
+    card, v CPU) tuples."""
     worst_p = worst_m = worst_tiny = 0.0
     n_tiny_off = 0
-    for i, (pg, pc) in enumerate(zip(gpu._params, cpu._params)):
-        for k, leaf in tree_items(pc):
-            mg, mc = (_at(net._opt_states[i]["m"], k).cpu()
-                      for net in (gpu, cpu))
-            vg, vc = (_at(net._opt_states[i]["v"], k).cpu()
-                      for net in (gpu, cpu))
-            worst_m = max(worst_m, _rel_err(mg, mc), _rel_err(vg, vc))
-            tiny = mc.abs() < MOMENT_FLOOR * mc.abs().max()
-            d = (_at(pg, k).cpu() - leaf).abs()
-            if (~tiny).any():
-                worst_p = max(worst_p, float(d[~tiny].max()))
-            if tiny.any():
-                worst_tiny = max(worst_tiny, float(d[tiny].max()))
-                n_tiny_off += int((d[tiny] > PARAM_TOL * lr * steps).sum())
+    for pg, pc, mg, mc, vg, vc in leaves:
+        pg, pc, mg, mc, vg, vc = (t.cpu() for t in (pg, pc, mg, mc, vg, vc))
+        worst_m = max(worst_m, _rel_err(mg, mc), _rel_err(vg, vc))
+        tiny = mc.abs() < MOMENT_FLOOR * mc.abs().max()
+        d = (pg - pc).abs()
+        if (~tiny).any():
+            worst_p = max(worst_p, float(d[~tiny].max()))
+        if tiny.any():
+            worst_tiny = max(worst_tiny, float(d[tiny].max()))
+            n_tiny_off += int((d[tiny] > PARAM_TOL * lr * steps).sum())
     print(f"train: {what}: card vs CPU params max|d| {worst_p:.3e} = "
           f"{worst_p / (lr * steps):.3e} of lr*steps (moments above the "
           f"floor), Adam m/v max|d|/max {worst_m:.3e}; {n_tiny_off} weights "
@@ -1298,6 +1316,18 @@ def token_batch(rng, n, vocab, t):
     return idx[:, None, :-1].copy(), labels.copy()
 
 
+def gru_char_rnn_data(conf, batch, vocab=66, seq=100):
+    """The GRU char-RNN's weights (numpy, one dict a layer) and one
+    token batch, from the seed the GRU training phase uses."""
+    rng = np.random.default_rng(SEED + 2)
+    arrays = [{k: (rng.normal(size=sh) * (sh[0] ** -0.5 if len(sh) == 2
+                                          else 0.05)).astype(np.float32)
+               for k, sh in lr_.param_shapes().items()}
+              for lr_ in conf.layers]
+    f, l = token_batch(rng, batch, vocab, seq)
+    return arrays, f, l
+
+
 def gru_training_phase(torch, gru):
     """Train the GRU char-RNN at full width (66/256/1024, T=100, N=64,
     Adam(1e-3)) on the card and on the CPU from the same weights and
@@ -1306,12 +1336,7 @@ def gru_training_phase(torch, gru):
     vocab, seq, batch = 66, 100, 64
     conf = gru_char_rnn_conf(vocab=vocab, seq=seq)
     lr = conf.defaults["updater"].learningRate
-    rng = np.random.default_rng(SEED + 2)
-    arrays = [{k: (rng.normal(size=sh) * (sh[0] ** -0.5 if len(sh) == 2
-                                          else 0.05)).astype(np.float32)
-               for k, sh in lr_.param_shapes().items()}
-              for lr_ in conf.layers]
-    f, l = token_batch(rng, batch, vocab, seq)
+    arrays, f, l = gru_char_rnn_data(conf, batch)
     gpu, cpu = _net_pair(conf.to_json(), arrays)
 
     g_gpu, g_cpu = gpu.gradients(f, l), cpu.gradients(f, l)
@@ -1459,6 +1484,271 @@ def gru_slice_phase(torch, gru, net):
     if generated != 20:
         fail("rnnTimeStep did not launch gru_seq_infer once per token")
     return served + generated
+
+
+# ---------------------------------------------------------------------------
+# the GRU char-RNN as a SameDiff graph
+# ---------------------------------------------------------------------------
+
+SD_PERTURB = 1e-3   # the control: R shifted by this must fail the check
+
+
+def samediff_char_rnn(values, device, vocab=66, seq=100):
+    """The tutorial's GRU char-RNN in SameDiff's own terms, as a TF import
+    builds it: gather (the embedding) -> permute -> rnn.gruLayer ->
+    permute -> reshape -> nn.linear -> logits [N, T, V] (the batch on
+    axis 0, as a served output needs) -> loss.sparseSoftmaxCrossEntropy,
+    trained by Adam(1e-3). ``values`` maps emb, W, R, b, Wo, bo to numpy
+    arrays."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    hidden = values["R"].shape[0]
+    sd = SameDiff(device=device)
+    tokens = sd.placeHolder("tokens", "float32", -1, seq)
+    labels = sd.placeHolder("labels", "float32", -1, seq)
+    v = {k: sd.var(k, a) for k, a in values.items()}
+    x = sd.gather(v["emb"], tokens).permute(0, 2, 1)        # [N, E, T]
+    out, _ = sd.rnn.gruLayer(x, v["W"], v["R"], v["b"])     # [N, H, T]
+    h = out.permute(0, 2, 1).reshape(-1, hidden)
+    logits = sd.nn.linear(h, v["Wo"], v["bo"]).reshape(-1, seq, vocab)
+    logits.rename("logits")
+    sd.loss.sparseSoftmaxCrossEntropy(logits.reshape(-1, vocab),
+                                      labels.reshape(-1)).rename("loss")
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Adam(1e-3), dataSetFeatureMapping=["tokens"],
+        dataSetLabelMapping=["labels"]))
+    return sd
+
+
+def _launches(kernels, fn):
+    """Run ``fn`` with the kernels' counters set to 0; returns (its result,
+    {kernel: launches in it})."""
+    for k in kernels:
+        k.launches = 0
+    res = fn()
+    return res, {k.__name__: k.launches for k in kernels}
+
+
+def _sd_lstm_check(torch, lstm):
+    """A SameDiff lstmLayer graph at the LSTM char-RNN's width (x [32, 77,
+    100], H = 256, forgetBias 1): output and calculateGradients on the
+    card against the CPU, with rows 1-3's launches."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    n, i, t, hsz = 32, 77, 100, 256
+    rng = np.random.default_rng(SEED + 5)
+    vals = {"W": rng.normal(size=(i, 4 * hsz)) * i ** -0.5,
+            "R": rng.normal(size=(hsz, 4 * hsz)) * hsz ** -0.5,
+            "b": rng.normal(size=(4 * hsz,)) * 0.05}
+    vals = {k: a.astype(np.float32) for k, a in vals.items()}
+    x = rng.normal(size=(n, i, t)).astype(np.float32)
+    weight = rng.uniform(0.5, 1.5, size=(n, hsz, t)).astype(np.float32)
+
+    def graph(device):
+        sd = SameDiff(device=device)
+        xp = sd.placeHolder("x", "float32", n, i, t)
+        v = {k: sd.var(k, a) for k, a in vals.items()}
+        out, _, _ = sd.rnn.lstmLayer(xp, v["W"], v["R"], v["b"],
+                                     forgetBias=1.0, name="lstm")
+        (out * sd.constant("weight", weight)).sum().markAsLoss()
+        return sd
+
+    gpu, cpu = graph(None), graph("cpu")
+    kernels = (lstm.lstm_seq_infer, lstm.lstm_seq_fwd, lstm.lstm_seq_bwd)
+    out_g, l_out = _launches(kernels, lambda: gpu.output({"x": x}, "lstm"))
+    out_err = _abs_err(out_g["lstm"].torch().cpu(),
+                       cpu.output({"x": x}, "lstm")["lstm"].torch())
+    g_g, l_grad = _launches(kernels, lambda: gpu.calculateGradients(
+        {"x": x}, "x", *vals))
+    g_c = cpu.calculateGradients({"x": x}, "x", *vals)
+    grad_err = max(_rel_err(g_g[k].torch().cpu(), g_c[k].torch())
+                   for k in g_c)
+    print(f"samediff lstm: x [{n}, {i}, {t}] H={hsz}: output card vs CPU "
+          f"max|d| {out_err:.3e} (launches {l_out}); gradients w.r.t. x, W, "
+          f"R, b max|d|/max {grad_err:.3e} (launches {l_grad})", flush=True)
+    if out_err > KERNEL_TOL:
+        fail(f"SameDiff lstmLayer output differs by {out_err:.3e}")
+    if grad_err > GRAD_TOL:
+        fail(f"SameDiff lstmLayer gradients differ by {grad_err:.3e}")
+    if list(l_out.values()) != [1, 0, 0] or \
+            list(l_grad.values()) != [0, 1, 1]:
+        fail(f"SameDiff lstmLayer launches: output {l_out}, gradients "
+             f"{l_grad}")
+
+
+def samediff_phase(torch, gru, lstm):
+    """The GRU char-RNN built as a SameDiff graph at full width (66/256/
+    1024, T=100) from the GRU training phase's weights: its output against
+    MultiLayerNetwork's on the card, gradients and 5 Adam fit steps on the
+    card against the CPU, the graph served through InferenceSession (a
+    request with ids outside the vocabulary among them), a save/load round
+    trip, a control that must fail, and an lstmLayer graph. Returns the
+    kernels' launches on the graph's main path: rows 4 and 6 in the fit
+    steps, row 5 in serving."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import (
+        DEFAULT_BATCH_BUCKETS, BucketLadder)
+    from deeplearning4j_tpu_torch.utils.convert import params_from_numpy
+
+    vocab, seq, batch = 66, 100, 64
+    conf = gru_char_rnn_conf(vocab=vocab, seq=seq)
+    arrays, f, l = gru_char_rnn_data(conf, batch)
+    values = {"emb": arrays[0]["W"], "W": arrays[1]["W"],
+              "R": arrays[1]["R"], "b": arrays[1]["b"],
+              "Wo": arrays[2]["W"], "bo": arrays[2]["b"]}
+    tokens = f[:, 0, :].astype(np.float32)                   # [N, T]
+    labels = l.argmax(axis=1).astype(np.float32)             # [N, T]
+    feeds = {"tokens": tokens, "labels": labels}
+    kernels = (gru.gru_seq_infer, gru.gru_seq_fwd, gru.gru_seq_bwd)
+    gpu, cpu = samediff_char_rnn(values, None), \
+        samediff_char_rnn(values, "cpu")
+    if gpu.device.type != "cuda":
+        fail(f"the SameDiff graph defaulted to {gpu.device}, not cuda")
+
+    # the graph against the network of the same weights, both on the card
+    net = MultiLayerNetwork(conf).init(params_from_numpy(conf, arrays,
+                                                         gpu.device))
+    want = net.output(f).torch()                             # [N, V, T]
+    del net
+
+    def probs(sd):
+        logits = sd.output({"tokens": tokens}, "logits")["logits"].torch()
+        return torch.softmax(logits, dim=-1).permute(0, 2, 1)
+
+    got, l_out = _launches(kernels, lambda: probs(gpu))
+    out_err = _abs_err(got, want)
+    bad = samediff_char_rnn(dict(values, R=values["R"] + SD_PERTURB), None)
+    ctl_err = _abs_err(probs(bad), want)
+    del bad
+    print(f"samediff: output vs MultiLayerNetwork.output on the card max|d| "
+          f"{out_err:.3e} (launches {l_out}); control (R + {SD_PERTURB}) "
+          f"max|d| {ctl_err:.3e}", flush=True)
+    if out_err > PLAIN_TOL:
+        fail(f"SameDiff graph vs network output {out_err:.3e} > "
+             f"{PLAIN_TOL}")
+    if ctl_err <= PLAIN_TOL:
+        fail(f"the perturbed graph passed the output check ({ctl_err:.3e})")
+    if list(l_out.values()) != [1, 0, 0]:
+        fail(f"SameDiff output launches {l_out}, not one gru_seq_infer")
+
+    names = list(values)
+    g_g, l_grad = _launches(kernels, lambda: gpu.calculateGradients(
+        feeds, *names))
+    g_c = cpu.calculateGradients(feeds, *names)
+    errs = {k: _rel_err(g_g[k].torch().cpu(), g_c[k].torch()) for k in names}
+    print("samediff: gradients card vs CPU max|d|/max " + ", ".join(
+        f"{k} {e:.3e}" for k, e in errs.items()) + f" (launches {l_grad})",
+        flush=True)
+    if max(errs.values()) > GRAD_TOL:
+        fail(f"SameDiff gradients differ: {errs}")
+    if list(l_grad.values()) != [0, 1, 1]:
+        fail(f"SameDiff gradient launches {l_grad}")
+
+    lr = gpu.trainingConfig.updater.learningRate
+    h_g, l_fit = _launches(kernels, lambda: [
+        gpu.fit([(tokens, labels)]).iterLosses[0] for _ in range(STEPS)])
+    h_c = [cpu.fit([(tokens, labels)]).iterLosses[0] for _ in range(STEPS)]
+    print(f"samediff: {STEPS} Adam fit steps, losses card {h_g}, CPU {h_c}; "
+          f"launches {l_fit}", flush=True)
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(h_g, h_c))
+    if worst_loss > TRAIN_LOSS_TOL:
+        fail(f"SameDiff losses differ by {worst_loss:.3e} relative")
+    if not h_g[-1] < h_g[0]:
+        fail(f"the SameDiff loss did not fall: {h_g}")
+    if list(l_fit.values()) != [0, STEPS, STEPS]:
+        fail(f"SameDiff fit launches {l_fit}, not one forward and one "
+             f"backward a step")
+    _compare_leaves([(gpu._values[k], cpu._values[k],
+                      *(sd._updater_state[m][k] for m in ("m", "v")
+                        for sd in (gpu, cpu))) for k in names],
+                    f"SameDiff {STEPS} fit steps", lr, STEPS)
+    del cpu
+
+    # save and load: outputs bit-equal, the next step equal
+    tmp = tempfile.mkdtemp()
+    gpu.save(tmp + "/char_rnn.sdz", saveUpdaterState=True)
+    loaded = SameDiff.load(tmp + "/char_rnn.sdz", loadUpdaterState=True,
+                           device=gpu.device)
+    shutil.rmtree(tmp)
+    same_out = np.array_equal(
+        gpu.output({"tokens": tokens}, "logits")["logits"].toNumpy(),
+        loaded.output({"tokens": tokens}, "logits")["logits"].toNumpy())
+    step_a = gpu.fit([(tokens, labels)]).iterLosses[0]
+    step_b = loaded.fit([(tokens, labels)]).iterLosses[0]
+    param_d = max(float((gpu._values[k] - loaded._values[k]).abs().max())
+                  for k in names)
+    print(f"samediff: save/load on the card: outputs bit-equal {same_out}; "
+          f"the next step's losses {step_a} / {step_b}, params max|d| "
+          f"{param_d:.3e}", flush=True)
+    if not same_out or step_a != step_b or param_d != 0.0:
+        fail("the loaded SameDiff graph does not continue as the saved one")
+    del loaded
+
+    times = []
+    for k in range(7):
+        t0 = time.perf_counter()
+        gpu.fit([(tokens, labels)])      # ends with the loss on the host
+        if k >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    print(f"samediff: fit step time at N={batch} T={seq} H="
+          f"{values['R'].shape[0]} vocab={vocab}: median {step_ms:.3f} ms "
+          f"over {len(times)} steps (min {min(times):.3f}, max "
+          f"{max(times):.3f})", flush=True)
+
+    # serving: token ids [N, T] as float32, logits [N, T, V] back
+    rng = np.random.default_rng(SEED + 4)
+
+    def ids(n):
+        return rng.integers(0, vocab, size=(n, seq)).astype(np.float32)
+
+    requests = [ids(int(rng.integers(1, 5))) for _ in range(12)]
+    requests.insert(6, ids(32))
+    wild = ids(2)
+    wild[0, :4] = [vocab, -1, -70, -200]   # -1 wraps to the last row
+    requests.insert(4, wild)
+    answers, warmed, dispatches, served, serve_s = _serve_burst(
+        torch, "sd-gru", gpu, (seq,), requests,
+        BucketLadder(DEFAULT_BATCH_BUCKETS), kernels,
+        input_name="tokens", output_name="logits")
+    print(f"samediff: served {len(requests)} requests "
+          f"({sum(len(x) for x in requests)} rows) in {len(dispatches)} "
+          f"dispatches {sorted(dispatches)}, {serve_s:.4f} s; warmup of "
+          f"{len(warmed)} shapes; launches {served}", flush=True)
+    if served["gru_seq_infer"] != len(warmed) + len(dispatches) or \
+            served["gru_seq_fwd"] or served["gru_seq_bwd"]:
+        fail(f"{served} launches for {len(warmed)} warmup and "
+             f"{len(dispatches)} serving dispatches of the graph")
+    worst = 0.0
+    for x, y in zip(requests, answers):
+        want = gpu.output({"tokens": x}, "logits")["logits"].toNumpy()
+        if y.shape != (x.shape[0], seq, vocab):
+            fail(f"served shape {y.shape} for request {x.shape}")
+        if not np.array_equal(np.isnan(y), np.isnan(want)):
+            fail("served NaN rows differ from sd.output's")
+        if x is not wild and not np.isfinite(y).all():
+            fail("a served answer holds a non-finite value")
+        ok = ~np.isnan(want)
+        worst = max(worst, float(np.abs(y[ok] - want[ok]).max()))
+    nan_rows = int(np.isnan(answers[4]).all(axis=(1, 2)).sum())
+    print(f"samediff: served vs sd.output max|d| {worst:.3e}; the request "
+          f"with ids {wild[0, :4].tolist()} gave {nan_rows} NaN row(s), "
+          f"as sd.output does", flush=True)
+    if worst > SERVE_TOL:
+        fail(f"served SameDiff rows vs sd.output {worst:.3e} > {SERVE_TOL}")
+    if nan_rows != 1 or not np.isfinite(answers[4][1]).all():
+        fail("the out-of-range request's rows are not NaN where expected")
+    del gpu
+
+    _sd_lstm_check(torch, lstm)
+    return {"gru_seq_fwd": l_fit["gru_seq_fwd"],
+            "gru_seq_bwd": l_fit["gru_seq_bwd"],
+            "gru_seq_infer": served["gru_seq_infer"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2027,17 +2317,19 @@ def step_route_phase(torch, lstm, gru, rnn_step):
 
 
 def _serve_burst(torch, name, model, example_shape, requests, ladder,
-                 counters):
+                 counters, **register_kw):
     """Serve ``requests`` through a fresh InferenceSession (ladder warmup
-    first); returns (answers, warmed shapes, dispatch shapes, the counters'
-    launches over warmup and burst, seconds of the burst)."""
+    first; ``register_kw`` such as a SameDiff graph's input_name and
+    output_name go to ``register``); returns (answers, warmed shapes,
+    dispatch shapes, the counters' launches over warmup and burst,
+    seconds of the burst)."""
     from deeplearning4j_tpu_torch.serving import InferenceSession
 
     for fn in counters:
         fn.launches = 0
     session = InferenceSession()
     entry = session.register(name, model, example_shape=example_shape,
-                             warmup=True, ladder=ladder)
+                             warmup=True, ladder=ladder, **register_kw)
     dispatches = []
     infer = entry.servable.infer
 
@@ -3075,6 +3367,7 @@ def main():
     gru_net, gru_launches, _ = gru_training_phase(torch, gru)
     gru_launches["gru_seq_infer"] = gru_slice_phase(torch, gru, gru_net)
     del net, gru_net
+    sd_launches = samediff_phase(torch, gru, lstm)
     bilstm = bilstm_phase(torch, lstm)
     step_rows, step_errs = step_route_phase(torch, lstm, gru, rnn_step)
     step_launches = wide_rnn_phase(torch, lstm, gru, rnn_step)
@@ -3114,6 +3407,16 @@ def main():
     ] + [
         (name, source, f"kernels/gru.py:{line}", gru_launches[name],
          gru_errs[name], shape, gru_rows[name][shape])
+        for name, source, line, shape in (
+            ("gru_seq_infer", "gru_seq.cu", 83, GRU_SERVE_SHAPE),
+            ("gru_seq_fwd", "gru_seq.cu", 63, GRU_TRAIN_SHAPE),
+            ("gru_seq_bwd", "gru_seq_bwd.cu", 159, GRU_TRAIN_SHAPE))
+    ] + [
+        # rows 4-6 on the SameDiff graph's path: rows 4 and 6 launched by
+        # fit, row 5 by serving
+        (name, source, f"kernels/gru.py:{line}", sd_launches[name],
+         gru_errs[name], shape,
+         dict(gru_rows[name][shape], path="samediff_gru"))
         for name, source, line, shape in (
             ("gru_seq_infer", "gru_seq.cu", 83, GRU_SERVE_SHAPE),
             ("gru_seq_fwd", "gru_seq.cu", 63, GRU_TRAIN_SHAPE),

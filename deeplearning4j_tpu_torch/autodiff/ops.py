@@ -1,21 +1,963 @@
-"""Recurrent ops: ``lstmCell``, ``lstmLayer``, ``gruCell``, ``gruLayer``
-and ``simpleRnnLayer``, registered in ``OPS`` by the JAX package's names.
+"""Op registry: a PyTorch function for each SameDiff op, by the JAX
+package's names.
 
-Counterpart of the recurrent part of ``deeplearning4j_tpu/autodiff/ops.py``
-(the rest of its op registry comes with later slices). LSTM gate order is
-i, f, g(cell), o, as in DL4J's lstmLayer packing, and ``forgetBias`` is
-added to the f pre-activation at every step. GRU gate order is r, u, then the candidate c, as in libnd4j's
+Counterpart of ``deeplearning4j_tpu/autodiff/ops.py``, lines 1-1150: the
+elementwise, activation, reduction, matmul, shape and indexing,
+comparison, normalization, random, convolution and pooling, recurrent,
+attention, loss, control-flow and TF-helper families, with the
+reference's signatures and attribute names. The other names of the
+reference's registry (linear algebra, segment ops, image ops, special
+functions, ``ctcLoss``, ...) are listed in ``PENDING_OPS``: a graph that
+names one of them is refused when it is built (``ROADMAP.md``, queue 1,
+item 2b).
+
+Conventions, as in the reference:
+
+- ``fn(*inputs, **attrs)`` -> a tensor or a tuple of tensors;
+- ops in ``RANDOM_OPS`` take a ``generator=`` keyword (a
+  ``torch.Generator`` on the graph's device) where the reference takes a
+  JAX PRNG ``key=``: they agree with it by shape, dtype and distribution,
+  never by seed;
+- ops in ``TRAINING_AWARE_OPS`` take ``training=``; ops in
+  ``DEVICE_OPS`` (those with no tensor input) take ``device=``;
+- conv/pool use NCHW activations and [out, in, kH, kW] weights, DL4J's
+  layout.
+
+Every op is plain PyTorch but the recurrent layers: ``lstmLayer`` and
+``gruLayer`` run their recurrence in the hand-written kernels of
+``kernels/lstm.py`` and ``kernels/gru.py`` (the CUDA kernels on the GPU,
+their plain versions on the CPU), as the reference runs its Pallas
+kernels. LSTM gate order is i, f, g(cell), o, as in DL4J's lstmLayer
+packing; GRU gate order is r, u, then the candidate c, as in libnd4j's
 gruCell.
 """
 
 from __future__ import annotations
 
+import math as _math
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.kernels.gru import gru_seq, gru_seq_infer
 from deeplearning4j_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_infer
-from deeplearning4j_tpu_torch.nn.activations import resolve_activation
+from deeplearning4j_tpu_torch.ndarray.ndarray import torch_dtype
 
+OPS = {}
+RANDOM_OPS: set = set()
+TRAINING_AWARE_OPS: set = set()
+DEVICE_OPS: set = set()
+
+
+def op(name=None, random=False, training_aware=False, device_aware=False):
+    def deco(fn):
+        key = name or fn.__name__
+        OPS[key] = fn
+        if random:
+            RANDOM_OPS.add(key)
+        if training_aware:
+            TRAINING_AWARE_OPS.add(key)
+        if device_aware:
+            DEVICE_OPS.add(key)
+        return fn
+
+    return deco
+
+
+def _identity(x):
+    return x
+
+
+def _axis(dims, ndim):
+    if dims is None or dims == () or dims == []:
+        return None
+    if isinstance(dims, int):
+        dims = (dims,)
+    return tuple(d % ndim for d in dims)
+
+
+def _all_axes(dims, ndim):
+    """``_axis`` with None read as every axis (torch wants them named)."""
+    ax = _axis(dims, ndim)
+    return tuple(range(ndim)) if ax is None else ax
+
+
+def _as_float(x):
+    """Integer and bool inputs of a mean or variance: float32, as jnp
+    promotes them."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _max(x, bound):
+    """jnp.maximum(x, bound): at a tie the gradient splits evenly between
+    the two, as in JAX (``torch.clamp`` would give it all to x)."""
+    return torch.maximum(x, torch.as_tensor(bound, dtype=x.dtype,
+                                            device=x.device))
+
+
+def _min(x, bound):
+    return torch.minimum(x, torch.as_tensor(bound, dtype=x.dtype,
+                                            device=x.device))
+
+
+def _clip(x, lo, hi):
+    """jnp.clip, with its gradient at the bounds."""
+    return _min(_max(x, lo), hi)
+
+
+def _abs(x):
+    """jnp.abs, whose gradient at 0 is 1 (torch.abs gives 0 there)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _acc(x):
+    """The dtype a sum or product of x takes: int32 for bool and integers
+    up to 32 bits, as jnp gives them with 64-bit types off (torch would
+    widen them to int64); None (x's own) otherwise."""
+    small = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32)
+    return torch.int32 if x.dtype in small else None
+
+
+def _long(indices):
+    """Ids held as any dtype, cast as ``astype(int32)`` casts them (floats
+    truncated toward zero), as int64 for torch's indexing."""
+    return indices.to(torch.int32).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# elementwise / transforms
+# ---------------------------------------------------------------------------
+
+# binary
+OPS["add"] = lambda a, b: a + b
+OPS["sub"] = lambda a, b: a - b
+OPS["mul"] = lambda a, b: a * b
+OPS["div"] = lambda a, b: a / b
+OPS["rsub"] = lambda a, b: b - a
+OPS["rdiv"] = lambda a, b: b / a
+OPS["pow"] = lambda a, b: a**b
+OPS["floordiv"] = lambda a, b: torch.floor_divide(a, b)
+OPS["mod"] = lambda a, b: torch.remainder(a, b)
+OPS["squaredDifference"] = lambda a, b: (a - b) ** 2
+OPS["maximum"] = torch.maximum
+OPS["minimum"] = torch.minimum
+
+# unary
+OPS["identity"] = _identity
+OPS["neg"] = torch.neg
+OPS["abs"] = _abs
+OPS["exp"] = torch.exp
+OPS["log"] = torch.log
+OPS["log1p"] = torch.log1p
+OPS["sqrt"] = torch.sqrt
+OPS["rsqrt"] = torch.rsqrt
+OPS["square"] = torch.square
+OPS["reciprocal"] = torch.reciprocal
+OPS["sign"] = torch.sign
+OPS["floor"] = torch.floor
+OPS["ceil"] = torch.ceil
+OPS["round"] = torch.round     # half to even, as jnp.round
+OPS["sin"] = torch.sin
+OPS["cos"] = torch.cos
+OPS["tan"] = torch.tan
+OPS["asin"] = torch.asin
+OPS["acos"] = torch.acos
+OPS["atan"] = torch.atan
+OPS["sinh"] = torch.sinh
+OPS["cosh"] = torch.cosh
+OPS["tanh"] = torch.tanh
+OPS["erf"] = torch.erf
+OPS["isnan"] = torch.isnan
+OPS["isinf"] = torch.isinf
+
+# activations
+OPS["sigmoid"] = torch.sigmoid
+OPS["relu"] = torch.relu
+OPS["relu6"] = F.relu6
+OPS["elu"] = F.elu
+OPS["selu"] = F.selu
+OPS["gelu"] = lambda x: F.gelu(x, approximate="tanh")   # jax.nn.gelu's
+OPS["softplus"] = F.softplus
+OPS["softsign"] = F.softsign
+OPS["swish"] = F.silu
+OPS["mish"] = lambda x: x * torch.tanh(F.softplus(x))
+OPS["hardSigmoid"] = F.hardsigmoid
+OPS["hardTanh"] = lambda x: _clip(x, -1.0, 1.0)
+OPS["leakyRelu"] = lambda x, alpha=0.01: torch.where(x >= 0, x, alpha * x)
+OPS["prelu"] = lambda x, a: torch.where(x >= 0, x, a * x)
+OPS["rationalTanh"] = lambda x: 1.7159 * torch.tanh(2.0 * x / 3.0)
+OPS["rectifiedTanh"] = lambda x: _max(torch.tanh(x), 0.0)
+OPS["thresholdRelu"] = lambda x, cutoff=0.0: torch.where(
+    x > cutoff, x, torch.zeros_like(x))
+OPS["clipByValue"] = lambda x, clipValueMin=-1.0, clipValueMax=1.0: \
+    _clip(x, clipValueMin, clipValueMax)
+
+
+@op("clipByNorm")
+def _clip_by_norm(x, clipValue=1.0, dims=None):
+    n = torch.sqrt(torch.sum(x * x, dim=_all_axes(dims, x.dim()),
+                             keepdim=True))
+    return torch.where(n > clipValue,
+                       x * (clipValue / _max(n, 1e-12)), x)
+
+
+@op("softmax")
+def _softmax(x, dimension=-1):
+    return torch.softmax(x, dim=dimension)
+
+
+@op("logSoftmax")
+def _log_softmax(x, dimension=-1):
+    return torch.log_softmax(x, dim=dimension)
+
+
+@op("softmaxDerivative")
+def _softmax_deriv(x, wrt, dimension=-1):
+    s = torch.softmax(x, dim=dimension)
+    return s * (wrt - torch.sum(wrt * s, dim=dimension, keepdim=True))
+
+
+# ---------------------------------------------------------------------------
+# reductions
+# ---------------------------------------------------------------------------
+
+def _over_axes(fn):
+    """A one-axis torch reduction applied over several axes, last first."""
+    def f(x, dim, keepdim):
+        for d in sorted(dim, reverse=True):
+            x = fn(x, dim=d, keepdim=keepdim)
+        return x
+
+    return f
+
+
+def _red(fn):
+    def f(x, dimensions=None, keepDims=False):
+        return fn(x, dim=_all_axes(dimensions, x.dim()), keepdim=keepDims)
+
+    return f
+
+
+OPS["sum"] = _red(lambda x, dim, keepdim: torch.sum(x, dim=dim,
+                                                    keepdim=keepdim,
+                                                    dtype=_acc(x)))
+OPS["mean"] = _red(lambda x, dim, keepdim: torch.mean(_as_float(x), dim=dim,
+                                                      keepdim=keepdim))
+OPS["max"] = _red(torch.amax)
+OPS["min"] = _red(torch.amin)
+OPS["prod"] = _red(_over_axes(lambda x, dim, keepdim: torch.prod(
+    x, dim=dim, keepdim=keepdim, dtype=_acc(x))))
+OPS["any"] = _red(_over_axes(torch.any))
+OPS["all"] = _red(_over_axes(torch.all))
+OPS["norm1"] = _red(lambda x, **k: torch.sum(_abs(x), **k))
+OPS["norm2"] = _red(lambda x, **k: torch.sqrt(torch.sum(x * x, **k)))
+OPS["normMax"] = _red(lambda x, **k: torch.amax(_abs(x), **k))
+OPS["logSumExp"] = _red(torch.logsumexp)
+OPS["countNonZero"] = _red(lambda x, **k: OPS["sum"](
+    x != 0, k["dim"], k["keepdim"]))
+OPS["zeroFraction"] = lambda x: torch.mean((x == 0).to(torch.float32))
+
+
+@op("variance")
+def _variance(x, dimensions=None, biasCorrected=True, keepDims=False):
+    return torch.var(_as_float(x), dim=_all_axes(dimensions, x.dim()),
+                     correction=1 if biasCorrected else 0, keepdim=keepDims)
+
+
+@op("standardDeviation")
+def _std(x, dimensions=None, biasCorrected=True, keepDims=False):
+    return torch.std(_as_float(x), dim=_all_axes(dimensions, x.dim()),
+                     correction=1 if biasCorrected else 0, keepdim=keepDims)
+
+
+def _arg(fn, x, dimension, keepDims):
+    """argmax/argmin as jnp gives them: int32, over the flattened array
+    when ``dimension`` is None."""
+    if dimension is None:
+        r = fn(x.reshape(-1))
+        if keepDims:
+            r = r.reshape((1,) * x.dim())
+    else:
+        r = fn(x, dim=dimension, keepdim=keepDims)
+    return r.to(torch.int32)
+
+
+@op("argmax")
+def _argmax(x, dimension=None, keepDims=False):
+    return _arg(torch.argmax, x, dimension, keepDims)
+
+
+@op("argmin")
+def _argmin(x, dimension=None, keepDims=False):
+    return _arg(torch.argmin, x, dimension, keepDims)
+
+
+@op("cumsum")
+def _cumsum(x, axis=0, exclusive=False, reverse=False):
+    a = x
+    if reverse:
+        a = torch.flip(a, (axis,))
+    r = torch.cumsum(a, dim=axis, dtype=_acc(a))
+    if exclusive:
+        r = r - a
+    if reverse:
+        r = torch.flip(r, (axis,))
+    return r
+
+
+@op("cumprod")
+def _cumprod(x, axis=0):
+    return torch.cumprod(x, dim=axis, dtype=_acc(x))
+
+
+@op("moments")
+def _moments(x, dimensions=None, keepDims=False):
+    ax = _all_axes(dimensions, x.dim())
+    x = _as_float(x)
+    return (torch.mean(x, dim=ax, keepdim=keepDims),
+            torch.var(x, dim=ax, correction=0, keepdim=keepDims))
+
+
+# ---------------------------------------------------------------------------
+# linalg (torch.matmul: the reference leaves these to XLA, not to Pallas)
+# ---------------------------------------------------------------------------
+
+@op("matmul")
+def _matmul(a, b, transposeA=False, transposeB=False):
+    if transposeA:
+        a = torch.swapaxes(a, -1, -2)
+    if transposeB:
+        b = torch.swapaxes(b, -1, -2)
+    return a @ b
+
+
+@op("tensorMmul")
+def _tensor_mmul(a, b, axesA=None, axesB=None):
+    return torch.tensordot(a, b, dims=(list(axesA), list(axesB)))
+
+
+@op("batchMmul")
+def _batch_mmul(a, b):
+    return a @ b
+
+
+@op("dot")
+def _dot(a, b, dimensions=None):
+    if dimensions is None:
+        return torch.sum(a * b)
+    return torch.sum(a * b, dim=_axis(dimensions, a.dim()))
+
+
+# ---------------------------------------------------------------------------
+# shape ops
+# ---------------------------------------------------------------------------
+
+def _getitem(x, idx):
+    """``x[idx]`` with numpy's meaning for slices of negative step, which
+    torch does not take: those dims are sliced whole, then picked by
+    ``index_select``."""
+    basic, picks = [], []
+    in_d = out_d = 0
+    for i in idx:
+        if i is None:
+            basic.append(None)
+            out_d += 1
+        elif isinstance(i, slice):
+            if i.step is not None and i.step < 0:
+                picks.append((out_d, range(*i.indices(x.shape[in_d]))))
+                basic.append(slice(None))
+            else:
+                basic.append(i)
+            in_d += 1
+            out_d += 1
+        else:
+            basic.append(int(i))
+            in_d += 1
+    y = x[tuple(basic)]
+    for d, r in picks:
+        y = y.index_select(d, torch.tensor(list(r), dtype=torch.int64,
+                                           device=x.device))
+    return y
+
+
+@op("reshape")
+def _reshape(x, shape=None):
+    return x.reshape(tuple(shape))
+
+
+@op("permute")
+def _permute(x, dimensions=None):
+    return x.permute(tuple(dimensions))
+
+
+@op("transpose")
+def _transpose(x):
+    return x.permute(tuple(reversed(range(x.dim()))))
+
+
+@op("expandDims")
+def _expand_dims(x, axis=0):
+    return torch.unsqueeze(x, axis)
+
+
+@op("squeeze")
+def _squeeze(x, axis=None):
+    return torch.squeeze(x) if axis is None else torch.squeeze(x, axis)
+
+
+@op("concat")
+def _concat(*xs, dimension=0):
+    return torch.cat(xs, dim=dimension)
+
+
+@op("stack")
+def _stack(*xs, axis=0):
+    return torch.stack(xs, dim=axis)
+
+
+@op("unstack")
+def _unstack(x, axis=0, num=None):
+    n = num or x.shape[axis]
+    return tuple(torch.squeeze(s, axis)
+                 for s in torch.split(x, x.shape[axis] // n, dim=axis))
+
+
+@op("split")
+def _split(x, numSplit=2, dimension=0):
+    return tuple(torch.split(x, x.shape[dimension] // numSplit,
+                             dim=dimension))
+
+
+@op("slice")
+def _slice(x, begin=None, size=None):
+    """lax.dynamic_slice: a start is clamped so that the slice fits."""
+    idx = []
+    for i, (b, s) in enumerate(zip(begin, size)):
+        s = s if s >= 0 else x.shape[i] - b
+        b = min(max(int(b), 0), x.shape[i] - s)
+        idx.append(slice(b, b + s))
+    return x[tuple(idx)]
+
+
+@op("stridedSlice")
+def _strided_slice(x, begin=None, end=None, strides=None):
+    return _getitem(x, tuple(
+        slice(b, e, s) for b, e, s in zip(begin, end,
+                                          strides or [1] * len(begin))))
+
+
+@op("tile")
+def _tile(x, reps=None):
+    return torch.tile(x, tuple(reps))
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """Source positions of a dim of size n padded by (lo, hi) in numpy's
+    "reflect", "symmetric", "edge" or "wrap" mode."""
+    j = np.arange(-lo, n + hi)
+    if mode == "reflect":
+        period = 2 * (n - 1) if n > 1 else 1
+        j = np.abs(j) % period
+        j = np.where(j >= n, period - j, j)
+    elif mode == "symmetric":
+        j = j % (2 * n)
+        j = np.where(j >= n, 2 * n - 1 - j, j)
+    elif mode == "edge":
+        j = np.clip(j, 0, n - 1)
+    elif mode == "wrap":
+        j = j % n
+    else:
+        raise ValueError(f"unsupported pad mode {mode!r}")
+    return torch.as_tensor(j, dtype=torch.int64, device=device)
+
+
+@op("pad")
+def _pad(x, paddings=None, constant=0.0, mode="CONSTANT"):
+    pads = [tuple(int(v) for v in p) for p in paddings]
+    if mode.upper() == "CONSTANT":
+        flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+        return F.pad(x, flat, value=constant)
+    for d, (lo, hi) in enumerate(pads):
+        if lo or hi:
+            x = x.index_select(d, _pad_index(x.shape[d], lo, hi,
+                                             mode.lower(), x.device))
+    return x
+
+
+@op("reverse")
+def _reverse(x, dimensions=None):
+    return torch.flip(x, _all_axes(dimensions, x.dim()))
+
+
+def _fill_value(dtype):
+    """jnp.take's fill for ids outside the range: NaN for inexact types,
+    the most negative value for signed ints, the largest for unsigned,
+    True for bool."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+@op("gather")
+def _gather(x, indices, axis=0):
+    """jnp.take(x, indices.astype(int32), axis): a negative id wraps once
+    by the axis' length, and an id still outside [0, length) gives a row of
+    the fill value (NaN for floats). The rows are picked with safe ids and
+    then filled, so a wild id never becomes a device-side assert."""
+    axis = axis % x.dim()
+    n = x.shape[axis]
+    idx = _long(indices)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    # rows of the [n, rest] table by a backward that sums each row's
+    # gradient in a fixed order, so that its bits repeat: indexing's on
+    # CUDA (it sorts the ids), the embedding's on the CPU (the other way
+    # round each accumulates in parallel)
+    table = x.movedim(axis, 0)
+    flat, safe = table.reshape(n, -1), torch.where(valid, idx, 0)
+    rows = (flat[safe] if x.device.type == "cuda" else
+            F.embedding(safe, flat)).reshape(
+        tuple(idx.shape) + tuple(table.shape[1:]))
+    mask = valid.reshape(valid.shape + (1,) * (rows.dim() - valid.dim()))
+    rows = torch.where(mask, rows, torch.full((), _fill_value(x.dtype),
+                                              dtype=x.dtype,
+                                              device=x.device))
+    return rows.movedim(tuple(range(idx.dim())),
+                        tuple(range(axis, axis + idx.dim())))
+
+
+@op("gatherNd")
+def _gather_nd(x, indices):
+    """x[tuple(indices.T)] with jnp's indexing rule: negative ids wrap,
+    then ids are clamped into range."""
+    idx = _long(indices)
+    parts = []
+    for d in range(idx.shape[-1]):
+        i = idx[..., d]
+        n = x.shape[d]
+        parts.append(torch.where(i < 0, i + n, i).clamp(0, n - 1))
+    return x[tuple(parts)]
+
+
+def _scatter(ref, indices, updates, accumulate):
+    """ref.at[indices].set/add(updates) on axis 0: negative ids wrap once,
+    ids still outside the range are dropped."""
+    n = ref.shape[0]
+    idx = _long(indices)
+    idx = torch.where(idx < 0, idx + n, idx)
+    updates = torch.as_tensor(updates, dtype=ref.dtype,
+                              device=ref.device).expand(
+        tuple(idx.shape) + tuple(ref.shape[1:]))
+    valid = (idx >= 0) & (idx < n)
+    return ref.index_put((idx[valid],), updates[valid],
+                         accumulate=accumulate)
+
+
+@op("scatterUpdate")
+def _scatter_update(ref, indices, updates):
+    return _scatter(ref, indices, updates, False)
+
+
+@op("scatterAdd")
+def _scatter_add(ref, indices, updates):
+    return _scatter(ref, indices, updates, True)
+
+
+@op("oneHot")
+def _one_hot(x, depth=None, on=1.0, off=0.0, axis=-1):
+    """jax.nn.one_hot: ids outside [0, depth) give a row of zeros (then
+    ``off``)."""
+    idx = _long(x)
+    hot = (idx.unsqueeze(-1) == torch.arange(depth, device=x.device)).to(
+        torch.float32)
+    hot = hot.movedim(-1, axis % (idx.dim() + 1))
+    return hot * (on - off) + off
+
+
+@op("linspace", device_aware=True)
+def _linspace(start=0.0, stop=1.0, num=10, device=None):
+    return torch.linspace(start, stop, num, dtype=torch.float32,
+                          device=device)
+
+
+def _arange_dtype(*vals):
+    return (torch.int32 if all(isinstance(v, (int, np.integer))
+                               for v in vals) else torch.float32)
+
+
+@op("range", device_aware=True)
+def _range(start=0, limit=None, delta=1, device=None):
+    if limit is None:
+        start, limit = 0, start
+    return torch.arange(start, limit, delta,
+                        dtype=_arange_dtype(start, limit, delta),
+                        device=device)
+
+
+@op("shape_of")
+def _shape_of(x):
+    return torch.tensor(tuple(x.shape), dtype=torch.int32, device=x.device)
+
+
+@op("cast")
+def _cast(x, dtype=None):
+    return x.to(torch_dtype(dtype))
+
+
+@op("assign_op")
+def _assign_op(a, b):
+    return torch.broadcast_to(torch.as_tensor(b, device=a.device),
+                              a.shape).to(a.dtype)
+
+
+@op("invertPermutation")
+def _invert_permutation(x):
+    return torch.argsort(x).to(torch.int32)
+
+
+@op("sequenceMask")
+def _sequence_mask(lengths, maxLen=None):
+    return (torch.arange(maxLen, device=lengths.device)[None, :]
+            < lengths[:, None]).to(torch.float32)
+
+
+@op("diag")
+def _diag(x):
+    return torch.diag(x)
+
+
+@op("eye_op", device_aware=True)
+def _eye(n=1, m=None, device=None):
+    return torch.eye(n, n if m is None else m, dtype=torch.float32,
+                     device=device)
+
+
+@op("meshgrid")
+def _meshgrid(*xs, indexing="xy"):
+    return tuple(torch.meshgrid(*xs, indexing=indexing))
+
+
+# comparisons / selection
+OPS["eq"] = lambda a, b: a == b
+OPS["neq"] = lambda a, b: a != b
+OPS["gt"] = lambda a, b: a > b
+OPS["gte"] = lambda a, b: a >= b
+OPS["lt"] = lambda a, b: a < b
+OPS["lte"] = lambda a, b: a <= b
+OPS["and_op"] = torch.logical_and
+OPS["or_op"] = torch.logical_or
+OPS["not_op"] = torch.logical_not
+OPS["xor_op"] = torch.logical_xor
+
+
+@op("where_op")
+def _where(cond, x, y):
+    return torch.where(cond.to(torch.bool), x, y)
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+@op("layerNorm")
+def _layer_norm(x, gain, bias=None, channelwise_axis=-1, epsilon=1e-5):
+    mean = torch.mean(x, dim=channelwise_axis, keepdim=True)
+    var = torch.var(x, dim=channelwise_axis, correction=0, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + epsilon) * gain
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+@op("batchNorm")
+def _batch_norm(x, mean, variance, gamma=None, beta=None, epsilon=1e-5,
+                axis=1):
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    y = (x - mean.reshape(shape)) * torch.rsqrt(variance.reshape(shape)
+                                                + epsilon)
+    if gamma is not None:
+        y = y * gamma.reshape(shape)
+    if beta is not None:
+        y = y + beta.reshape(shape)
+    return y
+
+
+@op("standardize")
+def _standardize(x, dimensions=(-1,)):
+    ax = _all_axes(dimensions, x.dim())
+    m = torch.mean(x, dim=ax, keepdim=True)
+    s = torch.std(x, dim=ax, correction=0, keepdim=True)
+    return (x - m) / _max(s, 1e-12)
+
+
+@op("dropout", random=True, training_aware=True)
+def _dropout(x, p=0.5, generator=None, training=False):
+    """p is the RETAIN probability, matching DL4J dropout semantics
+    (org.deeplearning4j.nn.conf.dropout.Dropout: activations scaled by 1/p)."""
+    if not training or p >= 1.0:
+        return x
+    mask = torch.rand(x.shape, generator=generator,
+                      device=x.device) < p
+    return torch.where(mask, x / p, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# random
+# ---------------------------------------------------------------------------
+
+def _uniform(shape, generator):
+    return torch.rand(tuple(shape), generator=generator,
+                      device=generator.device)
+
+
+@op("randomNormal", random=True)
+def _random_normal(shape=None, mean=0.0, stddev=1.0, generator=None):
+    return mean + stddev * torch.randn(tuple(shape), generator=generator,
+                                       device=generator.device)
+
+
+@op("randomUniform", random=True)
+def _random_uniform(shape=None, min=0.0, max=1.0, generator=None):
+    return min + (max - min) * _uniform(shape, generator)
+
+
+@op("randomBernoulli", random=True)
+def _random_bernoulli(shape=None, p=0.5, generator=None):
+    return (_uniform(shape, generator) < p).to(torch.float32)
+
+
+@op("randomGamma", random=True)
+def _random_gamma(shape=None, alpha=1.0, beta=1.0, generator=None):
+    """Gamma(alpha, rate beta) (reference: random ops gamma declarable)."""
+    a = torch.full(tuple(shape), float(alpha), device=generator.device)
+    return torch._standard_gamma(a, generator=generator) / beta
+
+
+@op("randomPoisson", random=True)
+def _random_poisson(shape=None, lam=1.0, generator=None):
+    rate = torch.full(tuple(shape), float(lam), device=generator.device)
+    return torch.poisson(rate, generator=generator)
+
+
+@op("randomExponential", random=True)
+def _random_exponential(shape=None, lam=1.0, generator=None):
+    e = torch.empty(tuple(shape), device=generator.device)
+    return e.exponential_(1.0, generator=generator) / lam
+
+
+@op("truncatedNormal", random=True)
+def _truncated_normal(shape=None, mean=0.0, stddev=1.0, generator=None):
+    """Normal truncated to +/-2 sigma (TF/DL4J truncated_normal
+    semantics), by the inverse CDF of a uniform draw over [Phi(-2),
+    Phi(2)]."""
+    lo, hi = (0.5 * (1 + _math.erf(b / _math.sqrt(2))) for b in (-2.0, 2.0))
+    u = lo + (hi - lo) * _uniform(shape, generator)
+    z = _math.sqrt(2) * torch.erfinv(2 * u - 1)
+    return mean + stddev * torch.clamp(z, -2.0, 2.0)
+
+
+# ---------------------------------------------------------------------------
+# conv / pool (NCHW, weights [out, in, kH, kW] like libnd4j conv2d)
+# ---------------------------------------------------------------------------
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(v)
+    return (v, v)
+
+
+def _triple_(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(a) for a in v)
+    return (int(v),) * 3
+
+
+def _same_pads(sizes, kernel, strides, dilation):
+    """XLA's "SAME" padding, (lo, hi) a spatial dim: the output is
+    ceil(in / stride), the extra row (when the total is odd) at the end."""
+    pads = []
+    for n, k, s, d in zip(sizes, kernel, strides, dilation):
+        out = -(-n // s)
+        total = max((out - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pad_spatial(x, pads, value=0.0):
+    """Pad the trailing spatial dims of x by [(lo, hi), ...] in order."""
+    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+    return F.pad(x, flat, value=value) if any(flat) else x
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _conv(x, w, b, strides, pads, dilation, groups=1):
+    nd = x.dim() - 2
+    y = _CONV[nd](_pad_spatial(x, pads), w, stride=strides,
+                  dilation=dilation, groups=groups)
+    if b is not None:
+        y = y + b.reshape((1, -1) + (1,) * nd)
+    return y
+
+
+def _conv_pads(x, w, strides, padding, dilation, sameMode):
+    nd = x.dim() - 2
+    if sameMode:
+        return _same_pads(x.shape[2:], w.shape[2:], strides, dilation)
+    p = _pair(padding) if nd == 2 else (_triple_(padding) if nd == 3
+                                        else (int(padding),))
+    return [(q, q) for q in p]
+
+
+@op("conv2d")
+def _conv2d(x, w, b=None, kernel=None, strides=(1, 1), padding=(0, 0),
+            dilation=(1, 1), sameMode=False):
+    """x: [N,C,H,W]; w: [outC, inC, kH, kW] (DL4J layout)."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    return _conv(x, w, b, strides,
+                 _conv_pads(x, w, strides, padding, dilation, sameMode),
+                 dilation)
+
+
+@op("depthwiseConv2d")
+def _depthwise_conv2d(x, w, b=None, strides=(1, 1), padding=(0, 0),
+                      dilation=(1, 1), sameMode=False):
+    """w: [depthMult, inC, kH, kW] -> grouped conv with C groups."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    c, mult = x.shape[1], w.shape[0]
+    w2 = w.permute(1, 0, 2, 3).reshape(c * mult, 1, *w.shape[2:])
+    return _conv(x, w2, b, strides,
+                 _conv_pads(x, w2, strides, padding, dilation, sameMode),
+                 dilation, groups=c)
+
+
+@op("conv1d")
+def _conv1d(x, w, b=None, stride=1, padding=0, sameMode=False):
+    """x: [N,C,W]; w: [outC, inC, k]."""
+    return _conv(x, w, b, (stride,),
+                 _conv_pads(x, w, (stride,), padding, (1,), sameMode), (1,))
+
+
+@op("deconv2d")
+def _deconv2d(x, w, b=None, strides=(1, 1), padding=(0, 0), sameMode=False):
+    """Transposed conv; w: [outC, inC, kH, kW] wrt the FORWARD direction of
+    the deconv (i.e. produces outC channels), as the reference computes
+    it: the input dilated by the strides, padded k-1-p a side (SAME: k+s-2
+    in all, the odd one at the end), convolved with the spatially flipped
+    kernel. Output s*(i-1) + k - 2p (SAME: i*s)."""
+    strides, p = _pair(strides), _pair(padding)
+    k = (w.shape[2], w.shape[3])
+    if sameMode:
+        tot = (k[0] + strides[0] - 2, k[1] + strides[1] - 2)
+        pads = [(t // 2, t - t // 2) for t in tot]
+    else:
+        pads = [(k[i] - 1 - p[i],) * 2 for i in range(2)]
+    n, c, h, wd = x.shape
+    xd = x.new_zeros((n, c, (h - 1) * strides[0] + 1,
+                      (wd - 1) * strides[1] + 1))
+    xd[:, :, ::strides[0], ::strides[1]] = x
+    return _conv(xd, torch.flip(w, (2, 3)), b, (1, 1), pads, (1, 1))
+
+
+def _pool(x, kernel, strides, padding, sameMode, kind, include_pad=False):
+    """lax.reduce_window max or add over the trailing 2 or 3 dims: padding
+    takes the reduction's identity, and an average (``kind`` "avg")
+    divides by the count of real elements in each window, or by the
+    window's size with ``include_pad``."""
+    nd = x.dim() - 2
+    tup = _pair if nd == 2 else _triple_
+    k, s = tup(kernel), tup(strides)
+    if sameMode:
+        pads = _same_pads(x.shape[2:], k, s, (1,) * nd)
+    else:
+        pads = [(q, q) for q in tup(padding)]
+    if kind == "max":
+        pool = F.max_pool2d if nd == 2 else F.max_pool3d
+        return pool(_pad_spatial(x, pads, -float("inf")), k, s)
+    avg = F.avg_pool2d if nd == 2 else F.avg_pool3d
+    area = float(np.prod(k))
+    total = avg(_pad_spatial(x, pads), k, s) * area
+    if include_pad:
+        return total / area
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return total / (avg(_pad_spatial(ones, pads), k, s) * area)
+
+
+@op("maxPooling2d")
+def _max_pool2d(x, kernel=(2, 2), strides=(2, 2), padding=(0, 0),
+                sameMode=False):
+    return _pool(x, kernel, strides, padding, sameMode, "max")
+
+
+@op("avgPooling2d")
+def _avg_pool2d(x, kernel=(2, 2), strides=(2, 2), padding=(0, 0),
+                sameMode=False, includePadInAvg=False):
+    return _pool(x, kernel, strides, padding, sameMode, "avg",
+                 include_pad=includePadInAvg)
+
+
+@op("conv3d")
+def _conv3d_op(x, w, b=None, strides=(1, 1, 1), padding=(0, 0, 0),
+               dilation=(1, 1, 1), sameMode=False):
+    """x: [N,C,D,H,W]; w: [outC, inC, kD, kH, kW] (op-level conv3d —
+    reference: libnd4j conv3dnew declarable)."""
+    strides, dilation = _triple_(strides), _triple_(dilation)
+    return _conv(x, w, b, strides,
+                 _conv_pads(x, w, strides, padding, dilation, sameMode),
+                 dilation)
+
+
+@op("maxPooling3d")
+def _max_pool3d(x, kernel=(2, 2, 2), strides=(2, 2, 2), padding=(0, 0, 0),
+                sameMode=False):
+    return _pool(x, kernel, strides, padding, sameMode, "max")
+
+
+@op("avgPooling3d")
+def _avg_pool3d(x, kernel=(2, 2, 2), strides=(2, 2, 2), padding=(0, 0, 0),
+                sameMode=False):
+    return _pool(x, kernel, strides, padding, sameMode, "avg")
+
+
+@op("globalAvgPooling")
+def _global_avg_pool(x, dimensions=(2, 3)):
+    return torch.mean(x, dim=_all_axes(dimensions, x.dim()))
+
+
+@op("upsampling2d")
+def _upsampling2d(x, size=(2, 2)):
+    s = _pair(size)
+    return torch.repeat_interleave(torch.repeat_interleave(x, s[0], dim=2),
+                                   s[1], dim=3)
+
+
+@op("im2col")
+def _im2col(x, kernel=(2, 2), strides=(1, 1), padding=(0, 0)):
+    """libnd4j's helpers/im2col layout: [n, c, kh, kw, oh, ow]."""
+    k, s, p = _pair(kernel), _pair(strides), _pair(padding)
+    xp = F.pad(x, (p[1], p[1], p[0], p[0]))
+    h, w = xp.shape[2], xp.shape[3]
+    oh = (h - k[0]) // s[0] + 1
+    ow = (w - k[1]) // s[1] + 1
+    ar = lambda n: torch.arange(n, device=x.device)
+    idx_h = (ar(oh) * s[0])[:, None] + ar(k[0])[None, :]
+    idx_w = (ar(ow) * s[1])[:, None] + ar(k[1])[None, :]
+    cols = xp[:, :, idx_h[:, :, None, None], idx_w[None, None, :, :]]
+    # [n, c, oh, kh, ow, kw] -> [n, c, kh, kw, oh, ow]
+    return cols.permute(0, 1, 3, 5, 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# recurrent (lstmLayer and gruLayer run their recurrence in the
+# hand-written kernels; the input projection is hoisted out of it)
+# ---------------------------------------------------------------------------
 
 def _needs_grad(*tensors):
     """Grad mode is on and some input requires grad: the autograd route."""
@@ -23,6 +965,22 @@ def _needs_grad(*tensors):
         a is not None and a.requires_grad for a in tensors)
 
 
+def _activation(name):
+    """A recurrent op's ``activation``: a callable as it is, an op name
+    through ``OPS`` (as the reference resolves it), else a layer
+    activation name ("rationaltanh", "leakyrelu:0.2", ...)."""
+    if callable(name):
+        return name
+    if name in OPS:
+        return OPS[name]
+    # imported here: the nn package imports the network, which imports
+    # SameDiff's module, which imports this one
+    from deeplearning4j_tpu_torch.nn.activations import resolve_activation
+
+    return resolve_activation(name)
+
+
+@op("lstmCell")
 def lstmCell(x, h_prev, c_prev, w, r, b=None, forgetBias=0.0):
     """One LSTM step. x:[N,I], h_prev/c_prev:[N,H], w:[I,4H], r:[H,4H],
     b:[4H]."""
@@ -40,16 +998,20 @@ def lstmCell(x, h_prev, c_prev, w, r, b=None, forgetBias=0.0):
     return h, c
 
 
+@op("lstmLayer")
 def lstmLayer(x, w, r, b=None, h0=None, c0=None, forgetBias=0.0,
-              returnFullSequence=True):
+              returnFullSequence=True, unroll=4):
     """x: [N, I, T] (DL4J NCW layout). Returns ([N,H,T], hT, cT), or
     (hT, hT, cT) when not returnFullSequence.
 
     The input projection for ALL timesteps is hoisted out of the
     recurrence as one [T*N, I] x [I, 4H] matmul, with the bias and
     forgetBias folded into it; only h.R stays inside the recurrence,
-    which runs in ``kernels.lstm.lstm_seq_infer`` (the CUDA kernel on the
-    GPU, its plain version on the CPU)."""
+    which runs in ``kernels.lstm`` (the CUDA kernels on the GPU, their
+    plain versions on the CPU): ``lstm_seq`` when grad mode is on and an
+    input requires grad, ``lstm_seq_infer`` otherwise. ``unroll`` is the
+    reference's ``lax.scan`` unroll factor, taken for its signature and
+    ignored: the kernel runs the whole sequence."""
     n, _, t = x.shape
     hsz = r.shape[0]
     if x.device.type == "cuda" and any(
@@ -76,6 +1038,7 @@ def lstmLayer(x, w, r, b=None, h0=None, c0=None, forgetBias=0.0,
     return hs.permute(1, 2, 0), hT, cT   # [N, H, T]
 
 
+@op("gruCell")
 def gruCell(x, h_prev, w, r, b=None):
     """One GRU step (reset-after). x:[N,I], h_prev:[N,H], w:[I,3H],
     r:[H,3H], b:[6H] (r, u then c; input and recurrent biases separate,
@@ -92,12 +1055,15 @@ def gruCell(x, h_prev, w, r, b=None):
     return ugate * h_prev + (1 - ugate) * cand
 
 
-def gruLayer(x, w, r, b=None, h0=None, resetAfter=True, activation="tanh"):
+@op("gruLayer")
+def gruLayer(x, w, r, b=None, h0=None, unroll=4, resetAfter=True,
+             activation="tanh"):
     """x: [N, I, T] (DL4J NCW layout). Returns ([N,H,T], hT).
 
     The input projection for ALL timesteps is hoisted out of the
     recurrence as one [T*N, I] x [I, 3H] matmul, with the input bias
-    folded into it; only h.R stays inside the recurrence.
+    folded into it; only h.R stays inside the recurrence. ``unroll`` is
+    taken for the reference's signature and ignored.
 
     resetAfter=True (the cuDNN / Keras-v2 convention): cand = act(xw_c +
     r (h R_c + rb_c)), b holds [3H input || 3H recurrent] (or only the 3H
@@ -126,7 +1092,7 @@ def gruLayer(x, w, r, b=None, h0=None, resetAfter=True, activation="tanh"):
         hs, hT = seq(xw, r, rb, h0)
         return hs.permute(1, 2, 0), hT   # [N, H, T]
 
-    act = resolve_activation(activation)
+    act = _activation(activation)
     h = h0
     hs = []
     for xw_t in xw:
@@ -146,7 +1112,8 @@ def gruLayer(x, w, r, b=None, h0=None, resetAfter=True, activation="tanh"):
     return torch.stack(hs, dim=2), h
 
 
-def simpleRnnLayer(x, w, r, b=None, h0=None, activation="tanh"):
+@op("simpleRnnLayer")
+def simpleRnnLayer(x, w, r, b=None, h0=None, activation="tanh", unroll=4):
     """x: [N, I, T] (DL4J NCW layout). Returns ([N,H,T], hT) of
     h_t = act(x_t W + b + h_{t-1} R).
 
@@ -154,12 +1121,13 @@ def simpleRnnLayer(x, w, r, b=None, h0=None, activation="tanh"):
     recurrence as one [T*N, I] x [I, H] matmul with the bias folded in, as
     the JAX package does; each step is then one ``addmm`` and the
     activation, a plain PyTorch loop on any device (the JAX package runs
-    it as a ``lax.scan`` with no Pallas kernel)."""
+    it as a ``lax.scan`` with no Pallas kernel). ``unroll`` is taken for
+    the reference's signature and ignored."""
     n = x.shape[0]
     hsz = r.shape[0]
     if h0 is None:
         h0 = torch.zeros((n, hsz), dtype=x.dtype, device=x.device)
-    act = resolve_activation(activation)
+    act = _activation(activation)
     xw = x.permute(2, 0, 1) @ w     # [T, N, H]: one batched matmul
     if b is not None:
         xw = xw + b
@@ -171,5 +1139,244 @@ def simpleRnnLayer(x, w, r, b=None, h0=None, activation="tanh"):
     return torch.stack(hs, dim=2), h
 
 
-OPS = {"lstmCell": lstmCell, "lstmLayer": lstmLayer, "gruCell": gruCell,
-       "gruLayer": gruLayer, "simpleRnnLayer": simpleRnnLayer}
+# ---------------------------------------------------------------------------
+# attention (plain, as in the reference, which computes these outside any
+# Pallas kernel)
+# ---------------------------------------------------------------------------
+
+@op("dotProductAttention")
+def _dot_product_attention(q, k, v, mask=None, scaled=True):
+    """q:[..., T_q, D], k:[..., T_k, D], v:[..., T_k, Dv]."""
+    scale = 1.0 / _math.sqrt(q.shape[-1]) if scaled else 1.0
+    logits = (q * scale) @ torch.swapaxes(k, -1, -2)
+    if mask is not None:
+        logits = torch.where(mask.to(torch.bool), logits,
+                             torch.full((), -1e30, dtype=logits.dtype,
+                                        device=logits.device))
+    return torch.softmax(logits, dim=-1) @ v
+
+
+@op("multiHeadDotProductAttention")
+def _mhdpa(q, k, v, wq, wk, wv, wo, mask=None, numHeads=1, scaled=True):
+    """Batched multi-head attention: q/k/v [N, T, E]; wq/wk/wv [E, H*Dh],
+    wo [H*Dh, E]."""
+    n, tq, _ = q.shape
+
+    def heads(x, wm):
+        y = x @ wm
+        return y.reshape(n, x.shape[1], numHeads, -1).permute(0, 2, 1, 3)
+
+    qh, kh, vh = heads(q, wq), heads(k, wk), heads(v, wv)
+    if mask is not None and mask.dim() == 2:
+        mask = mask[:, None, None, :]
+    o = _dot_product_attention(qh, kh, vh, mask, scaled)
+    return o.permute(0, 2, 1, 3).reshape(n, tq, -1) @ wo
+
+
+# ---------------------------------------------------------------------------
+# losses (reference: SDLoss / org.nd4j.linalg.lossfunctions)
+# ---------------------------------------------------------------------------
+
+def _reduce_loss(per_ex, weights, reduction):
+    if weights is not None:
+        per_ex = per_ex * weights
+    if reduction in ("MEAN_BY_NONZERO_WEIGHT_COUNT", "MEAN_BY_WEIGHT"):
+        if weights is not None:
+            denom = torch.clamp(torch.sum(weights != 0), min=1)
+            return torch.sum(per_ex) / denom
+        return torch.mean(per_ex)
+    if reduction == "SUM":
+        return torch.sum(per_ex)
+    if reduction == "NONE":
+        return per_ex
+    return torch.mean(per_ex)
+
+
+def _mean_rest(per):
+    """The mean over every axis but the first (per-example)."""
+    return torch.mean(per, dim=tuple(range(1, per.dim()))) \
+        if per.dim() > 1 else per
+
+
+@op("softmaxCrossEntropy")
+def _softmax_ce(logits, labels, weights=None, labelSmoothing=0.0,
+                reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    nc = logits.shape[-1]
+    if labelSmoothing > 0:
+        labels = labels * (1 - labelSmoothing) + labelSmoothing / nc
+    lp = torch.log_softmax(logits, dim=-1)
+    per_ex = -torch.sum(labels * lp, dim=-1)
+    return _reduce_loss(per_ex, weights, reduction)
+
+
+@op("sparseSoftmaxCrossEntropy")
+def _sparse_softmax_ce(logits, labels,
+                       reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    lp = torch.log_softmax(logits, dim=-1)
+    per_ex = -torch.gather(lp, -1, _long(labels)[..., None])[..., 0]
+    return _reduce_loss(per_ex, None, reduction)
+
+
+@op("sigmoidCrossEntropy")
+def _sigmoid_ce(logits, labels, weights=None,
+                reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    per = _max(logits, 0.0) - logits * labels + torch.log1p(
+        torch.exp(-_abs(logits)))
+    return _reduce_loss(_mean_rest(per), weights, reduction)
+
+
+@op("meanSquaredError")
+def _mse(predictions, labels, weights=None,
+         reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    return _reduce_loss(_mean_rest((predictions - labels) ** 2), weights,
+                        reduction)
+
+
+@op("absoluteDifference")
+def _mae(predictions, labels, weights=None,
+         reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    return _reduce_loss(_mean_rest(_abs(predictions - labels)),
+                        weights, reduction)
+
+
+@op("huberLoss")
+def _huber(predictions, labels, weights=None, delta=1.0,
+           reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    err = _abs(predictions - labels)
+    per = torch.where(err <= delta, 0.5 * err**2,
+                      delta * err - 0.5 * delta**2)
+    return _reduce_loss(_mean_rest(per), weights, reduction)
+
+
+@op("logLoss")
+def _log_loss(predictions, labels, weights=None, epsilon=1e-7,
+              reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    p = _clip(predictions, epsilon, 1 - epsilon)
+    per = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
+    return _reduce_loss(_mean_rest(per), weights, reduction)
+
+
+@op("hingeLoss")
+def _hinge(predictions, labels, weights=None,
+           reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    # labels in {0,1} -> {-1,1} like SDLoss.hingeLoss
+    y = 2.0 * labels - 1.0
+    per = _max(1.0 - y * predictions, 0.0)
+    return _reduce_loss(_mean_rest(per), weights, reduction)
+
+
+@op("cosineDistance")
+def _cosine_distance(predictions, labels, weights=None, dimension=-1,
+                     reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    per_ex = 1.0 - torch.sum(predictions * labels, dim=dimension)
+    return _reduce_loss(per_ex, weights, reduction)
+
+
+@op("klDivergence")
+def _kld(predictions, labels, reduction="MEAN_BY_NONZERO_WEIGHT_COUNT"):
+    per = labels * (torch.log(_max(labels, 1e-12)) -
+                    torch.log(_max(predictions, 1e-12)))
+    per_ex = torch.sum(per, dim=tuple(range(1, per.dim()))) \
+        if per.dim() > 1 else per
+    return _reduce_loss(per_ex, None, reduction)
+
+
+# ---------------------------------------------------------------------------
+# control flow: the bodies are callables over tensors (a traced child
+# graph's, or the user's own), run by Python loops; autograd records
+# through every iteration and branch
+# ---------------------------------------------------------------------------
+
+def _as_tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+@op("whileLoop")
+def _while_loop(*state, cond_fn=None, body_fn=None):
+    """state -> final state after `while cond_fn(*state): state =
+    body_fn(*state)`."""
+    state = tuple(state)
+    while bool(cond_fn(*state)):
+        state = tuple(body_fn(*state))
+    return state if len(state) > 1 else state[0]
+
+
+@op("ifCond")
+def _if_cond(pred, *operands, true_fn=None, false_fn=None):
+    take = bool(torch.as_tensor(pred).to(torch.bool).reshape(()))
+    out = _as_tuple((true_fn if take else false_fn)(*operands))
+    return out if len(out) > 1 else out[0]
+
+
+@op("scanOp")
+def _scan_op(init, xs, body_fn=None):
+    """A scan over the leading axis of xs; body_fn(carry, x) -> (carry,
+    y). Returns (final_carry, stacked_ys)."""
+    carry, ys = init, []
+    for x in xs:
+        carry, y = body_fn(carry, x)
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+@op("forLoop")
+def _for_loop(*state, n=None, body_fn=None):
+    """n fixed iterations: state = body_fn(i, *state), i an int32 scalar
+    as lax.fori_loop gives it."""
+    state = tuple(state)
+    dev = state[0].device if state else None
+    for i in range(n):
+        state = tuple(body_fn(torch.tensor(i, dtype=torch.int32,
+                                           device=dev), *state))
+    return state if len(state) > 1 else state[0]
+
+
+# ---------------------------------------------------------------------------
+# TF-import support ops
+# ---------------------------------------------------------------------------
+
+@op("tfEinsum")
+def _tf_einsum(*xs, equation=None):
+    return torch.einsum(equation, *xs)
+
+
+@op("tfZerosLike")
+def _tf_zeros_like(x):
+    return torch.zeros_like(x)
+
+
+@op("tfOnesLike")
+def _tf_ones_like(x):
+    return torch.ones_like(x)
+
+
+@op("tfStridedSlice")
+def _tf_strided_slice(x, idx=None):
+    return _getitem(x, tuple(
+        None if i is None else (slice(*i) if isinstance(i, (list, tuple))
+                                else i)
+        for i in idx))
+
+
+# The reference's registry past its line 1150: refused when a graph is
+# built with them, until ROADMAP.md queue 1 item 2b ports them.
+PENDING_OPS = frozenset((
+    "cholesky", "matrixInverse", "matrixDeterminant", "logdet", "trace",
+    "solve", "triangularSolve", "svd", "qr", "lu", "lstsq", "matrixBandPart",
+    "triu", "tril", "diagPart", "segmentSum", "unsortedSegmentSum",
+    "segmentMax", "unsortedSegmentMax", "segmentMin", "unsortedSegmentMin",
+    "segmentProd", "unsortedSegmentProd", "segmentMean",
+    "unsortedSegmentMean", "topK", "inTopK", "confusionMatrix", "bincount",
+    "imageResize", "extractImagePatches", "spaceToDepth", "depthToSpace",
+    "spaceToBatch", "batchToSpace", "erfc", "lgamma", "digamma", "igamma",
+    "igammac", "betainc", "atan2", "expm1", "asinh", "acosh", "atanh",
+    "ctcLoss", "nonMaxSuppression", "roll", "eye", "repeat", "flip", "sort",
+    "argsort", "fill", "tensorScatterUpdate", "uniqueWithCounts", "cross",
+    "rint", "erfinv", "reverseSequence", "histogramFixedWidth",
+    "weightedCrossEntropyWithLogits", "meanPairwiseSquaredError",
+    "clipByGlobalNorm", "matrixSetDiag", "scatterMax", "scatterMin",
+    "scatterMul", "scatterSub", "scatterNd", "dynamicStitch", "mirrorPad",
+    "rot90", "sconv2d", "localResponseNormalization", "dilation2d",
+    "adjustContrast", "rgbToHsv", "hsvToRgb", "adjustHue",
+    "adjustSaturation", "randomShuffle", "alphaDropout", "gaussianDropout",
+    "gaussianNoise", "sparseSoftmaxCrossEntropyGrad", "adjustContrastV2"))

@@ -66,10 +66,15 @@ class ModelRegistry:
         self._lock = threading.Lock()
 
     def register(self, name, model, version=1, example_shape=None,
-                 dtype=None, ladder=None, warmup=False) -> _Entry:
-        """dtype=None takes the serving dtype from the model's dataType."""
+                 dtype=None, ladder=None, input_name=None,
+                 output_name=None, warmup=False) -> _Entry:
+        """dtype=None takes the serving dtype from the model's dataType;
+        a SameDiff graph is served from its placeholder ``input_name`` to
+        its variable ``output_name``."""
         sv = (model if isinstance(model, Servable)
-              else as_servable(model, example_shape, dtype))
+              else as_servable(model, example_shape, dtype,
+                               input_name=input_name,
+                               output_name=output_name))
         ladder = ladder if ladder is not None else self.default_ladder
         if isinstance(ladder, (list, tuple)):
             ladder = BucketLadder(ladder)

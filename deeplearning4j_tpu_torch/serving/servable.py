@@ -98,6 +98,35 @@ class NetworkServable(Servable):
         return (self.net._params, self.net._states)
 
 
+class SameDiffServable(Servable):
+    """SameDiff graph: serve one placeholder -> one output variable. The
+    graph's values are read at call time (a graph trained since it was
+    registered serves its new values), and the graph runs under
+    ``torch.inference_mode()`` on its own device."""
+
+    def __init__(self, sd, input_name, output_name, example_shape,
+                 dtype=None):
+        super().__init__(example_shape, sd.device,
+                         np.float32 if dtype is None else dtype)
+        self.sd = sd
+        self.input_name = (input_name.name()
+                           if hasattr(input_name, "name") else input_name)
+        self.output_name = (output_name.name()
+                            if hasattr(output_name, "name") else output_name)
+
+    def _run(self, params, consts, x):
+        fn = self.sd._make_fn((self.output_name,), False)
+        with torch.inference_mode():
+            out = fn({self.input_name: x}, params, consts, self.sd._seed)
+        return out[self.output_name]
+
+    def _infer_fn(self):
+        return self._run
+
+    def _call_args(self):
+        return self.sd._split_values()
+
+
 class FnServable(Servable):
     """A plain ``fn(x) -> y`` over tensors, served like any network: the
     escape hatch for custom pipelines (BERT's ``forward`` over token ids,
@@ -121,16 +150,25 @@ class FnServable(Servable):
         return ()
 
 
-def as_servable(model, example_shape=None, dtype=None) -> Servable:
+def as_servable(model, example_shape=None, dtype=None,
+                input_name=None, output_name=None) -> Servable:
     """Wrap a supported model type in its Servable adapter. dtype=None
     takes the serving-boundary dtype from the model's dataType (float32
-    for a plain function)."""
+    for a SameDiff graph or a plain function); a SameDiff graph needs the
+    placeholder it is fed through and the variable it answers with."""
     if isinstance(model, Servable):
         return model
     kind = type(model).__name__
     if kind == "MultiLayerNetwork":
         return NetworkServable(model, example_shape, dtype)
+    if kind == "SameDiff":
+        if input_name is None or output_name is None:
+            raise ValueError(
+                "SameDiff serving needs input_name= and output_name=")
+        return SameDiffServable(model, input_name, output_name,
+                                example_shape, dtype)
     if callable(model):
         return FnServable(model, example_shape, dtype)
     raise TypeError(f"cannot serve a {kind} (the port serves "
-                    f"MultiLayerNetwork and plain functions so far)")
+                    f"MultiLayerNetwork, SameDiff and plain functions so "
+                    f"far)")

@@ -57,6 +57,10 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/datasets/dataset.py",
                  "deeplearning4j_tpu_torch/datasets/iterator.py",
                  "deeplearning4j_tpu_torch/autodiff/samediff.py",
+                 "deeplearning4j_tpu_torch/autodiff/ops.py",
+                 "deeplearning4j_tpu_torch/autodiff/__init__.py",
+                 "deeplearning4j_tpu_torch/serving/servable.py",
+                 "deeplearning4j_tpu_torch/serving/registry.py",
                  "deeplearning4j_tpu_torch/utils/serializer.py",
                  "deeplearning4j_tpu_torch/kernels/probe_matmul.py",
                  "deeplearning4j_tpu_torch/kernels/bottleneck.py",
