@@ -1752,6 +1752,503 @@ def samediff_phase(torch, gru, lstm):
 
 
 # ---------------------------------------------------------------------------
+# the op registry's later names on the card, and BERT-base imported from a
+# TF GraphDef
+# ---------------------------------------------------------------------------
+
+def samediff_ops_phase(torch):
+    """One case of each of the 88 names the registry took past the
+    reference's line 1150 (the first case of each in
+    tests/samediff_op_cases.py): the op on CUDA tensors against the same
+    op on the CPU, to the CPU tests' tolerances (1e-5 of the largest
+    element, 1e-4 for the linear algebra; svd, qr and lu by reconstruction
+    and singular values, since cuSOLVER may choose other signs than
+    LAPACK). The random ones by what they promise: randomShuffle a
+    permutation of the rows, the noise layers the identity at inference
+    and the CPU's moments in training."""
+    import importlib.util
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.autodiff import ops
+
+    # by path: an installed package named "tests" may shadow the directory
+    path = Path(__file__).resolve().parent / "tests" / "samediff_op_cases.py"
+    spec = importlib.util.spec_from_file_location("samediff_op_cases", path)
+    oc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oc)
+
+    def on(v, dev):
+        if isinstance(v, tuple):
+            return tuple(on(a, dev) for a in v)
+        return torch.from_numpy(np.array(v)).to(dev) if isinstance(
+            v, (np.ndarray, np.generic)) else v
+
+    def outs(v):
+        return tuple(v) if isinstance(v, (tuple, list)) else (v,)
+
+    t0 = time.perf_counter()
+    seen, worst = set(), {}
+    for name, variant, build, _ in oc.CASES:
+        if name in seen:
+            continue
+        seen.add(name)
+        inputs, attrs = oc.build(name, variant, build)
+        kw = {"device": "cuda"} if name in ops.DEVICE_OPS else {}
+        got = outs(ops.OPS[name](*[on(v, "cuda") for v in inputs], **attrs,
+                                 **kw))
+        want = outs(ops.OPS[name](*[on(v, "cpu") for v in inputs], **attrs))
+        try:
+            for g in got:
+                if g.device.type != "cuda":
+                    raise AssertionError(f"output on {g.device}")
+            if name in ("svd", "qr", "lu"):
+                oc.reconstructs(name, got, on(inputs[0], "cpu"),
+                                oc.GRAD_TOL)
+                continue
+            tol = oc.GRAD_TOL if name in oc.LINALG else oc.FWD_TOL
+            for k, (g, w) in enumerate(zip(got, want)):
+                if g.dtype != w.dtype:
+                    raise AssertionError(f"dtype {g.dtype} != {w.dtype}")
+                oc.close(g, w, tol, f"{name} output {k}")
+                w = w.double()
+                fin = torch.isfinite(w)
+                if fin.any():
+                    d = (g.cpu().double() - w)[fin].abs().max()
+                    worst[name] = float(d / max(float(w[fin].abs().max()),
+                                                1e-30))
+        except AssertionError as e:
+            fail(f"op {name} on the card against the CPU: {e}")
+    x = torch.arange(64.0, device="cuda").reshape(16, 4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shuf = ops.OPS["randomShuffle"](x, generator=gen)
+    if shuf.device.type != "cuda" or sorted(
+            map(tuple, shuf.tolist())) != sorted(map(tuple, x.tolist())):
+        fail("randomShuffle on the card is not a permutation of the rows")
+    seen.add("randomShuffle")
+    xs = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=200000).astype(np.float32))
+    for name, attrs in (("alphaDropout", {"p": 0.3}),
+                        ("gaussianDropout", {"p": 0.2}),
+                        ("gaussianNoise", {"stddev": 0.5})):
+        a = ops.OPS[name](xs.to("cuda"), generator=gen, training=True,
+                          **attrs).cpu().double()
+        b = ops.OPS[name](xs, generator=torch.Generator().manual_seed(SEED),
+                          training=True, **attrs).double()
+        if abs(float(a.mean() - b.mean())) > 0.02 or \
+                abs(float(a.std() / b.std()) - 1) > 0.02:
+            fail(f"{name} on the card: moments {float(a.mean()):.4f}/"
+                 f"{float(a.std()):.4f} against the CPU's "
+                 f"{float(b.mean()):.4f}/{float(b.std()):.4f}")
+    if len(seen) != 88:
+        fail(f"the op phase ran {len(seen)} of the 88 later names")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    print(f"samediff ops: the 88 later names on the card against the CPU "
+          f"in {time.perf_counter() - t0:.2f} s; largest max|d|/max "
+          + ", ".join(f"{k} {v:.2e}" for k, v in top), flush=True)
+
+
+class BertGraphBuilder:
+    """tests/tf_bert_builder.py's BertGraphBuilder, written against the
+    port's protobuf (that file imports the JAX package's): the frozen
+    graph a TF BERT checkpoint freezes to — GatherV2 embeddings,
+    BatchMatMulV2 projections, Mean/SquaredDifference/Rsqrt LayerNorm
+    chains, erf-GELU, tied MLM head and an in-graph masked-LM loss — at any
+    dims. It writes the same bytes as that builder for the same arguments
+    (tests/test_torch_tf_import.py holds it to that)."""
+
+    def __init__(self, vocab=30522, hidden=768, layers=12, heads=12,
+                 ffn=3072, max_len=512, batch=2, seq=16, seed=0):
+        from deeplearning4j_tpu_torch.modelimport import protobuf
+
+        self.pb = protobuf
+        self.f32 = protobuf.attr_type(np.float32)
+        self.v, self.h, self.L = vocab, hidden, layers
+        self.nh, self.f = heads, ffn
+        self.hd = hidden // heads
+        self.b, self.t = batch, seq
+        self.max_len = max_len
+        self.rng = np.random.default_rng(seed)
+        self.nodes = []
+
+    def _const(self, name, arr):
+        arr = np.asarray(arr)
+        return self.pb.NodeDef(name, "Const", [], {
+            "dtype": self.pb.attr_type(arr.dtype),
+            "value": self.pb.attr_tensor(arr)})
+
+    def _ph(self, name, shape, dtype=np.float32):
+        return self.pb.NodeDef(name, "Placeholder", [], {
+            "dtype": self.pb.attr_type(dtype),
+            "shape": self.pb.attr_shape(shape)})
+
+    def n(self, name, op, inputs, attrs=None):
+        self.nodes.append(self.pb.NodeDef(name, op, inputs, attrs or {}))
+        return name
+
+    def c(self, name, arr):
+        self.nodes.append(self._const(name, arr))
+        return name
+
+    def w(self, name, shape, scale=0.02):
+        return self.c(name, (self.rng.normal(size=shape) * scale)
+                      .astype(np.float32))
+
+    def ln(self, tag, x):
+        """Frozen LayerNorm decomposition over the last axis."""
+        h, F32, b_ = self.h, self.f32, self.pb.attr_b
+        axes = self.c(f"{tag}/axes", np.array([2], np.int32))
+        g = self.w(f"{tag}/gamma", (h,), 0.0)
+        self.nodes[-1] = self._const(f"{tag}/gamma", np.ones(h, np.float32))
+        be = self.c(f"{tag}/beta", np.zeros(h, np.float32))
+        eps = self.c(f"{tag}/eps", np.float32(1e-12))
+        mu = self.n(f"{tag}/mu", "Mean", [x, axes],
+                    {"keep_dims": b_(True), "T": F32})
+        sqd = self.n(f"{tag}/sqd", "SquaredDifference", [x, mu],
+                     {"T": F32})
+        var = self.n(f"{tag}/var", "Mean", [sqd, axes],
+                     {"keep_dims": b_(True), "T": F32})
+        veps = self.n(f"{tag}/veps", "AddV2", [var, eps], {"T": F32})
+        rstd = self.n(f"{tag}/rstd", "Rsqrt", [veps], {"T": F32})
+        xc = self.n(f"{tag}/xc", "Sub", [x, mu], {"T": F32})
+        xn = self.n(f"{tag}/xn", "Mul", [xc, rstd], {"T": F32})
+        xg = self.n(f"{tag}/xg", "Mul", [xn, g], {"T": F32})
+        return self.n(f"{tag}/y", "AddV2", [xg, be], {"T": F32})
+
+    def gelu(self, tag, x):
+        F32 = self.f32
+        r2 = self.c(f"{tag}/r2", np.float32(1.0 / np.sqrt(2.0)))
+        half = self.c(f"{tag}/half", np.float32(0.5))
+        one = self.c(f"{tag}/one", np.float32(1.0))
+        xs = self.n(f"{tag}/xs", "Mul", [x, r2], {"T": F32})
+        er = self.n(f"{tag}/erf", "Erf", [xs], {"T": F32})
+        e1 = self.n(f"{tag}/e1", "AddV2", [er, one], {"T": F32})
+        xh = self.n(f"{tag}/xh", "Mul", [x, half], {"T": F32})
+        return self.n(f"{tag}/y", "Mul", [xh, e1], {"T": F32})
+
+    def dense(self, tag, x, w_name, b_name):
+        F32 = self.f32
+        mm = self.n(f"{tag}/mm", "BatchMatMulV2", [x, w_name], {"T": F32})
+        return self.n(f"{tag}/ba", "AddV2", [mm, b_name], {"T": F32})
+
+    def layer(self, li, x):
+        h, nh, hd = self.h, self.nh, self.hd
+        b, t = self.b, self.t
+        F32, b_ = self.f32, self.pb.attr_b
+        tag = f"layer{li}"
+        wq = self.w(f"{tag}/wq", (h, h))
+        wk = self.w(f"{tag}/wk", (h, h))
+        wv = self.w(f"{tag}/wv", (h, h))
+        bq = self.c(f"{tag}/bq", np.zeros(h, np.float32))
+        bk = self.c(f"{tag}/bk", np.zeros(h, np.float32))
+        bv = self.c(f"{tag}/bv", np.zeros(h, np.float32))
+        hs = self.c(f"{tag}/hshape", np.array([b, t, nh, hd], np.int32))
+        ms = self.c(f"{tag}/mshape", np.array([b, t, h], np.int32))
+        perm = self.c(f"{tag}/perm", np.array([0, 2, 1, 3], np.int32))
+        scale = self.c(f"{tag}/scale", np.float32(1.0 / np.sqrt(hd)))
+
+        def heads(pt, w, bias):
+            d = self.dense(f"{tag}/{pt}", x, w, bias)
+            r = self.n(f"{tag}/{pt}r", "Reshape", [d, hs], {"T": F32})
+            return self.n(f"{tag}/{pt}t", "Transpose", [r, perm],
+                          {"T": F32})
+
+        q = heads("q", wq, bq)
+        k = heads("k", wk, bk)
+        v = heads("v", wv, bv)
+        s0 = self.n(f"{tag}/s0", "BatchMatMulV2", [q, k],
+                    {"adj_y": b_(True), "T": F32})
+        s = self.n(f"{tag}/s", "Mul", [s0, scale], {"T": F32})
+        p = self.n(f"{tag}/p", "Softmax", [s], {"T": F32})
+        ctx = self.n(f"{tag}/ctx", "BatchMatMulV2", [p, v], {"T": F32})
+        ctxt = self.n(f"{tag}/ctxt", "Transpose", [ctx, perm], {"T": F32})
+        ctxm = self.n(f"{tag}/ctxm", "Reshape", [ctxt, ms], {"T": F32})
+        wo = self.w(f"{tag}/wo", (h, h))
+        bo = self.c(f"{tag}/bo", np.zeros(h, np.float32))
+        att = self.dense(f"{tag}/out", ctxm, wo, bo)
+        res1 = self.n(f"{tag}/res1", "AddV2", [x, att], {"T": F32})
+        x1 = self.ln(f"{tag}/ln1", res1)
+
+        wi = self.w(f"{tag}/wi", (h, self.f))
+        bi = self.c(f"{tag}/bi", np.zeros(self.f, np.float32))
+        wo2 = self.w(f"{tag}/wo2", (self.f, h))
+        bo2 = self.c(f"{tag}/bo2", np.zeros(h, np.float32))
+        up = self.dense(f"{tag}/ffn_in", x1, wi, bi)
+        act = self.gelu(f"{tag}/gelu", up)
+        down = self.dense(f"{tag}/ffn_out", act, wo2, bo2)
+        res2 = self.n(f"{tag}/res2", "AddV2", [x1, down], {"T": F32})
+        return self.ln(f"{tag}/ln2", res2)
+
+    def build(self):
+        b, t, h, v = self.b, self.t, self.h, self.v
+        F32, b_ = self.f32, self.pb.attr_b
+        self.nodes.append(self._ph("input_ids", [b, t], np.int32))
+        self.nodes.append(self._ph("labels", [b, t], np.int32))
+
+        tok = self.w("embeddings/tok", (v, h))
+        pos_full = self.w("embeddings/pos_full", (self.max_len, h))
+        self.c("embeddings/axis0", np.int32(0))
+        emb = self.n("embeddings/lookup", "GatherV2",
+                     [tok, "input_ids", "embeddings/axis0"], {"T": F32})
+        begin = self.c("embeddings/begin", np.array([0, 0], np.int32))
+        size = self.c("embeddings/size", np.array([t, h], np.int32))
+        pos = self.n("embeddings/pos", "Slice",
+                     [pos_full, begin, size], {"T": F32})
+        ep = self.n("embeddings/sum", "AddV2", [emb, pos], {"T": F32})
+        x = self.ln("embeddings/ln", ep)
+
+        for li in range(self.L):
+            x = self.layer(li, x)
+
+        # tied MLM head: logits = x @ tok^T
+        logits = self.n("mlm/logits", "BatchMatMulV2", [x, tok],
+                        {"adj_y": b_(True), "T": F32})
+        # in-graph loss: -mean(sum(onehot(labels) * log_softmax(logits)))
+        lsm = self.n("mlm/lsm", "LogSoftmax", [logits], {"T": F32})
+        self.c("mlm/depth", np.int32(v))
+        self.c("mlm/on", np.float32(1.0))
+        self.c("mlm/off", np.float32(0.0))
+        oh = self.n("mlm/onehot", "OneHot",
+                    ["labels", "mlm/depth", "mlm/on", "mlm/off"],
+                    {"T": F32})
+        prod = self.n("mlm/prod", "Mul", [lsm, oh], {"T": F32})
+        ax2 = self.c("mlm/ax2", np.array([2], np.int32))
+        tok_lp = self.n("mlm/tok_lp", "Sum", [prod, ax2],
+                        {"keep_dims": b_(False), "T": F32})
+        nll = self.n("mlm/nll", "Neg", [tok_lp], {"T": F32})
+        axall = self.c("mlm/axall", np.array([0, 1], np.int32))
+        self.n("loss", "Mean", [nll, axall],
+               {"keep_dims": b_(False), "T": F32})
+        return self.pb.GraphDef(self.nodes)
+
+
+TF_BERT = dict(vocab=30522, hidden=768, layers=12, heads=12, ffn=3072,
+               max_len=512)          # BERT-base, tests/tf_bert_builder.py's
+TF_BERT_CHECK = (2, 16)   # (batch, seq) of the reference's own slow test
+TF_BERT_TIMED = (32, 128)  # a usual fine-tuning shape
+TF_BERT_LR = 1e-3
+TF_BERT_LOSS_TOL = 1e-5   # relative: the loss and each of the 5 fit losses
+TF_BERT_TOL = 1e-4        # of the largest element: logits, gradients
+TF_BERT_PERTURB = 1e-3    # the control: one weight + this must fail
+TF_BERT_REQUESTS = (1, 3, 8, 32, 2, 17, 5, 12, 1, 30)   # rows a request
+
+
+def _tf_bert_feeds(batch, seq, seed):
+    rng = np.random.default_rng(seed)
+    v = TF_BERT["vocab"]
+    return {"input_ids": rng.integers(0, v, (batch, seq)).astype(np.int32),
+            "labels": rng.integers(0, v, (batch, seq)).astype(np.int32)}
+
+
+def _tf_bert_train(sd):
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.modelimport import TFGraphMapper
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    conv = TFGraphMapper.makeTrainable(sd)
+    sd.setLossVariables("loss")
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Adam(TF_BERT_LR), dataSetFeatureMapping=["input_ids"],
+        dataSetLabelMapping=["labels"]))
+    return conv
+
+
+def _tf_bert_check(torch):
+    """BERT-base imported at (2, 16) on the card and on the CPU from the
+    same bytes: output, gradients, 5 Adam fit steps, a control that must
+    fail, and a save/load round trip on the card that continues
+    bit-equal."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.modelimport import TFGraphMapper
+
+    b, t = TF_BERT_CHECK
+    data = BertGraphBuilder(**TF_BERT, batch=b, seq=t,
+                            seed=SEED).build().encode()
+    gpu = TFGraphMapper.importGraph(data)
+    cpu = TFGraphMapper.importGraph(data, device="cpu")
+    del data
+    if gpu.device.type != "cuda" or any(
+            v.device.type != "cuda" for v in gpu._values.values()):
+        fail("the imported graph did not land on the card")
+    feeds = _tf_bert_feeds(b, t, SEED + 7)
+    names = ("mlm/logits", "loss")
+    og, oc = gpu.output(feeds, *names), cpu.output(feeds, *names)
+    logits = oc["mlm/logits"].torch()
+    scale = float(logits.abs().max())
+    logit_err = _abs_err(og["mlm/logits"].torch().cpu(), logits) / scale
+    loss_g, loss_c = (float(o["loss"].toNumpy()) for o in (og, oc))
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    # the control: one weight of the embedding row the first token reads
+    tok = gpu._values["embeddings/tok"]
+    row = int(feeds["input_ids"][0, 0])
+    orig = tok[row, 0].clone()
+    tok[row, 0] += TF_BERT_PERTURB
+    ctl_err = _abs_err(gpu.output(feeds, "mlm/logits")[
+        "mlm/logits"].torch().cpu(), logits) / scale
+    tok[row, 0] = orig
+    print(f"tf bert: BERT-base imported at (B, T) = ({b}, {t}): loss card "
+          f"{loss_g:.7f}, CPU {loss_c:.7f} (|d|/loss {loss_err:.3e}, ln V "
+          f"{math.log(TF_BERT['vocab']):.4f}); logits max|d|/max "
+          f"{logit_err:.3e}; control (embeddings/tok[{row}, 0] + "
+          f"{TF_BERT_PERTURB}) {ctl_err:.3e}", flush=True)
+    if loss_err > TF_BERT_LOSS_TOL:
+        fail(f"imported BERT loss differs by {loss_err:.3e} relative")
+    if logit_err > TF_BERT_TOL:
+        fail(f"imported BERT logits differ by {logit_err:.3e}")
+    if ctl_err <= TF_BERT_TOL:
+        fail(f"the perturbed graph passed the logits check ({ctl_err:.3e})")
+
+    conv = _tf_bert_train(gpu)
+    if conv != _tf_bert_train(cpu) or len(conv) < 8 * TF_BERT["layers"]:
+        fail(f"makeTrainable converted {len(conv)} weights")
+    gg = gpu.calculateGradients(feeds, *conv)
+    gc = cpu.calculateGradients(feeds, *conv)
+    top = max(float(gc[k].torch().abs().max()) for k in conv)
+    grad_err = max(_abs_err(gg[k].torch().cpu(), gc[k].torch())
+                   for k in conv) / top
+    print(f"tf bert: gradients of {len(conv)} weights, card vs CPU max|d| / "
+          f"the largest element {grad_err:.3e}", flush=True)
+    if grad_err > TF_BERT_TOL:
+        fail(f"imported BERT gradients differ by {grad_err:.3e}")
+    del gg, gc
+
+    batch = [(feeds["input_ids"], feeds["labels"])]
+    h_g = [gpu.fit(batch).iterLosses[0] for _ in range(STEPS)]
+    h_c = [cpu.fit(batch).iterLosses[0] for _ in range(STEPS)]
+    worst = max(abs(a - c) / abs(c) for a, c in zip(h_g, h_c))
+    print(f"tf bert: {STEPS} Adam({TF_BERT_LR}) fit steps, losses card "
+          f"{h_g}, CPU {h_c}; max relative |d| {worst:.3e}", flush=True)
+    if worst > TF_BERT_LOSS_TOL:
+        fail(f"imported BERT fit losses differ by {worst:.3e} relative")
+    if not h_g[-1] < h_g[0]:
+        fail(f"the imported BERT's loss did not fall: {h_g}")
+    del cpu
+
+    tmp = tempfile.mkdtemp()
+    try:
+        gpu.save(tmp + "/bert.sdz", saveUpdaterState=True)
+        loaded = SameDiff.load(tmp + "/bert.sdz", loadUpdaterState=True,
+                               device=gpu.device)
+    finally:
+        shutil.rmtree(tmp)
+    same_out = np.array_equal(
+        gpu.output(feeds, "mlm/logits")["mlm/logits"].toNumpy(),
+        loaded.output(feeds, "mlm/logits")["mlm/logits"].toNumpy())
+    step_a = gpu.fit(batch).iterLosses[0]
+    step_b = loaded.fit(batch).iterLosses[0]
+    param_d = max(float((gpu._values[k] - loaded._values[k]).abs().max())
+                  for k in conv)
+    print(f"tf bert: save/load on the card: outputs bit-equal {same_out}; "
+          f"the next step's losses {step_a} / {step_b}, params max|d| "
+          f"{param_d:.3e}", flush=True)
+    if not same_out or step_a != step_b or param_d != 0.0:
+        fail("the loaded imported graph does not continue as the saved one")
+
+
+def _tf_bert_timed(torch):
+    """BERT-base imported at (32, 128) on the card: the import's phases
+    timed, a fit step's time and its device time by kernel, then a burst
+    of requests served through InferenceSession, padded to the imported
+    batch, against sd.output."""
+    from deeplearning4j_tpu_torch.modelimport import TFGraphMapper, protobuf
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+
+    b, t = TF_BERT_TIMED
+    t0 = time.perf_counter()
+    gd = BertGraphBuilder(**TF_BERT, batch=b, seq=t, seed=SEED).build()
+    t1 = time.perf_counter()
+    data = gd.encode()
+    del gd
+    t2 = time.perf_counter()
+    gd = protobuf.GraphDef.parse(data)
+    t3 = time.perf_counter()
+    sd = TFGraphMapper.importGraph(gd)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    n_nodes, n_bytes = len(gd.nodes), len(data)
+    del gd, data
+    print(f"tf bert: import of BERT-base at (B, T) = ({b}, {t}), {n_nodes} "
+          f"nodes, {n_bytes / 1e6:.1f} MB: build {t1 - t0:.2f} s, encode "
+          f"{t2 - t1:.2f} s, parse {t3 - t2:.2f} s, import {t4 - t3:.2f} s "
+          f"({len(sd._ops)} ops)", flush=True)
+
+    _tf_bert_train(sd)
+    feeds = _tf_bert_feeds(b, t, SEED + 8)
+    batch = [(feeds["input_ids"], feeds["labels"])]
+    losses = []
+    step_ms = time_ms(lambda: losses.append(sd.fit(batch).iterLosses[0]), 5)
+    walls = []
+    for _ in range(3):
+        w0 = time.perf_counter()
+        sd.fit(batch)
+        walls.append((time.perf_counter() - w0) * 1e3)
+    by_kernel = _device_by_kernel(torch, lambda: sd.fit(batch), n=2)
+    device_ms = sum(ms for ms, _, _ in by_kernel)
+    wall_ms = statistics.median(walls)
+    idle = max(0.0, 1.0 - device_ms / wall_ms)
+    tokens = b * t
+    flops = 6.0 * tokens * (12 * (4 * 768 * 768 + 2 * 768 * 3072)
+                            + 768 * TF_BERT["vocab"]) + 12 * 4.0 * 3 * \
+        b * 12 * t * t * 64
+    print(f"tf bert: fit step at (B, T) = ({b}, {t}): median {step_ms:.3f} "
+          f"ms on CUDA events ({flops / step_ms / 1e9:.1f} TFLOP/s for "
+          f"~{flops / 1e12:.2f} TFLOP), host wall {wall_ms:.3f} ms; losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    print(f"tf bert: device time of a step {device_ms:.3f} ms in "
+          f"{sum(n for _, n, _ in by_kernel)} launches, idle share "
+          f"{idle:.3f}; by kernel:", flush=True)
+    for ms, n, name in by_kernel[:10]:
+        print(f"  {ms:9.3f} ms  {n:5d}x  {name[:110]}", flush=True)
+    # finite, not falling: at Adam(1e-3) BERT-base's loss on one repeated
+    # batch swings (the (2, 16) check holds it against the CPU's)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"the imported BERT's timed fit losses: {losses}")
+
+    rng = np.random.default_rng(SEED + 9)
+    requests = [rng.integers(0, TF_BERT["vocab"], (n, t)).astype(np.int32)
+                for n in TF_BERT_REQUESTS]
+    answers, warmed, dispatches, _, serve_s = _serve_burst(
+        torch, "tf-bert", sd, (t,), requests, BucketLadder([b]), (),
+        input_name="input_ids", output_name="mlm/logits", dtype=np.int32)
+    worst = 0.0
+    for x, y in zip(requests, answers):
+        padded = np.zeros((b, t), np.int32)
+        padded[:len(x)] = x
+        want = sd.output({"input_ids": padded}, "mlm/logits")[
+            "mlm/logits"].toNumpy()[:len(x)]
+        if y.shape != want.shape or not np.isfinite(y).all():
+            fail(f"served shape {y.shape} (want {want.shape}) or a "
+                 f"non-finite value")
+        worst = max(worst, float(np.abs(y - want).max()
+                                 / np.abs(want).max()))
+    rows = sum(map(len, requests))
+    print(f"tf bert: served {len(requests)} requests ({rows} rows of {t} "
+          f"tokens) in {len(dispatches)} dispatches "
+          f"{sorted(dispatches)}, {serve_s:.3f} s; warmup {warmed}; served "
+          f"vs sd.output max|d|/max {worst:.3e}", flush=True)
+    if worst > TF_BERT_LOSS_TOL:
+        fail(f"served imported-BERT rows vs sd.output {worst:.3e}")
+    return {"import_s": t4 - t3, "step_ms": step_ms, "idle": idle}
+
+
+def tf_bert_phase(torch):
+    """BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072,
+    max_len 512, erf-GELU, tied MLM head, in-graph masked-LM loss) built
+    as a frozen TF GraphDef in memory, encoded to bytes and imported
+    through TFGraphMapper onto the card, at (2, 16) against the CPU and at
+    (32, 128) timed and served. The graph runs on PyTorch's own ops (the
+    attention is BatchMatMulV2 + Softmax in the graph, as the reference's
+    import runs it on XLA's), so no kernel of rows 1-10 is on this path."""
+    _tf_bert_check(torch)
+    torch.cuda.empty_cache()
+    res = _tf_bert_timed(torch)
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the bidirectional LSTM classifier at Keras's IMDB widths
 # ---------------------------------------------------------------------------
 
@@ -3368,6 +3865,8 @@ def main():
     gru_launches["gru_seq_infer"] = gru_slice_phase(torch, gru, gru_net)
     del net, gru_net
     sd_launches = samediff_phase(torch, gru, lstm)
+    samediff_ops_phase(torch)
+    tf_bert_phase(torch)
     bilstm = bilstm_phase(torch, lstm)
     step_rows, step_errs = step_route_phase(torch, lstm, gru, rnn_step)
     step_launches = wide_rnn_phase(torch, lstm, gru, rnn_step)

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.autodiff.ops import (
-    DEVICE_OPS, OPS, PENDING_OPS, RANDOM_OPS, TRAINING_AWARE_OPS)
+    DEVICE_OPS, OPS, RANDOM_OPS, TRAINING_AWARE_OPS)
 from deeplearning4j_tpu_torch.backend import resolve_device
 from deeplearning4j_tpu_torch.ndarray import INDArray
 from deeplearning4j_tpu_torch.ndarray.ndarray import torch_dtype
@@ -457,8 +457,7 @@ class SDVariable:
 # ---------------------------------------------------------------------------
 # op namespaces (reference: SDOps families SDMath/SDNN/SDCNN/SDRNN/SDLoss/
 # SDRandom on the SameDiff object). Their passthrough lists are the
-# reference's whole lists: a name the port's OPS lacks is refused at build
-# time (SameDiff._op).
+# reference's whole lists.
 # ---------------------------------------------------------------------------
 
 class _Namespace:
@@ -814,14 +813,8 @@ class SameDiff:
     def _check_op(fn_name: str):
         """Refuse an op the registry lacks when the graph is built (or
         loaded), never when it runs."""
-        if fn_name in OPS:
-            return
-        if fn_name in PENDING_OPS:
-            raise NotImplementedError(
-                f"op {fn_name!r} is not ported yet: it comes with "
-                f"ROADMAP.md queue 1 item 2b (the reference's registry past "
-                f"autodiff/ops.py:1150)")
-        raise ValueError(f"unknown op {fn_name!r}")
+        if fn_name not in OPS:
+            raise ValueError(f"unknown op {fn_name!r}")
 
     def _op(self, fn_name: str, inputs: list, attrs: dict | None = None,
             name: str | None = None, n_out: int | None = None):

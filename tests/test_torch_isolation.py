@@ -1,6 +1,7 @@
 """The port stands apart from JAX and runs on the GPU unless told not to.
 
-- No module of deeplearning4j_tpu_torch/, and not chip_smoke.py, imports
+- No module of deeplearning4j_tpu_torch/, not chip_smoke.py and not the
+  op cases it reads (tests/samediff_op_cases.py) imports
   ``jax`` or ``deeplearning4j_tpu`` (checked on the source's AST, so a
   lazy import inside a function counts too).
 - With CUDA absent, every entry point given no device raises instead of
@@ -17,14 +18,17 @@ import torch
 
 import deeplearning4j_tpu_torch
 from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+from deeplearning4j_tpu_torch.modelimport import TFGraphMapper, protobuf
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving import InferenceSession
 from deeplearning4j_tpu_torch.utils.serializer import ModelSerializer
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "deeplearning4j_tpu"}
+# chip_smoke.py's op phase reads its cases from tests/samediff_op_cases.py
 SOURCES = sorted(Path(deeplearning4j_tpu_torch.__file__).parent.rglob(
-    "*.py")) + [ROOT / "chip_smoke.py"]
+    "*.py")) + [ROOT / "chip_smoke.py",
+                ROOT / "tests" / "samediff_op_cases.py"]
 
 
 def _imported_roots(path):
@@ -74,6 +78,10 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/evaluation/regression.py",
                  "deeplearning4j_tpu_torch/evaluation/calibration.py",
                  "deeplearning4j_tpu_torch/tree_util.py",
+                 "deeplearning4j_tpu_torch/modelimport/__init__.py",
+                 "deeplearning4j_tpu_torch/modelimport/tensorflow.py",
+                 "deeplearning4j_tpu_torch/modelimport/protobuf.py",
+                 "tests/samediff_op_cases.py",
                  "chip_smoke.py"):
         assert want in names
     bad = tmp_path / "bad.py"
@@ -94,6 +102,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         TextGenerationLSTM(vocabSize=5, hidden=8, seqLength=4).init()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceSession()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TFGraphMapper.importGraph(protobuf.GraphDef([]).encode())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MultiLayerNetwork(conf, device="cuda")
     # the CPU only when named

@@ -14,9 +14,9 @@ in both packages on the same seeded numpy inputs and attributes:
   never agree by seed);
 - ``gather``'s rule for ids outside the range (a negative id wraps once,
   anything still outside gives NaN rows), with no device assert;
-- every name of the reference's registry past line 1150 is refused with
-  ``NotImplementedError`` naming item 2b when a graph is built with it,
-  never when it runs.
+- the port's registry, random, training-aware and device flags are the
+  reference's whole registry's (the names past line 1150 have their
+  cases in ``tests/test_torch_samediff_ops_2b.py``).
 """
 
 import zlib
@@ -28,9 +28,7 @@ import jax.numpy as jnp
 import torch
 
 from deeplearning4j_tpu.autodiff import ops as jax_ops
-from deeplearning4j_tpu.autodiff.samediff import SameDiff as JaxSameDiff
 from deeplearning4j_tpu_torch.autodiff import ops
-from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -454,8 +452,6 @@ def _registrations():
 
 REF_NAMES = list(dict.fromkeys(n for i, n in _registrations()
                                if 61 <= i <= 1150))
-LATER_NAMES = sorted({n for i, n in _registrations() if i > 1150}
-                     - set(REF_NAMES))
 RANDOM = sorted(ops.RANDOM_OPS)
 
 
@@ -494,7 +490,9 @@ def test_cases_cover_every_op_up_to_line_1150():
     assert {n for n, *_ in CASES} == set(REF_NAMES) - set(RANDOM) | \
         {"dropout"}
     assert set(REF_NAMES) <= set(ops.OPS)
-    assert set(ops.OPS) == set(REF_NAMES)
+    # the port's registry is the reference's whole registry
+    assert set(ops.OPS) == set(jax_ops.OPS)
+    assert len(ops.OPS) == 260
 
 
 @pytest.mark.parametrize("name,variant,build,grad", CASES, ids=IDS)
@@ -571,10 +569,13 @@ def _moments(x):
 
 
 def test_random_ops_are_the_reference_s():
-    assert set(RANDOM) == set(RANDOM_ATTRS) | {"dropout"}
-    assert set(RANDOM) == jax_ops.RANDOM_OPS & set(REF_NAMES)
-    assert ops.TRAINING_AWARE_OPS == {"dropout"}
-    assert ops.DEVICE_OPS == {"linspace", "range", "eye_op"}
+    assert set(RANDOM) & set(REF_NAMES) == set(RANDOM_ATTRS) | {"dropout"}
+    assert set(RANDOM) & set(REF_NAMES) == jax_ops.RANDOM_OPS & \
+        set(REF_NAMES)
+    assert ops.RANDOM_OPS == jax_ops.RANDOM_OPS
+    assert ops.TRAINING_AWARE_OPS == jax_ops.TRAINING_AWARE_OPS
+    # the ops with no tensor input are told the graph's device
+    assert ops.DEVICE_OPS == {"linspace", "range", "eye_op", "eye", "fill"}
 
 
 @pytest.mark.parametrize("name", sorted(RANDOM_ATTRS))
@@ -657,38 +658,3 @@ def test_gather_gradient_skips_the_filled_rows():
     t = torch.from_numpy(table).requires_grad_(True)
     torch.nansum(ops.OPS["gather"](t, torch.from_numpy(ids))).backward()
     np.testing.assert_array_equal(t.grad.numpy(), np.asarray(want))
-
-
-# -- the rest of the registry waits for item 2b ----------------------------------
-
-def test_later_names_are_the_reference_s_and_pending():
-    assert len(LATER_NAMES) == 88
-    assert set(LATER_NAMES) == set(jax_ops.OPS) - set(REF_NAMES)
-    assert ops.PENDING_OPS == frozenset(LATER_NAMES)
-    assert not ops.PENDING_OPS & set(ops.OPS)
-
-
-@pytest.mark.parametrize("name", LATER_NAMES)
-def test_later_op_is_refused_when_the_graph_is_built(name):
-    sd = SameDiff(device="cpu")
-    x = sd.placeHolder("x", torch.float32, 3, 3)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        sd._op(name, [x])
-    assert not sd._ops
-    # the reference builds it
-    jsd = JaxSameDiff()
-    jx = jsd.placeHolder("x", jnp.float32, 3, 3)
-    jsd._op(name, [jx])
-
-
-def test_namespaces_refuse_later_ops_at_build_time():
-    sd = SameDiff(device="cpu")
-    x = sd.placeHolder("x", torch.float32, 3, 3)
-    for call in (lambda: sd.math.atan2(x, x), lambda: sd.linalg.cholesky(x),
-                 lambda: sd.image.spaceToDepth(x, blockSize=2),
-                 lambda: sd.loss.ctcLoss(x, x, x, x)):
-        with pytest.raises(NotImplementedError, match="item 2b"):
-            call()
-    assert not sd._ops
-    with pytest.raises(ValueError, match="unknown op"):
-        sd._op("noSuchOp", [x])
