@@ -82,7 +82,21 @@ weights from a numpy seed:
   back to back at every stage, with the share of the bf16 peak); then
   the three probe entry points at full width
   (probe_matmul, probe_fused_block --stage s2 --batch 256 --check,
-  probe_fused_parts), each launching its kernels.
+  probe_fused_parts), each launching its kernels;
+- LeNet-MNIST (BASELINE config 0: 28x28x1, conv 20 5x5, max 2x2, conv 50
+  5x5, max 2x2, dense 500, softmax 10, Adam(1e-3)) from ``LeNet().init()``
+  on the card: one epoch over the 10000 synthesised training digits at
+  batch 64, each step also taken on the CPU from the card's state (its
+  loss and the weights it leaves gated), a CPU net trained on its own,
+  ``evaluate`` on the 2000 test digits (accuracies within 2 digits), a
+  burst served through InferenceSession against ``output``, the TF32
+  switches, fit step times and images/s at batch 64 and 512 with device
+  time by kernel and the idle share; then Darknet19 at 224x224 (3 Adam
+  steps at batch 4, each from the card's state on the CPU: losses and
+  running means and variances gated) and VGG16 at 224x224 (output at
+  batch 2 against the CPU; a fit step at batch 32 timed and profiled).
+  No hand-written kernel is on these paths: cuDNN and cuBLAS carry
+  them.
 
 Each main path sets its kernels' launch counters to 0 just before it runs
 and reads them just after.
@@ -3826,6 +3840,324 @@ def probe_main_phase(torch, pm, bn):
     return launches
 
 
+LENET_BATCH = 64        # dl4j-examples' LenetMnistExample
+LENET_BENCH_BATCH = 512  # bench.py's LeNet batch
+LENET_LR = 1e-3          # the zoo's Adam(1e-3)
+LENET_DIGITS = 2         # card vs CPU test accuracy, in digits of the 2000
+LENET_APART = 1e-3       # share of the weights a step may leave > 1% lr apart
+LENET_BURST = (1, 7, 64, 3, 128, 16, 1, 33)   # rows a served request
+LENET_TIMED = 20         # fit steps a timing
+IMAGENET = (3, 224, 224)
+DARKNET_BATCH, DARKNET_STEPS = 4, 3
+VGG_CHECK_BATCH, VGG_FIT_BATCH = 2, 32
+CNN_TOL = 1e-4   # card vs CPU, of an array's largest element: outputs, BN
+
+
+def _tf32_flags(torch):
+    """The float32 precision switches the port relies on, by name."""
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "cudnn.benchmark": torch.backends.cudnn.benchmark,
+             "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    for name, obj in (("cuda.matmul.fp32_precision",
+                       torch.backends.cuda.matmul),
+                      ("cudnn.conv.fp32_precision",
+                       getattr(torch.backends.cudnn, "conv", None))):
+        if hasattr(obj, "fp32_precision"):
+            flags[name] = obj.fp32_precision
+    return flags
+
+
+def _cpu_twin(net):
+    """The same network on the CPU from the card net's weights as numpy."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils.convert import params_from_numpy
+
+    conf = MultiLayerConfiguration.from_json(net.conf.to_json())
+    arrays = [{k: v.detach().cpu().numpy() for k, v in p.items()}
+              for p in net._params]
+    return MultiLayerNetwork(conf, device="cpu").init(
+        params_from_numpy(conf, arrays, "cpu"))
+
+
+def _forward_macs(conf):
+    """Multiply-adds an example of a configuration's conv and dense layers
+    (a fit step does about 3x the forward's, 2 FLOP a multiply-add)."""
+    macs = 0
+    for lr, it in zip(conf.layers, conf.layer_input_types):
+        kind = type(lr).__name__
+        if kind == "ConvolutionLayer":
+            out = lr.infer(it)
+            kh, kw = lr.kernelSize
+            macs += out.height * out.width * lr.nOut * lr.nIn * kh * kw
+        elif kind in ("DenseLayer", "OutputLayer"):
+            macs += lr.nIn * lr.nOut
+    return macs
+
+
+def _copy_state(torch, src, dst):
+    """``dst``'s params, layer states and updater state set to ``src``'s,
+    in place (the same network on two devices)."""
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    with torch.no_grad():
+        for a, b in zip(*(tree_leaves([n._params, n._states, n._opt_states])
+                          for n in (src, dst))):
+            b.copy_(a)
+
+
+def _fit_steps_ms(torch, net, batches, reps=3):
+    """Median host-clock ms a step of ``net.fit`` over ``batches`` (one
+    list iterator, one sync at the end, as a user's fit loop), of
+    ``reps`` runs after one warm-up run."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+
+    times = []
+    for k in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator(batches))
+        torch.cuda.synchronize()
+        if k:
+            times.append((time.perf_counter() - t0) * 1e3 / len(batches))
+    return statistics.median(times), min(times), max(times)
+
+
+def _profile_fit(torch, label, net, ds, step_ms, card, top=10):
+    """Device time by kernel of one ``fit`` step (``_device_by_kernel`` over
+    two steps), its sum and launches, and the device's idle share of
+    ``step_ms``, the host-clock step."""
+    rows = _device_by_kernel(torch, lambda: net.fit(ds), n=2)
+    total = sum(ms for ms, _, _ in rows)
+    if total <= 0:
+        print(f"{label} profile: no device time in the trace: not measured",
+              flush=True)
+        return None
+    print(f"{label} profile ({card}): device time {total:.4f} ms a step in "
+          f"{sum(n for _, n, _ in rows)} launches; device idle "
+          f"{100 * (1 - total / step_ms):.1f}% of the {step_ms:.4f} ms "
+          f"host-clock step; top kernels (ms a step, calls a step):",
+          flush=True)
+    for ms, n, name in rows[:top]:
+        print(f"  {ms:9.4f}  {n:5d}  {name[:110]}", flush=True)
+    return total
+
+
+def lenet_phase(torch, card):
+    """LeNet-MNIST (BASELINE config 0) at its published widths through the
+    port's entry points: ``LeNet().init()`` on the card, one epoch of
+    ``fit`` over the 10000 synthesised training digits at batch 64 on the
+    card and, from the same numpy weights, on the CPU; each step also on
+    the CPU from the card's state (gated: the step's loss, the weights it
+    leaves); ``evaluate`` on the 2000 test digits (the card's accuracy
+    and the CPU's own within LENET_DIGITS); a burst served through
+    InferenceSession against ``output``; the TF32 flags, step times and
+    images/s at batch 64 and 512, device time by kernel and idle share."""
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.mnist import synthesize_mnist
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.serving import (
+        DEFAULT_BATCH_BUCKETS, BucketLadder)
+
+    flags = _tf32_flags(torch)
+    print(f"lenet: float32 switches {flags}; cuDNN "
+          f"{torch.backends.cudnn.version()}", flush=True)
+    if flags["cuda.matmul.allow_tf32"] or flags["cudnn.allow_tf32"]:
+        fail("TF32 is on: the port computes float32 in float32")
+    gpu = LeNet().init()
+    if gpu.device.type != "cuda":
+        fail(f"LeNet().init() put the network on {gpu.device}, not cuda")
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    cpu = _cpu_twin(gpu)      # trained on its own, for the accuracies
+    shadow = _cpu_twin(gpu)   # set to the card's state before each step
+    train = MnistDataSetIterator(batch_size=LENET_BATCH)
+    print(f"lenet: {train.totalExamples()} training digits "
+          f"({'synthesised' if train.synthetic else 'IDX files'}), batch "
+          f"{LENET_BATCH}, Adam({LENET_LR})", flush=True)
+    # The gate holds each step from the same state: its loss, and the
+    # weights it leaves. Trajectories part after a few steps: max pooling
+    # routes a window's gradient to its argmax, which a near-tie flips
+    # between devices, and Adam's early steps move a weight by about lr
+    # whatever its gradient's size.
+    rows = []
+    secs = {"card": 0.0, "cpu": 0.0}
+    for ds in train:
+        _copy_state(torch, gpu, shadow)
+        t0 = time.perf_counter()
+        gpu.fit(ds)
+        loss = gpu.score()
+        secs["card"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu.fit(ds)
+        secs["cpu"] += time.perf_counter() - t0
+        shadow.fit(ds)
+        d = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in zip(
+            tree_leaves(gpu._params), tree_leaves(shadow._params))])
+        rows.append((loss, abs(loss - shadow.score()) / abs(shadow.score()),
+                     float(d.max()) / LENET_LR,
+                     int((d > PARAM_TOL * LENET_LR).sum()), cpu.score()))
+    steps, n_weights = len(rows), gpu.numParams()
+    worst = max(r[1] for r in rows)
+    reach = max(r[2] for r in rows)
+    apart = max(r[3] for r in rows)
+    print(f"lenet: one epoch, {steps} steps (the last batch padded to "
+          f"{gpu._bucket}): card {secs['card']:.3f} s, CPU "
+          f"{secs['cpu']:.3f} s (a score read each step); loss "
+          f"{rows[0][0]:.5f} -> {rows[-1][0]:.5f} (the CPU on its own: "
+          f"{rows[-1][4]:.5f}); each step from the card's state: losses "
+          f"max rel {worst:.3e}, weights after it apart by up to "
+          f"{reach:.4f} lr, by more than {PARAM_TOL} lr {apart} of "
+          f"{n_weights} at most ({sum(r[3] > 0 for r in rows)} steps with "
+          f"any)", flush=True)
+    if worst > TRAIN_LOSS_TOL:
+        fail(f"lenet: losses differ by {worst:.3e} > {TRAIN_LOSS_TOL}")
+    if reach > 2 * (1 + 1e-3) or apart > LENET_APART * n_weights:
+        fail(f"lenet: a step leaves weights {reach:.4f} lr apart (Adam's "
+             f"reach 2 lr), {apart} beyond {PARAM_TOL} lr (limit "
+             f"{LENET_APART} of the weights)")
+
+    test = MnistDataSetIterator(batch_size=LENET_BATCH, train=False)
+    gpu.evaluate(test)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = gpu.evaluate(test)
+    eval_s = time.perf_counter() - t0
+    ev_cpu = cpu.evaluate(test)
+    n_test = test.totalExamples()
+    right = (round(ev.accuracy() * n_test), round(ev_cpu.accuracy() * n_test))
+    print(f"lenet ({card}): evaluate {n_test} test digits {eval_s:.4f} s; "
+          f"accuracy after one epoch card {ev.accuracy():.4f}, CPU "
+          f"{ev_cpu.accuracy():.4f} ({right[0]} vs {right[1]} right)",
+          flush=True)
+    if abs(right[0] - right[1]) > LENET_DIGITS:
+        fail(f"lenet: card and CPU accuracies differ by "
+             f"{abs(right[0] - right[1])} digits > {LENET_DIGITS}")
+    if not math.isfinite(ev.accuracy()) or ev.accuracy() <= 0.1:
+        fail(f"lenet: accuracy {ev.accuracy()} after one epoch")
+
+    requests = [synthesize_mnist(n, seed=SEED + n)[0] for n in LENET_BURST]
+    answers, warmed, dispatches, _, serve_s = _serve_burst(
+        torch, "lenet", gpu, (784,), requests,
+        BucketLadder(DEFAULT_BATCH_BUCKETS), ())
+    worst = 0.0
+    for x, y in zip(requests, answers):
+        if y.shape != (x.shape[0], 10) or not np.isfinite(y).all():
+            fail(f"lenet: served {y.shape} for a request of {x.shape}")
+        worst = max(worst, float(np.abs(y - gpu.output(x).toNumpy()).max()))
+    print(f"lenet ({card}): served {len(requests)} requests "
+          f"({sum(LENET_BURST)} rows) in {len(dispatches)} dispatches, "
+          f"{serve_s:.4f} s; warmup of {len(warmed)} shapes; served vs "
+          f"output max|d| {worst:.3e}", flush=True)
+    if worst > SERVE_TOL:
+        fail(f"lenet: served rows vs output {worst:.3e} > {SERVE_TOL}")
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    out = {"steps": steps, "accuracy": ev.accuracy(), "eval_s": eval_s}
+    for batch in (LENET_BATCH, LENET_BENCH_BATCH):
+        x, labels = synthesize_mnist(batch, seed=SEED + batch)
+        ds = DataSet(x, np.eye(10, dtype=np.float32)[labels])
+        net = gpu.clone()
+        med, lo, hi = _fit_steps_ms(torch, net, [ds] * LENET_TIMED)
+        tflop = 6 * _forward_macs(gpu.conf) * batch / 1e12
+        print(f"lenet ({card}): fit step at batch {batch}: {med:.4f} ms "
+              f"(min {lo:.4f}, max {hi:.4f}; {LENET_TIMED} steps a fit "
+              f"call, median of 3), {batch / med * 1e3:.1f} images/s; "
+              f"~{tflop:.4f} TFLOP a step, {tflop / med * 1e3:.2f} TFLOP/s",
+              flush=True)
+        _profile_fit(torch, f"lenet b{batch}", net, ds, med, card)
+        out[batch] = med
+    return out
+
+
+def cnn_phase(torch, card):
+    """The zoo's ImageNet CNNs at 224x224 on the layers of this slice:
+    Darknet19 (19 conv, 18 BatchNormalization, leaky ReLU, a LossLayer)
+    takes 3 Adam steps at batch 4 on the card and on the CPU, each from
+    the card's state (each step's loss and running means and variances
+    gated); VGG16's output at batch 2 card against CPU; VGG16's fit step
+    time at batch 32 (Nesterovs, dropout 0.5 in its dense layers) with
+    device time by kernel."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import VGG16, Darknet19
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    rng = np.random.default_rng(SEED + 224)
+
+    def batch(n):
+        x = rng.normal(size=(n,) + IMAGENET).astype(np.float32)
+        return x, np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, n)]
+
+    gpu = Darknet19().init()
+    cpu = _cpu_twin(gpu)
+    n_layers = sum(type(lr).__name__ == "BatchNormalization"
+                   for lr in gpu.layers)
+    worst = worst_bn = 0.0
+    for step in range(DARKNET_STEPS):
+        # each step from the card's weights, updater state and running
+        # statistics: max pooling routes a window's gradient by an argmax
+        # that a near-tie flips between devices, and Adam turns such a
+        # gradient into a +-lr step, so trajectories part after a step
+        _copy_state(torch, gpu, cpu)
+        x, y = batch(DARKNET_BATCH)
+        t0 = time.perf_counter()
+        gpu.fit(x, y)
+        g_loss = gpu.score()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu.fit(x, y)
+        t_cpu = time.perf_counter() - t0
+        rel = abs(g_loss - cpu.score()) / abs(cpu.score())
+        bn = max(_rel_err(sg[k].cpu(), sc[k])
+                 for sg, sc in zip(gpu._states, cpu._states) for k in sc)
+        moved = max(float((pg.cpu() - pc).abs().max())
+                    for pg, pc in zip(*(tree_leaves(n._params)
+                                        for n in (gpu, cpu))))
+        worst, worst_bn = max(worst, rel), max(worst_bn, bn)
+        print(f"darknet19 step {step} (batch {DARKNET_BATCH}, "
+              f"{IMAGENET[1]}x{IMAGENET[2]}, from the same state): loss "
+              f"card {g_loss:.6f}, CPU {cpu.score():.6f} (rel {rel:.3e}); "
+              f"running mean/var of {n_layers} BatchNormalization layers "
+              f"max|d|/max {bn:.3e}; weights after it apart by up to "
+              f"{moved / 1e-3:.3f} lr; card {t_card:.3f} s, CPU {t_cpu:.3f} s",
+              flush=True)
+    if worst > TRAIN_LOSS_TOL:
+        fail(f"darknet19: losses differ by {worst:.3e} > {TRAIN_LOSS_TOL}")
+    if n_layers != 18 or worst_bn > CNN_TOL:
+        fail(f"darknet19: running statistics differ by {worst_bn:.3e} > "
+             f"{CNN_TOL} ({n_layers} BatchNormalization layers)")
+    del gpu, cpu
+
+    gpu = VGG16().init()
+    cpu = _cpu_twin(gpu)
+    x, y = batch(VGG_CHECK_BATCH)
+    want = cpu.output(x).toNumpy()
+    got = gpu.output(x).toNumpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"vgg16: {gpu.numParams()} params; output at batch "
+          f"{VGG_CHECK_BATCH} card vs CPU max|d|/max {err:.3e}; rows sum to "
+          f"{got.sum(axis=1).round(5).tolist()}", flush=True)
+    if not np.isfinite(got).all() or err > CNN_TOL:
+        fail(f"vgg16: output card vs CPU {err:.3e} > {CNN_TOL}")
+    del cpu
+    ds = DataSet(*batch(VGG_FIT_BATCH))
+    med, lo, hi = _fit_steps_ms(torch, gpu, [ds] * 3, reps=2)
+    tflop = 6 * _forward_macs(gpu.conf) * VGG_FIT_BATCH / 1e12
+    print(f"vgg16 ({card}): fit step at batch {VGG_FIT_BATCH} "
+          f"({IMAGENET[1]}x{IMAGENET[2]}, float32): {med:.3f} ms (min "
+          f"{lo:.3f}, max {hi:.3f}), {VGG_FIT_BATCH / med * 1e3:.1f} "
+          f"images/s; ~{tflop:.3f} TFLOP a step, {tflop / med * 1e3:.2f} "
+          f"TFLOP/s of the 67 float32 peak; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    _profile_fit(torch, f"vgg16 b{VGG_FIT_BATCH}", gpu, ds, med, card)
+    del gpu
+    torch.cuda.empty_cache()
+    return {"vgg16_step_ms": med}
+
+
 def main():
     import torch
 
@@ -3841,7 +4173,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -3880,6 +4213,8 @@ def main():
     probe_rows, probe_errs = probe_kernel_phase(torch, probe_matmul,
                                                 bottleneck)
     probe_launches = probe_main_phase(torch, probe_matmul, bottleneck)
+    lenet_phase(torch, card)
+    cnn_phase(torch, card)
 
     pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(via deeplearning4j_tpu/models/bert.py:197)")

@@ -8,8 +8,13 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (  # noqa: F401
     BackpropType, MultiLayerConfiguration, NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf import layers  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
-    Bidirectional, DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
-    GravesLSTM, GRU, LastTimeStep, LSTM, OutputLayer, RnnOutputLayer,
-    SimpleRnn)
+    ActivationLayer, BatchNormalization, Bidirectional, Convolution1DLayer,
+    ConvolutionLayer, ConvolutionMode, Deconvolution2D, DenseLayer,
+    DepthToSpace, DepthwiseConvolution2D, DropoutLayer, EmbeddingLayer,
+    EmbeddingSequenceLayer, GlobalPoolingLayer, GravesLSTM, GRU,
+    LastTimeStep, LocalResponseNormalization, LossLayer, LSTM, OutputLayer,
+    PoolingType, RnnOutputLayer, SeparableConvolution2D, SimpleRnn,
+    SpaceToDepth, Subsampling1DLayer, SubsamplingLayer, Upsampling2D,
+    ZeroPaddingLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401
     GradientNormalization, MultiLayerNetwork)

@@ -3,9 +3,12 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/configuration.py``: global
 defaults cloned into per-layer configs, nIn inference front to back, and
 the same canonical JSON, so a ``configuration.json`` written by either
-package builds the same network in the other. The layers ported so far
-are dense, embedding, recurrent and the recurrent wrappers, which need no
-preprocessors.
+package builds the same network in the other. Shape inference records a
+preprocessor before a layer where the activations change kind, as the
+JAX package's does: a flat [N, C*H*W] input (``convolutionalFlat``) is
+reshaped to [N, C, H, W] before the first conv or pooling layer, and conv
+activations are flattened channel-major to [N, C*H*W] before the first
+layer that does not take them as they are (a dense or output layer).
 """
 
 from __future__ import annotations
@@ -15,11 +18,45 @@ import json
 import numpy as np
 
 from deeplearning4j_tpu_torch.backend import torch_dtype
-from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.inputs import (
+    ConvolutionalFlatType, ConvolutionalType, InputType)
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    LSTM, BaseLayer, DenseLayer, EmbeddingSequenceLayer, SimpleRnn)
+    LSTM, ActivationLayer, BaseLayer, BatchNormalization,
+    Convolution1DLayer, ConvolutionLayer, Deconvolution2D, DenseLayer,
+    DepthToSpace, DropoutLayer, EmbeddingSequenceLayer, GlobalPoolingLayer,
+    LocalResponseNormalization, SimpleRnn, SpaceToDepth, SubsamplingLayer,
+    Upsampling2D, ZeroPaddingLayer)
 from deeplearning4j_tpu_torch.optimize.updaters import (
     IUpdater, Sgd, updater_from_config)
+
+# preprocessor kinds recorded per layer index: (kind, shape or None)
+_PP_FLATTEN = "cnn_to_ff"
+_PP_TO_CNN = "ff_to_cnn"
+
+# layers that take conv activations as they are: no flatten before them
+_TAKES_CONV = (ActivationLayer, BatchNormalization, Deconvolution2D,
+               DepthToSpace, DropoutLayer, GlobalPoolingLayer,
+               LocalResponseNormalization, SpaceToDepth, Upsampling2D,
+               ZeroPaddingLayer)
+
+
+def _apply_preprocessor(pp, x):
+    """``x`` through the preprocessor ``pp`` recorded for a layer (None:
+    unchanged). The flatten is channel-major, [N, C, H, W] -> [N, C*H*W]."""
+    if pp is None:
+        return x
+    kind, shape = pp
+    if kind == _PP_FLATTEN:
+        return x.reshape(x.shape[0], -1)
+    if kind == _PP_TO_CNN:
+        return x.reshape((x.shape[0],) + tuple(shape))
+    raise ValueError(f"unknown preprocessor {kind}")
+
+
+def _wants_conv(layer):
+    """Layers that consume CNN activations directly (GlobalPooling reduces
+    the spatial axes itself; Dropout and Activation keep the shape)."""
+    return isinstance(layer, _TAKES_CONV)
 
 
 class BackpropType:
@@ -41,6 +78,7 @@ class MultiLayerConfiguration:
         # a precision policy (name or JSON) is carried for the round trip;
         # the network refuses to run one until the precision slice lands
         self.precision = precision
+        self.preprocessors: list = [None] * len(layers)
         self.layer_input_types: list = [None] * len(layers)
         self._finalize()
 
@@ -58,13 +96,25 @@ class MultiLayerConfiguration:
             n_in = getattr(first, "nIn", None)
             if n_in is None:
                 return
-            if isinstance(first, (LSTM, SimpleRnn, EmbeddingSequenceLayer)):
+            if isinstance(first, (LSTM, SimpleRnn, Convolution1DLayer,
+                                  EmbeddingSequenceLayer)):
                 it = InputType.recurrent(n_in)
             elif isinstance(first, DenseLayer):
                 it = InputType.feedForward(n_in)
             else:
                 return
         for i, lr in enumerate(self.layers):
+            if isinstance(it, ConvolutionalFlatType) and isinstance(
+                    lr, (ConvolutionLayer, SubsamplingLayer)):
+                self.preprocessors[i] = (
+                    _PP_TO_CNN, (it.channels, it.height, it.width))
+                it = InputType.convolutional(it.height, it.width, it.channels)
+            elif isinstance(it, ConvolutionalType) and not isinstance(
+                    it, ConvolutionalFlatType) and not isinstance(
+                    lr, (ConvolutionLayer, SubsamplingLayer)) \
+                    and not _wants_conv(lr):
+                self.preprocessors[i] = (_PP_FLATTEN, None)
+                it = InputType.feedForward(it.arrayElementsPerExample())
             self.layer_input_types[i] = it
             it = lr.infer(it)
 

@@ -1,10 +1,14 @@
 """Layer configuration classes.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py`` for the layers the
-char-RNNs and the recurrent classifiers train and serve through:
-DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer, LSTM, GravesLSTM, GRU,
-SimpleRnn, the wrappers Bidirectional and LastTimeStep, OutputLayer and
-RnnOutputLayer. As in the JAX package a layer config IS the
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, every layer of
+it: DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer; the convolutional
+layers (ConvolutionLayer, Convolution1DLayer, SeparableConvolution2D,
+DepthwiseConvolution2D, Deconvolution2D, SubsamplingLayer,
+Subsampling1DLayer, BatchNormalization, LocalResponseNormalization,
+ZeroPaddingLayer, Upsampling2D, SpaceToDepth, DepthToSpace,
+GlobalPoolingLayer, DropoutLayer, ActivationLayer); LSTM, GravesLSTM, GRU,
+SimpleRnn, the wrappers Bidirectional and LastTimeStep; OutputLayer,
+RnnOutputLayer and LossLayer. As in the JAX package a layer config IS the
 runtime:
 
     param_shapes()                          -> {name: shape}
@@ -21,8 +25,13 @@ Bidirectional's params are the nested group ``{"fwd": {...}, "bwd":
 only in training and draws its mask from the ``torch.Generator`` passed
 in (the JAX package draws from a threefry key, so masks are not shared).
 
-Conventions (matching DL4J): dense inputs [N, F]; recurrent inputs and
-outputs [N, C, T].
+A layer state, such as BatchNormalization's running statistics, is a
+``{name: Tensor}`` dict that ``apply`` returns anew in training. The
+convolutions and poolings call the registry ops that the JAX package's
+layers call (``autodiff.ops.OPS``, cuDNN on the GPU).
+
+Conventions (matching DL4J): dense inputs [N, F]; conv inputs [N, C, H, W]
+with OIHW weights; recurrent inputs and outputs [N, C, T].
 """
 
 from __future__ import annotations
@@ -30,12 +39,14 @@ from __future__ import annotations
 import copy
 
 import torch
+import torch.nn.functional as F
 
 # the module, not its names: autodiff.ops imports nn.activations, whose
 # package imports this module, so the ops are looked up at call time
 from deeplearning4j_tpu_torch.autodiff import ops
 from deeplearning4j_tpu_torch.nn.activations import resolve_activation
-from deeplearning4j_tpu_torch.nn.conf.inputs import InputType, RecurrentType
+from deeplearning4j_tpu_torch.nn.conf.inputs import (
+    ConvolutionalType, InputType, RecurrentType)
 from deeplearning4j_tpu_torch.nn.losses import resolve_loss
 from deeplearning4j_tpu_torch.nn.weights import init_weight
 from deeplearning4j_tpu_torch.optimize.updaters import updater_from_config
@@ -46,6 +57,17 @@ LAYER_REGISTRY: dict = {}
 def _register(cls):
     LAYER_REGISTRY[cls.__name__] = cls
     return cls
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+def _first(v):
+    """An int, or the first of a list (a 1-D layer's kernelSize etc.)."""
+    return int(v[0]) if isinstance(v, (list, tuple)) else int(v)
 
 
 def take_rows(w, idx):
@@ -318,6 +340,558 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
         if self.hasBias:
             y = y + params["b"]
         return self._act(y.permute(0, 2, 1)), state   # [N, nOut, T]
+
+
+# ---------------------------------------------------------------------------
+# convolutional layers
+# ---------------------------------------------------------------------------
+
+class ConvolutionMode:
+    TRUNCATE = "truncate"
+    SAME = "same"
+
+
+@_register
+class ConvolutionLayer(BaseLayer):
+    """2-D convolution through the registry's ``conv2d`` (cuDNN on the
+    GPU); weights are OIHW, as in DL4J and the JAX package."""
+
+    def __init__(self, nIn=None, nOut=None, kernelSize=(3, 3), stride=(1, 1),
+                 padding=(0, 0), dilation=(1, 1), convolutionMode=None,
+                 hasBias=True, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        self.kernelSize = _pair(kernelSize)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.convolutionMode = convolutionMode or ConvolutionMode.TRUNCATE
+        self.hasBias = hasBias
+
+    def _same(self):
+        return self.convolutionMode == ConvolutionMode.SAME
+
+    def infer(self, input_type):
+        if not isinstance(input_type, ConvolutionalType):
+            raise ValueError(
+                f"ConvolutionLayer needs convolutional input, got {input_type}")
+        self.nIn = self.nIn or input_type.channels
+        kh, kw = self.kernelSize
+        sh, sw = self.stride
+        ph, pw = self.padding
+        dh, dw = self.dilation
+        ekh, ekw = (kh - 1) * dh + 1, (kw - 1) * dw + 1
+        if self._same():
+            oh = -(-input_type.height // sh)
+            ow = -(-input_type.width // sw)
+        else:
+            oh = (input_type.height + 2 * ph - ekh) // sh + 1
+            ow = (input_type.width + 2 * pw - ekw) // sw + 1
+        return InputType.convolutional(oh, ow, self.nOut)
+
+    def _bias(self, shapes, dtype, device, p):
+        if self.hasBias:
+            p["b"] = torch.full(shapes["b"], float(self.biasInit),
+                                dtype=dtype, device=device)
+        return p
+
+    def param_shapes(self):
+        kh, kw = self.kernelSize
+        shapes = {"W": (self.nOut, self.nIn, kh, kw)}
+        if self.hasBias:
+            shapes["b"] = (self.nOut,)
+        return shapes
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        shapes = self.param_shapes()
+        kh, kw = self.kernelSize
+        return self._bias(shapes, dtype, device, {
+            "W": init_weight(self.weightInit, generator, shapes["W"],
+                             self.nIn * kh * kw, self.nOut * kh * kw,
+                             dtype, device)})
+
+    def apply(self, params, state, x, training=False, generator=None):
+        x = self._dropout(x, training, generator)
+        y = ops.OPS["conv2d"](x, params["W"], params.get("b"),
+                              strides=self.stride, padding=self.padding,
+                              dilation=self.dilation, sameMode=self._same())
+        return self._act(y), state
+
+
+@_register
+class Convolution1DLayer(BaseLayer):
+    """Input [N, C, T], through the registry's ``conv1d``; the bias starts
+    at zero whatever ``biasInit`` says, as in the JAX package."""
+
+    def __init__(self, nIn=None, nOut=None, kernelSize=3, stride=1, padding=0,
+                 convolutionMode=None, hasBias=True, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        self.kernelSize = _first(kernelSize)
+        self.stride = _first(stride)
+        self.padding = _first(padding)
+        self.convolutionMode = convolutionMode or ConvolutionMode.TRUNCATE
+        self.hasBias = hasBias
+
+    def infer(self, input_type):
+        self.nIn = self.nIn or input_type.size
+        t = getattr(input_type, "timeSeriesLength", None)
+        if t is not None:
+            if self.convolutionMode == ConvolutionMode.SAME:
+                t = -(-t // self.stride)
+            else:
+                t = (t + 2 * self.padding - self.kernelSize) // self.stride + 1
+        return InputType.recurrent(self.nOut, t)
+
+    def param_shapes(self):
+        shapes = {"W": (self.nOut, self.nIn, self.kernelSize)}
+        if self.hasBias:
+            shapes["b"] = (self.nOut,)
+        return shapes
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        shapes = self.param_shapes()
+        p = {"W": init_weight(self.weightInit, generator, shapes["W"],
+                              self.nIn * self.kernelSize,
+                              self.nOut * self.kernelSize, dtype, device)}
+        if self.hasBias:
+            p["b"] = torch.zeros(shapes["b"], dtype=dtype, device=device)
+        return p
+
+    def apply(self, params, state, x, training=False, generator=None):
+        y = ops.OPS["conv1d"](
+            x, params["W"], params.get("b"), stride=self.stride,
+            padding=self.padding,
+            sameMode=self.convolutionMode == ConvolutionMode.SAME)
+        return self._act(y), state
+
+
+@_register
+class SeparableConvolution2D(ConvolutionLayer):
+    """Depthwise (``dW`` [depthMultiplier, nIn, kH, kW]) then pointwise
+    (``pW`` [nOut, nIn * depthMultiplier, 1, 1]), through the registry's
+    ``depthwiseConv2d`` and ``conv2d``."""
+
+    def __init__(self, depthMultiplier=1, **kw):
+        super().__init__(**kw)
+        self.depthMultiplier = depthMultiplier
+
+    def param_shapes(self):
+        kh, kw = self.kernelSize
+        dm = self.depthMultiplier
+        shapes = {"dW": (dm, self.nIn, kh, kw),
+                  "pW": (self.nOut, self.nIn * dm, 1, 1)}
+        if self.hasBias:
+            shapes["b"] = (self.nOut,)
+        return shapes
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        shapes = self.param_shapes()
+        kh, kw = self.kernelSize
+        dm = self.depthMultiplier
+        return self._bias(shapes, dtype, device, {
+            "dW": init_weight(self.weightInit, generator, shapes["dW"],
+                              self.nIn * kh * kw, dm * kh * kw, dtype,
+                              device),
+            "pW": init_weight(self.weightInit, generator, shapes["pW"],
+                              self.nIn * dm, self.nOut, dtype, device)})
+
+    def apply(self, params, state, x, training=False, generator=None):
+        x = self._dropout(x, training, generator)
+        y = ops.OPS["depthwiseConv2d"](x, params["dW"], None,
+                                       strides=self.stride,
+                                       padding=self.padding,
+                                       dilation=self.dilation,
+                                       sameMode=self._same())
+        y = ops.OPS["conv2d"](y, params["pW"], params.get("b"))
+        return self._act(y), state
+
+
+@_register
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """Each input channel convolved with ``depthMultiplier`` filters of its
+    own (``W`` [depthMultiplier, nIn, kH, kW]); nOut = nIn *
+    depthMultiplier, output channel c * depthMultiplier + m."""
+
+    def __init__(self, depthMultiplier=1, **kw):
+        super().__init__(**kw)
+        self.depthMultiplier = int(depthMultiplier)
+
+    def infer(self, input_type):
+        if not isinstance(input_type, ConvolutionalType):
+            raise ValueError(
+                f"DepthwiseConvolution2D needs convolutional input, got "
+                f"{input_type}")
+        self.nIn = self.nIn or input_type.channels
+        self.nOut = self.nIn * self.depthMultiplier
+        return super().infer(input_type)
+
+    def param_shapes(self):
+        kh, kw = self.kernelSize
+        shapes = {"W": (self.depthMultiplier, self.nIn, kh, kw)}
+        if self.hasBias:
+            shapes["b"] = (self.nOut,)
+        return shapes
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        shapes = self.param_shapes()
+        kh, kw = self.kernelSize
+        return self._bias(shapes, dtype, device, {
+            "W": init_weight(self.weightInit, generator, shapes["W"],
+                             self.nIn * kh * kw,
+                             self.depthMultiplier * kh * kw, dtype, device)})
+
+    def apply(self, params, state, x, training=False, generator=None):
+        x = self._dropout(x, training, generator)
+        y = ops.OPS["depthwiseConv2d"](x, params["W"], params.get("b"),
+                                       strides=self.stride,
+                                       padding=self.padding,
+                                       dilation=self.dilation,
+                                       sameMode=self._same())
+        return self._act(y), state
+
+
+@_register
+class Deconvolution2D(ConvolutionLayer):
+    """Transposed convolution through the registry's ``deconv2d``; ``W``
+    [nOut, nIn, kH, kW]. No dropout and no dilation, as in the JAX
+    package."""
+
+    def infer(self, input_type):
+        self.nIn = self.nIn or input_type.channels
+        kh, kw = self.kernelSize
+        sh, sw = self.stride
+        ph, pw = self.padding
+        if self._same():
+            oh, ow = input_type.height * sh, input_type.width * sw
+        else:
+            oh = sh * (input_type.height - 1) + kh - 2 * ph
+            ow = sw * (input_type.width - 1) + kw - 2 * pw
+        return InputType.convolutional(oh, ow, self.nOut)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        y = ops.OPS["deconv2d"](x, params["W"], params.get("b"),
+                                strides=self.stride, padding=self.padding,
+                                sameMode=self._same())
+        return self._act(y), state
+
+
+class PoolingType:
+    MAX = "max"
+    AVG = "avg"
+    SUM = "sum"
+    PNORM = "pnorm"
+
+
+@_register
+class SubsamplingLayer(BaseLayer):
+    """Max or average pooling through the registry's ``maxPooling2d`` and
+    ``avgPooling2d``. As in the JAX package, every pooling type but MAX
+    averages: SUM and PNORM give the average."""
+
+    def __init__(self, poolingType=PoolingType.MAX, kernelSize=(2, 2),
+                 stride=(2, 2), padding=(0, 0), convolutionMode=None, **kw):
+        super().__init__(**kw)
+        self.poolingType = poolingType
+        self.kernelSize = _pair(kernelSize)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.convolutionMode = convolutionMode or ConvolutionMode.TRUNCATE
+
+    def infer(self, input_type):
+        kh, kw = self.kernelSize
+        sh, sw = self.stride
+        ph, pw = self.padding
+        if self.convolutionMode == ConvolutionMode.SAME:
+            oh = -(-input_type.height // sh)
+            ow = -(-input_type.width // sw)
+        else:
+            oh = (input_type.height + 2 * ph - kh) // sh + 1
+            ow = (input_type.width + 2 * pw - kw) // sw + 1
+        return InputType.convolutional(oh, ow, input_type.channels)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        name = ("maxPooling2d" if self.poolingType == PoolingType.MAX
+                else "avgPooling2d")
+        y = ops.OPS[name](x, kernel=self.kernelSize, strides=self.stride,
+                          padding=self.padding,
+                          sameMode=self.convolutionMode == ConvolutionMode.SAME)
+        return y, state
+
+
+@_register
+class Subsampling1DLayer(BaseLayer):
+    """Max or average pooling over the time axis of [N, C, T]; padding
+    takes no part (-inf for the max, left out of the average's count).
+    Every pooling type but MAX averages."""
+
+    def __init__(self, poolingType=PoolingType.MAX, kernelSize=2, stride=2,
+                 padding=0, **kw):
+        super().__init__(**kw)
+        self.poolingType = poolingType
+        self.kernelSize = int(kernelSize)
+        self.stride = int(stride)
+        self.padding = int(padding)
+
+    def infer(self, input_type):
+        t = getattr(input_type, "timeSeriesLength", None)
+        if t is not None:
+            t = (t + 2 * self.padding - self.kernelSize) // self.stride + 1
+        return InputType.recurrent(input_type.size, t)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        pad = (self.padding, self.padding)
+
+        def windows(v, fill):
+            return F.pad(v, pad, value=fill).unfold(2, self.kernelSize,
+                                                    self.stride)
+
+        if self.poolingType == PoolingType.MAX:
+            return windows(x, -float("inf")).amax(dim=-1), state
+        count = windows(torch.ones_like(x), 0.0).sum(dim=-1)
+        return windows(x, 0.0).sum(dim=-1) / count, state
+
+
+@_register
+class BatchNormalization(BaseLayer):
+    """Batch statistics in training, running statistics in inference,
+    per channel for conv [N, C, H, W] and recurrent [N, C, T] input and per
+    feature for dense [N, F]. The running mean and variance are the
+    layer's state ({"mean", "var"}), updated by each training forward as
+    decay * running + (1 - decay) * batch; a ragged batch that ``fit``
+    padded to its bucket enters the statistics with its padding rows, as
+    in the JAX package."""
+
+    def __init__(self, nIn=None, nOut=None, decay=0.9, eps=1e-5, gamma=1.0,
+                 beta=0.0, lockGammaBeta=False, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        self.decay = decay
+        self.eps = eps
+        self.gamma = gamma
+        self.beta = beta
+        self.lockGammaBeta = lockGammaBeta
+
+    def infer(self, input_type):
+        if isinstance(input_type, (ConvolutionalType, RecurrentType)):
+            self.nIn = self.nIn or getattr(input_type, "channels",
+                                           getattr(input_type, "size", None))
+        else:
+            self.nIn = self.nIn or input_type.arrayElementsPerExample()
+        self.nOut = self.nIn
+        return input_type
+
+    def param_shapes(self):
+        if self.lockGammaBeta:
+            return {}
+        return {"gamma": (self.nIn,), "beta": (self.nIn,)}
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        return {k: torch.full(shape, float(getattr(self, k)), dtype=dtype,
+                              device=device)
+                for k, shape in self.param_shapes().items()}
+
+    def init_state(self, dtype=torch.float32, device="cpu"):
+        return {"mean": torch.zeros((self.nIn,), dtype=dtype, device=device),
+                "var": torch.ones((self.nIn,), dtype=dtype, device=device)}
+
+    def apply(self, params, state, x, training=False, generator=None):
+        axes = [i for i in range(x.dim()) if i != 1] if x.dim() > 2 else [0]
+        shape = [1] * x.dim()
+        shape[1 if x.dim() > 2 else -1] = -1
+        if training:
+            # two-pass centred variance in float32; bf16/f16 activations
+            # take one pass, E[x^2] - mean^2 in float32, as in the JAX
+            # package
+            low_prec = x.dtype in (torch.bfloat16, torch.float16)
+            xf = x.float() if low_prec else x
+            mean = xf.mean(dim=axes)
+            if low_prec:
+                var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
+                                  min=0.0)
+            else:
+                var = torch.square(xf - mean.reshape(shape)).mean(dim=axes)
+            sdt = state["mean"].dtype
+            new_state = {
+                "mean": self.decay * state["mean"]
+                + (1 - self.decay) * mean.to(sdt),
+                "var": self.decay * state["var"]
+                + (1 - self.decay) * var.to(sdt),
+            }
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        xn = (x - mean.reshape(shape).to(x.dtype)) * torch.rsqrt(
+            var.reshape(shape) + self.eps).to(x.dtype)
+        if not self.lockGammaBeta:
+            xn = xn * params["gamma"].reshape(shape) \
+                + params["beta"].reshape(shape)
+        return self._act(xn), new_state
+
+
+@_register
+class LocalResponseNormalization(BaseLayer):
+    """x / (k + alpha * s) ** beta, s the sum of x^2 over a window of n
+    channels centred on each (zero beyond the edges)."""
+
+    def __init__(self, k=2.0, n=5, alpha=1e-4, beta=0.75, **kw):
+        super().__init__(**kw)
+        self.k = k
+        self.n = int(n)
+        self.alpha = alpha
+        self.beta = beta
+
+    def apply(self, params, state, x, training=False, generator=None):
+        half = self.n // 2
+        sq = F.pad(x * x, (0, 0, 0, 0, half, half))
+        s = sq.unfold(1, self.n, 1).sum(dim=-1)
+        return x / (self.k + self.alpha * s) ** self.beta, state
+
+
+@_register
+class ZeroPaddingLayer(BaseLayer):
+    """Zero rows and columns around [N, C, H, W]: ``padding`` is (top,
+    bottom, left, right), or one int for all four, or (rows, columns)."""
+
+    def __init__(self, padding=(1, 1), **kw):
+        super().__init__(**kw)
+        p = padding
+        if isinstance(p, int):
+            p = (p, p, p, p)
+        elif len(p) == 2:
+            p = (p[0], p[0], p[1], p[1])
+        self.padding = tuple(int(v) for v in p)
+
+    def infer(self, input_type):
+        t, b, l, r = self.padding
+        return InputType.convolutional(input_type.height + t + b,
+                                       input_type.width + l + r,
+                                       input_type.channels)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        t, b, l, r = self.padding
+        return F.pad(x, (l, r, t, b)), state
+
+
+@_register
+class Upsampling2D(BaseLayer):
+    """Nearest-neighbour upsampling through the registry's
+    ``upsampling2d``."""
+
+    def __init__(self, size=(2, 2), **kw):
+        super().__init__(**kw)
+        self.size = _pair(size)
+
+    def infer(self, input_type):
+        return InputType.convolutional(input_type.height * self.size[0],
+                                       input_type.width * self.size[1],
+                                       input_type.channels)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        return ops.OPS["upsampling2d"](x, size=self.size), state
+
+
+@_register
+class SpaceToDepth(BaseLayer):
+    """[N, C, H, W] -> [N, C*b*b, H/b, W/b], output channel
+    (i * b + j) * C + c for the block offset (i, j) (the YOLO2 reorg)."""
+
+    def __init__(self, blockSize=2, **kw):
+        super().__init__(**kw)
+        self.blockSize = int(blockSize)
+
+    def infer(self, input_type):
+        bsz = self.blockSize
+        if input_type.height % bsz or input_type.width % bsz:
+            raise ValueError(
+                f"SpaceToDepth(blockSize={bsz}) needs spatial dims "
+                f"divisible by the block, got "
+                f"{input_type.height}x{input_type.width}")
+        return InputType.convolutional(input_type.height // bsz,
+                                       input_type.width // bsz,
+                                       input_type.channels * bsz * bsz)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        n, c, h, w = x.shape
+        bsz = self.blockSize
+        x = x.reshape(n, c, h // bsz, bsz, w // bsz, bsz)
+        x = x.permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(n, c * bsz * bsz, h // bsz, w // bsz), state
+
+
+@_register
+class DepthToSpace(BaseLayer):
+    """[N, C*b*b, H, W] -> [N, C, H*b, W*b], the inverse of
+    SpaceToDepth."""
+
+    def __init__(self, blockSize=2, **kw):
+        super().__init__(**kw)
+        self.blockSize = int(blockSize)
+
+    def infer(self, input_type):
+        bsz = self.blockSize
+        if input_type.channels % (bsz * bsz):
+            raise ValueError(
+                f"DepthToSpace(blockSize={bsz}) needs channels divisible "
+                f"by block^2, got {input_type.channels}")
+        return InputType.convolutional(input_type.height * bsz,
+                                       input_type.width * bsz,
+                                       input_type.channels // (bsz * bsz))
+
+    def apply(self, params, state, x, training=False, generator=None):
+        n, c, h, w = x.shape
+        bsz = self.blockSize
+        cout = c // (bsz * bsz)
+        x = x.reshape(n, bsz, bsz, cout, h, w)
+        x = x.permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(n, cout, h * bsz, w * bsz), state
+
+
+@_register
+class GlobalPoolingLayer(BaseLayer):
+    """[N, C, H, W] or [N, C, T] -> [N, C]: MAX, SUM, or (AVG, and PNORM
+    as in the JAX package) the mean."""
+
+    def __init__(self, poolingType=PoolingType.AVG, **kw):
+        super().__init__(**kw)
+        self.poolingType = poolingType
+
+    def infer(self, input_type):
+        if isinstance(input_type, ConvolutionalType):
+            return InputType.feedForward(input_type.channels)
+        if isinstance(input_type, RecurrentType):
+            return InputType.feedForward(input_type.size)
+        return input_type
+
+    def apply(self, params, state, x, training=False, generator=None):
+        axes = tuple(range(2, x.dim()))
+        if self.poolingType == PoolingType.MAX:
+            return x.amax(dim=axes), state
+        if self.poolingType == PoolingType.SUM:
+            return x.sum(dim=axes), state
+        return x.mean(dim=axes), state
+
+
+@_register
+class DropoutLayer(BaseLayer):
+    """Inverted dropout in training; ``dropOut`` is the retain
+    probability."""
+
+    def __init__(self, dropOut=0.5, **kw):
+        kw["dropOut"] = dropOut
+        super().__init__(**kw)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        return self._dropout(x, training, generator), state
+
+
+@_register
+class ActivationLayer(BaseLayer):
+    def apply(self, params, state, x, training=False, generator=None):
+        return self._act(x), state
 
 
 # ---------------------------------------------------------------------------
@@ -623,4 +1197,26 @@ class RnnOutputLayer(BaseOutputLayer):
         return self._act(self._linear(params, x)), state
 
 
-OUTPUT_LAYER_TYPES = (BaseOutputLayer,)
+@_register
+class LossLayer(BaseLayer):
+    """An output layer with no params: its input is already the
+    pre-activation."""
+
+    def __init__(self, lossFunction="mcxent", **kw):
+        super().__init__(**kw)
+        self.lossFunction = lossFunction
+        if self.activation is None:
+            self.activation = "softmax"
+
+    def pre_output(self, params, x):
+        return x
+
+    def compute_loss(self, params, x, labels, mask=None):
+        return resolve_loss(self.lossFunction)(
+            labels, x, self.activation, mask)
+
+    def apply(self, params, state, x, training=False, generator=None):
+        return self._act(x), state
+
+
+OUTPUT_LAYER_TYPES = (BaseOutputLayer, LossLayer)

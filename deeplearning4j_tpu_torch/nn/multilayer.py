@@ -27,6 +27,12 @@ raise on such groups; the port computes them.
 ``evaluation`` package, padding a ragged last batch up to the largest
 batch seen with ``serving.buckets.pad_rows`` and slicing it off again.
 
+Each layer's input goes through the preprocessor the configuration
+recorded for it (``_apply_preprocessor``: the reshape of a flat image
+before the first conv, the channel-major flatten before the first dense
+layer) in ``_forward``, ``_loss_from`` and ``feedForward``, so
+``output``, ``fit``, ``score``, ``evaluate`` and ``gradients`` all see it.
+
 A training step is eager PyTorch: the forward with the fused loss,
 ``torch.autograd.grad`` (through the LSTM kernels' autograd Function on the
 GPU), per-layer gradient normalization, the updater, and ``p -= u`` in
@@ -49,7 +55,7 @@ from deeplearning4j_tpu_torch.evaluation import (
     Evaluation, RegressionEvaluation)
 from deeplearning4j_tpu_torch.ndarray import INDArray
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
-    BackpropType, MultiLayerConfiguration)
+    BackpropType, MultiLayerConfiguration, _apply_preprocessor)
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     OUTPUT_LAYER_TYPES, Bidirectional)
 from deeplearning4j_tpu_torch.serving.buckets import pad_rows
@@ -174,6 +180,7 @@ class MultiLayerNetwork:
         new_states = []
         n = len(self.layers) if upto is None else upto
         for i in range(n):
+            x = _apply_preprocessor(self.conf.preprocessors[i], x)
             x, st = self.layers[i].apply(params[i], states[i], x, training,
                                          generator)
             new_states.append(st)
@@ -208,6 +215,7 @@ class MultiLayerNetwork:
         acts = [INDArray(x)]
         with torch.inference_mode():
             for i, lr in enumerate(self.layers):
+                x = _apply_preprocessor(self.conf.preprocessors[i], x)
                 x, _ = lr.apply(self._params[i], self._states[i], x, train)
                 acts.append(INDArray(x))
         return acts
@@ -297,6 +305,7 @@ class MultiLayerNetwork:
         out_idx = len(self.layers) - 1
         h, new_states = self._forward(params, states, f, training, generator,
                                       upto=out_idx)
+        h = _apply_preprocessor(self.conf.preprocessors[out_idx], h)
         loss = self.layers[out_idx].compute_loss(params[out_idx], h, l, mask)
         reg = 0.0
         for lr, p in zip(self.layers, params):
@@ -357,8 +366,11 @@ class MultiLayerNetwork:
     def fit(self, data, epochs: int | None = None):
         """fit(iterator) / fit(iterator, nEpochs) / fit(features, labels) /
         fit(DataSet). Every batch trains with an explicit label mask; a
-        ragged final batch is padded to the largest batch seen, with mask
-        0 on the padding rows."""
+        ragged final batch is padded to the largest batch seen (its last
+        row repeated), with mask 0 on the padding rows. Each step's layer
+        states (BatchNormalization's running statistics) are kept, the
+        recurrent layers' carried state dropped; the padding rows enter
+        the batch statistics, as in the JAX package."""
         self._check_init()
         if epochs is not None and not isinstance(epochs, int):
             data, epochs = (data, epochs), 1   # fit(features, labels)
@@ -383,8 +395,9 @@ class MultiLayerNetwork:
                 if tbptt:
                     last_loss = self._fit_tbptt(f, l, lmask)
                 else:
-                    last_loss, _ = self._step(
+                    last_loss, states = self._step(
                         self._states, *self._device_batch(f, l, lmask))
+                    self._states = self._strip_rnn_states(states)
             self._epoch += 1
         if last_loss is not None:
             self._score = float(last_loss)

@@ -7,7 +7,10 @@ returns the port's per-layer ``{name: Tensor}`` dicts, checked against the
 configuration's shapes. A layer whose params nest groups (Bidirectional's
 ``{"fwd": {...}, "bwd": {...}}``) takes nested dicts alike. Both packages
 then compute the same function.
-``opt_states_from_numpy`` does the same for the updater state (the JAX
+``states_from_numpy`` does the same for the layer states (per layer a
+dict of the layer's state, e.g. BatchNormalization's running ``mean`` and
+``var``, ``{}`` for a layer without), and ``states_to_numpy`` is its
+inverse. ``opt_states_from_numpy`` does the same for the updater state (the JAX
 package's ``net._opt_states`` as numpy: per layer ``()`` or nested dicts
 such as Adam's ``{"m": {...}, "v": {...}}``), and ``opt_states_to_numpy``
 is its inverse, so both packages can start from the same state.
@@ -57,6 +60,20 @@ def _group_from_numpy(want, arrs, dtype, device, where):
     return p
 
 
+def states_from_numpy(conf, arrays, device):
+    """``arrays``: one dict per layer of ``conf``, each holding exactly the
+    layer's state by name (the JAX package's ``net._states`` as numpy).
+    Returns tensors of ``conf``'s dtype on ``device`` (copies)."""
+    if len(arrays) != len(conf.layers):
+        raise ValueError(f"{len(arrays)} layer states for "
+                         f"{len(conf.layers)} layers")
+    return [_group_from_numpy(
+        tree_map(lambda t: tuple(t.shape), lr.init_state(conf.dtype,
+                                                         "meta")),
+        arrs, conf.dtype, device, f"layer {i} ({type(lr).__name__}) state")
+        for i, (lr, arrs) in enumerate(zip(conf.layers, arrays))]
+
+
 def opt_states_from_numpy(conf, arrays, device):
     """``arrays``: one updater state per layer of ``conf`` with numpy
     leaves. Returns the same structure with tensors of ``conf``'s dtype on
@@ -70,10 +87,13 @@ def opt_states_from_numpy(conf, arrays, device):
 
 
 def opt_states_to_numpy(states):
-    """The port's per-layer updater states with numpy leaves (host
-    copies)."""
+    """The port's per-layer updater states, or layer states
+    (``states_to_numpy``), with numpy leaves (host copies)."""
     return [tree_map(lambda t: t.detach().cpu().numpy(), st)
             for st in states]
+
+
+states_to_numpy = opt_states_to_numpy
 
 
 _BERT_TOP = {"tok_emb", "pos_emb", "type_emb", "emb_ln", "layers",

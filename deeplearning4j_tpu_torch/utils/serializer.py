@@ -3,7 +3,8 @@
 Counterpart of the single-file half of
 ``deeplearning4j_tpu/utils/serializer.py``. The zip holds ``modelType``, ``configuration.json`` and ``params.npz``,
 whose keys are ``p<SEP>layer<SEP>name`` (parameters) and
-``s<SEP>layer<SEP>name`` (layer state) with SEP the unit separator, and
+``s<SEP>layer<SEP>name`` (layer state, such as BatchNormalization's
+running ``mean`` and ``var``) with SEP the unit separator, and
 ``p<SEP>layer<SEP>group<SEP>name`` for a nested group's leaves
 (Bidirectional's ``fwd`` and ``bwd``); with
 the updater, ``updaterState.npz`` (the updater state's leaves keyed
@@ -30,7 +31,8 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.tree_util import (
     tree_fill, tree_items, tree_leaves)
-from deeplearning4j_tpu_torch.utils.convert import params_from_numpy
+from deeplearning4j_tpu_torch.utils.convert import (
+    params_from_numpy, states_from_numpy)
 
 _SEP = "\x1f"  # unit separator: cannot appear in layer names
 
@@ -96,23 +98,24 @@ class ModelSerializer:
             conf = MultiLayerConfiguration.from_json(
                 zf.read("configuration.json").decode())
             npz = np.load(io.BytesIO(zf.read("params.npz")))
-            arrays = [{} for _ in conf.layers]
+            arrays = {"p": [{} for _ in conf.layers],
+                      "s": [{} for _ in conf.layers]}
             for key in npz.files:
                 parts = key.split(_SEP)
                 if len(parts) not in (3, 4):
                     raise ValueError(f"params.npz key {key!r} has "
                                      f"{len(parts)} parts, not 3 or 4")
                 kind, idx, *path = parts
-                if kind == "p":
-                    group = arrays[int(idx)]
-                    for name in path[:-1]:   # a nested group
-                        group = group.setdefault(name, {})
-                    group[path[-1]] = npz[key]
-                elif kind == "s":
-                    # the layers ported so far keep no state between fits
-                    raise ValueError(f"unexpected layer state {key!r}")
+                if kind not in arrays:
+                    raise ValueError(f"params.npz key {key!r} is neither "
+                                     f"a parameter nor a layer state")
+                group = arrays[kind][int(idx)]
+                for name in path[:-1]:   # a nested group
+                    group = group.setdefault(name, {})
+                group[path[-1]] = npz[key]
             net = MultiLayerNetwork(conf, device=device)
-            net.init(params_from_numpy(conf, arrays, device))
+            net.init(params_from_numpy(conf, arrays["p"], device))
+            net._states = states_from_numpy(conf, arrays["s"], device)
             if loadUpdater and "updaterState.npz" in names:
                 data = np.load(io.BytesIO(zf.read("updaterState.npz")))
                 n_leaves = len(tree_leaves(net._opt_states))

@@ -23,6 +23,10 @@ with non-zero affines and biases so that every epilogue counts.
 Tolerance, per output: max |d| <= 1e-2 of its largest element (about one
 bf16 ulp) and at most 1e-3 of its elements differing: the two sides sum in
 float32 in other orders, which flips a bf16 rounding now and then.
+
+The ``cuda`` cases hold the kernels against their plain versions on the
+card; they build their parameters from numpy (``_numpy_params``), since
+the card's machine has no JAX.
 """
 
 import ast
@@ -42,6 +46,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from deeplearning4j_tpu_torch.kernels import bottleneck, probe_matmul
+from deeplearning4j_tpu_torch.tools import probe_fused_block as port_block
 from deeplearning4j_tpu_torch.tools.probe_matmul import SHAPES as MATMULS
 from deeplearning4j_tpu_torch.utils.convert import (
     bottleneck_params_from_numpy)
@@ -200,6 +205,17 @@ def _jax_params(c, f, seed):
     """The reference's make_params with non-zero affines (numpy)."""
     p = {k: np.asarray(v, np.float32) for k, v in
          jblock.make_params(jax.random.key(seed), c, f).items()}
+    rng = np.random.default_rng(seed)
+    for k in ("s1", "b1", "s2", "b2", "s3", "b3"):
+        p[k] = (p[k] + rng.normal(size=p[k].shape) * 0.1).astype(np.float32)
+    return p
+
+
+def _numpy_params(c, f, seed):
+    """``_jax_params`` from a numpy seed: the port's ``make_params`` (the
+    reference's scales) with the same non-zero affines, for the cases that
+    run on the card, whose machine has no JAX."""
+    p = port_block.make_params(seed, c, f)
     rng = np.random.default_rng(seed)
     for k in ("s1", "b1", "s2", "b2", "s3", "b3"):
         p[k] = (p[k] + rng.normal(size=p[k].shape) * 0.1).astype(np.float32)
@@ -537,7 +553,7 @@ def test_bottleneck_kernel_matches_its_plain_version_past_512_and_wide(
     memory; max |d| within 1e-2 of the largest, mean within 1e-3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU route")
-    p = bottleneck_params_from_numpy(_jax_params(c, f, h + f), "cuda")
+    p = bottleneck_params_from_numpy(_numpy_params(c, f, h + f), "cuda")
     rng = np.random.default_rng([n, h, c, f])
     x = _bf(rng.normal(size=(n, h, h, c)) * 0.5).cuda()
     x2 = x.reshape(-1, c)
