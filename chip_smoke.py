@@ -94,7 +94,18 @@ weights from a numpy seed:
   time by kernel and the idle share; then Darknet19 at 224x224 (3 Adam
   steps at batch 4, each from the card's state on the CPU: losses and
   running means and variances gated) and VGG16 at 224x224 (output at
-  batch 2 against the CPU; a fit step at batch 32 timed and profiled).
+  batch 2 against the CPU; a fit step at batch 32 timed and profiled);
+- ResNet-50 (BASELINE config 1: 224x224x3, stages (3, 4, 6, 3) of
+  bottlenecks, 1000 classes, float32, Nesterovs(1e-2, 0.9)) from
+  ``ResNet50().init()``, a ComputationGraph, on the card against the same
+  graph on the CPU from the same numpy weights: the output at batch 2, 3
+  fit steps at batch 4 each from the card's state (losses and the 53
+  BatchNormalization nodes' running statistics gated), ``evaluate`` with
+  a ragged last batch, a zip restored on the card and on the CPU, a
+  burst of 10 requests served through InferenceSession against
+  ``outputSingle``; the fit step at batch 64 and 256 with images/s, the
+  share of the float32 peak, device time by kernel, the idle share and
+  the peak memory; ``output`` at batch 64.
   No hand-written kernel is on these paths: cuDNN and cuBLAS carry
   them.
 
@@ -171,9 +182,9 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, reps):
+def time_ms(fn, reps, spread=False):
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timings,
-    after one warm-up call."""
+    after one warm-up call; with ``spread``, (median, min, max)."""
     import torch
 
     fn()
@@ -186,6 +197,8 @@ def time_ms(fn, reps):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    if spread:
+        return statistics.median(times), min(times), max(times)
     return statistics.median(times)
 
 
@@ -4158,6 +4171,330 @@ def cnn_phase(torch, card):
     return {"vgg16_step_ms": med}
 
 
+RESNET_CHECK_BATCH, RESNET_STEP_BATCH, RESNET_STEPS = 2, 4, 3
+# The outputs are held card vs CPU at CNN_TOL of the largest element, in
+# training mode and in inference once the running statistics are one
+# batch's (``_calibrate_bn``): a fresh graph's running statistics let the
+# softmax saturate in inference, where a check compares ones and zeros.
+# Each step's weights, from the same state on both devices: the card's
+# update of each param array against the CPU's, as the norm of their
+# difference over the norm of the CPU's. Backward through 53
+# BatchNormalization nodes at batch 4 turns rounding into about 1% of an
+# array's update (the CPU at one thread against itself at eight:
+# printed as the yardstick), while an update that is missing or computed
+# from a wrong gradient is 1 or more apart. An array whose CPU update
+# stays below PARAM_TOL**2 lr (a conv bias ahead of BatchNormalization:
+# zero exact gradient, rounding noise) is held to that in absolute terms.
+RESNET_UPDATE_TOL = 0.1
+RESNET_LR = 1e-2         # the zoo's Nesterovs(1e-2, 0.9)
+RESNET_EVAL = (16, 16, 6)   # evaluate's batches, the last ragged
+RESNET_BURST = (1, 3, 8, 2, 17, 5, 12, 1, 30, 4)   # rows a served request
+RESNET_FIT_BATCHES = (64, 256)
+RESNET_TIMED = 4         # fit steps a timing
+RESNET_FLOP = 3 * 8.2e9  # a training step's FLOP an image (bench.py)
+RESNET_PARAMS = 25583592   # the JAX package's count for the same conf
+
+
+def _graph_cpu_twin(graph):
+    """The same graph on the CPU from the card graph's weights and
+    running statistics as numpy."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.utils.convert import (
+        opt_states_to_numpy, params_from_numpy, states_from_numpy,
+        states_to_numpy)
+
+    conf = ComputationGraphConfiguration.from_json(graph.conf.to_json())
+    twin = ComputationGraph(conf, device="cpu").init(params_from_numpy(
+        conf, opt_states_to_numpy(graph._params), "cpu"))
+    twin._states = states_from_numpy(conf, states_to_numpy(graph._states),
+                                     "cpu")
+    return twin
+
+
+def _update_gap(before, got, want):
+    """Two graphs stepped from the params ``before``: the largest, over
+    the param arrays, of the norm of the two updates' difference over the
+    norm of ``want``'s update; and the largest difference in the arrays
+    whose update in ``want`` stays below PARAM_TOL**2 lr."""
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    rel = noise = 0.0
+    for w0, a, b in zip(before, tree_leaves(got._params),
+                        tree_leaves(want._params)):
+        step, d = b - w0, a.cpu() - b
+        if float(step.abs().max()) > PARAM_TOL ** 2 * RESNET_LR:
+            rel = max(rel, float(d.norm() / step.norm()))
+        else:
+            noise = max(noise, float(d.abs().max()))
+    return rel, noise
+
+
+def _calibrate_bn(torch, graph, x):
+    """Set every BatchNormalization node's running statistics to those of
+    the batch ``x`` (decay 0 for one training-mode forward). A fresh
+    graph's running statistics (0 and 1) let the activations grow through
+    the 16 blocks until the softmax saturates, so inference checks there
+    compare ones and zeros; calibrated, they compare probabilities."""
+    bns = [node for node, _ in graph.conf.nodes.values()
+           if type(node).__name__ == "BatchNormalization"]
+    decays = [node.decay for node in bns]
+    for node in bns:
+        node.decay = 0.0
+    try:
+        with torch.no_grad():
+            _, states = graph._forward(graph._params, graph._states,
+                                       {graph.conf.inputs[0]: x}, True)
+    finally:
+        for node, decay in zip(bns, decays):
+            node.decay = decay
+    graph._states = states
+
+
+def _resnet_fit_timing(torch, card, gpu, batch):
+    """The fit step at ``batch``: CUDA events a step, host clock over a
+    fit call of RESNET_TIMED steps, the share of the float32 peak, the
+    peak memory, device time by kernel and the idle share."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.default_rng(SEED + batch)
+    ds = DataSet(rng.normal(size=(batch,) + IMAGENET).astype(np.float32),
+                 np.eye(1000, dtype=np.float32)[rng.integers(0, 1000,
+                                                             batch)])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    med, lo, hi = time_ms(lambda: gpu.fit(ds), RESNET_TIMED, spread=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host, _, _ = _fit_steps_ms(torch, gpu, [ds] * RESNET_TIMED, reps=1)
+    bound = RESNET_FLOP * batch / PEAK_F32 * 1e3
+    print(f"resnet50 ({card}): fit step at batch {batch} ({IMAGENET[1]}x"
+          f"{IMAGENET[2]}, float32): {med:.3f} ms by CUDA events (min "
+          f"{lo:.3f}, max {hi:.3f}; {RESNET_TIMED} steps), "
+          f"{batch / med * 1e3:.1f} images/s; host clock {host:.3f} ms a "
+          f"step over a fit call of {RESNET_TIMED}; {RESNET_FLOP * batch / 1e12:.3f} TFLOP a step, "
+          f"{RESNET_FLOP * batch / med / 1e9:.2f} TFLOP/s, "
+          f"{100 * bound / med:.1f}% of the float32 peak (bound "
+          f"{bound:.3f} ms); peak memory {peak:.2f} GiB", flush=True)
+    _profile_fit(torch, f"resnet50 b{batch}", gpu, ds, med, card, top=12)
+    return med, peak
+
+
+def resnet50_phase(torch, card):
+    """ResNet-50 (BASELINE config 1) at its published widths through the
+    port's entry points: ``ResNet50().init()`` on the card (224x224x3,
+    stages (3, 4, 6, 3) of bottlenecks, 1000 classes, float32,
+    Nesterovs(1e-2, 0.9)), against the same graph on the CPU from the same
+    numpy weights: the output at batch 2 in training mode; 3 fit steps
+    at batch 4 over synthetic ImageNet-shaped batches, each from the
+    card's state (the loss, the weights it leaves and the 53
+    BatchNormalization nodes' running statistics gated); the running
+    statistics set to one batch's (``_calibrate_bn``) and the output at
+    batch 2 in inference; ``evaluate`` over an iterator with a ragged last
+    batch; a zip written on the card and restored on the card and the
+    CPU; a burst of 10 requests served through InferenceSession against
+    ``outputSingle``; the fit step at batch 64 and 256 with images/s, the
+    share of the float32 peak, device time by kernel, the idle share and
+    the peak memory; ``output`` at batch 64."""
+    import tempfile
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+
+    flags = _tf32_flags(torch)
+    print(f"resnet50: float32 switches {flags}", flush=True)
+    if flags["cuda.matmul.allow_tf32"] or flags["cudnn.allow_tf32"] or \
+            flags.get("cudnn.conv.fp32_precision", "ieee") != "ieee":
+        fail("TF32 is on: the port computes float32 in float32")
+    rng = np.random.default_rng(SEED + 50)
+
+    def batch(n):
+        x = rng.normal(size=(n,) + IMAGENET).astype(np.float32)
+        return x, np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, n)]
+
+    t0 = time.perf_counter()
+    gpu = ResNet50().init()
+    init_s = time.perf_counter() - t0
+    if gpu.device.type != "cuda":
+        fail(f"ResNet50().init() put the graph on {gpu.device}, not cuda")
+    kinds = [type(n).__name__ for n, _ in gpu.conf.nodes.values()]
+    bns = [name for name, (n, _) in gpu.conf.nodes.items()
+           if type(n).__name__ == "BatchNormalization"]
+    print(f"resnet50: {gpu.numParams()} params, {len(kinds)} nodes "
+          f"({kinds.count('ConvolutionLayer')} conv, {len(bns)} "
+          f"BatchNormalization, {kinds.count('ElementWiseVertex')} adds); "
+          f"init {init_s:.2f} s", flush=True)
+    if gpu.numParams() != RESNET_PARAMS or \
+            kinds.count("ConvolutionLayer") != 53:
+        fail(f"resnet50 has {gpu.numParams()} params, "
+             f"{kinds.count('ConvolutionLayer')} convs")
+    cpu = _graph_cpu_twin(gpu)
+
+    def output_check(what, train):
+        x, _ = batch(RESNET_CHECK_BATCH)
+        want = cpu.outputSingle(x, train=train).toNumpy()
+        got = gpu.outputSingle(x, train=train).toNumpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        print(f"resnet50: output ({what}) at batch {RESNET_CHECK_BATCH} "
+              f"card vs CPU max|d|/max {err:.3e}; rows sum to "
+              f"{got.sum(axis=1).round(5).tolist()}, largest probabilities "
+              f"{got.max(axis=1).round(6).tolist()}", flush=True)
+        if not np.isfinite(got).all() or got.shape != (2, 1000) or \
+                err > CNN_TOL:
+            fail(f"resnet50: output ({what}) card vs CPU {err:.3e} > "
+                 f"{CNN_TOL}")
+
+    output_check("fresh graph, training mode, batch statistics", True)
+
+    worst = worst_bn = 0.0
+    yard = _graph_cpu_twin(gpu)
+    for step in range(RESNET_STEPS):
+        # each step from the card's state: max pooling's argmax and
+        # ReLU's kink flip on near-ties between devices
+        for twin in (cpu, yard) if step == 0 else (cpu,):
+            _copy_state(torch, gpu, twin)
+        before = [p.clone() for p in tree_leaves(cpu._params)]
+        ds = DataSet(*batch(RESNET_STEP_BATCH))
+        t0 = time.perf_counter()
+        gpu.fit(ds)
+        g_loss = gpu.score()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu.fit(ds)
+        t_cpu = time.perf_counter() - t0
+        rel = abs(g_loss - cpu.score()) / abs(cpu.score())
+        bn = max(_rel_err(gpu._states[n][k].cpu(), cpu._states[n][k])
+                 for n in bns for k in ("mean", "var"))
+        upd, noise = _update_gap(before, gpu, cpu)
+        worst, worst_bn = max(worst, rel), max(worst_bn, bn)
+        print(f"resnet50 step {step} (batch {RESNET_STEP_BATCH}, from the "
+              f"same state): loss card {g_loss:.6f}, CPU {cpu.score():.6f} "
+              f"(rel {rel:.3e}); running mean/var of {len(bns)} "
+              f"BatchNormalization nodes max|d|/max {bn:.3e}; each param "
+              f"array's update apart by up to {upd:.3e} of its norm (the "
+              f"arrays without gradient: {noise / RESNET_LR:.3e} lr); card "
+              f"{t_card:.3f} s, CPU {t_cpu:.3f} s", flush=True)
+        if upd > RESNET_UPDATE_TOL or noise > PARAM_TOL ** 2 * RESNET_LR:
+            fail(f"resnet50: step {step} updates apart by {upd:.3e} of "
+                 f"their norm (limit {RESNET_UPDATE_TOL}), {noise:.3e} "
+                 f"where the gradient is 0")
+        if step == 0:
+            # the yardstick: the CPU against itself at another thread count
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                yard.fit(ds)
+            finally:
+                torch.set_num_threads(threads)
+            print(f"resnet50 step 0 on the CPU at 1 thread against "
+                  f"{threads}: updates apart by up to "
+                  f"{_update_gap(before, yard, cpu)[0]:.3e} of their norm",
+                  flush=True)
+    if worst > TRAIN_LOSS_TOL:
+        fail(f"resnet50: losses differ by {worst:.3e} > {TRAIN_LOSS_TOL}")
+    if worst_bn > CNN_TOL:
+        fail(f"resnet50: running statistics differ by {worst_bn:.3e} > "
+             f"{CNN_TOL}")
+    del yard
+    if any(float(gpu._states[n]["mean"].abs().max()) == 0 for n in bns):
+        fail("resnet50: a BatchNormalization node kept no running mean")
+    _calibrate_bn(torch, gpu, gpu._input(batch(32)[0]))
+    _copy_state(torch, gpu, cpu)
+    output_check("inference, running statistics of one batch of 32", False)
+
+    sets = [batch(n) for n in RESNET_EVAL]
+    it = ListDataSetIterator([DataSet(*s) for s in sets])
+    gpu.evaluate(it)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = gpu.evaluate(it)
+    eval_s = time.perf_counter() - t0
+    ev_cpu = cpu.evaluate(it)
+    out_g = np.concatenate([gpu.outputSingle(f).toNumpy() for f, _ in sets])
+    out_c = np.concatenate([cpu.outputSingle(f).toNumpy() for f, _ in sets])
+    top = np.sort(out_c, axis=1)[:, -2:]
+    ties = (top[:, 1] - top[:, 0]) <= TIE_TOL
+    differ = out_g.argmax(axis=1) != out_c.argmax(axis=1)
+    n_eval = sum(RESNET_EVAL)
+    print(f"resnet50 ({card}): evaluate {n_eval} images in batches "
+          f"{RESNET_EVAL} {eval_s:.4f} s; accuracy card {ev.accuracy():.4f} "
+          f"CPU {ev_cpu.accuracy():.4f}; {int(differ.sum())} rows whose "
+          f"class differs, {int(ties.sum())} within {TIE_TOL} of a tie",
+          flush=True)
+    if (differ & ~ties).any() or \
+            ev.confusionMatrix().sum() != n_eval or \
+            abs(ev.accuracy() - ev_cpu.accuracy()) * n_eval > ties.sum():
+        fail("resnet50: evaluate differs between card and CPU away from "
+             "ties")
+
+    x, _ = batch(RESNET_CHECK_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "resnet50.zip")
+        ModelSerializer.writeModel(gpu, path)
+        size = Path(path).stat().st_size
+        back = ModelSerializer.restoreComputationGraph(path)
+        back_cpu = ModelSerializer.restoreComputationGraph(path,
+                                                           device="cpu")
+    want = gpu.outputSingle(x).toNumpy()
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves([back._params, back._states, back._opt_states]),
+        tree_leaves([gpu._params, gpu._states, gpu._opt_states])))
+    bits = np.array_equal(back.outputSingle(x).toNumpy(), want)
+    err = float(np.abs(back_cpu.outputSingle(x).toNumpy() - want).max()
+                / np.abs(want).max())
+    print(f"resnet50: zip {size} bytes; restored on the card: state equal "
+          f"{same}, iteration {back.getIterationCount()}, output bit-equal "
+          f"{bits}; restored on the CPU: output max|d|/max {err:.3e}",
+          flush=True)
+    if not (same and bits) or back.getIterationCount() != \
+            gpu.getIterationCount() or back.device.type != "cuda" or \
+            err > CNN_TOL:
+        fail("resnet50: the restored graph differs from the saved one")
+    del back, back_cpu, cpu
+
+    requests = [batch(n)[0] for n in RESNET_BURST]
+    torch.cuda.reset_peak_memory_stats()
+    answers, warmed, dispatches, _, serve_s = _serve_burst(
+        torch, "resnet50", gpu, IMAGENET, requests,
+        BucketLadder((1, 4, 8, 16, 32)), ())
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    worst = 0.0
+    for r, y in zip(requests, answers):
+        if y.shape != (r.shape[0], 1000) or not np.isfinite(y).all():
+            fail(f"resnet50: served {y.shape} for a request of {r.shape}")
+        want = gpu.outputSingle(r).toNumpy()
+        worst = max(worst, float(np.abs(y - want).max() / np.abs(want).max()))
+    print(f"resnet50 ({card}): served {len(requests)} requests "
+          f"({sum(RESNET_BURST)} rows) in {len(dispatches)} dispatches "
+          f"{sorted(s[0] for s in dispatches)}, {serve_s:.4f} s; warmup of "
+          f"{len(warmed)} shapes; served vs outputSingle max|d|/max "
+          f"{worst:.3e}; peak memory {serve_peak:.2f} GiB", flush=True)
+    # a bucket's batch may take another cuDNN algorithm than the request's
+    # own batch, so rows differ by the rounding the output checks allow
+    if worst > CNN_TOL:
+        fail(f"resnet50: served rows vs outputSingle {worst:.3e} > "
+             f"{CNN_TOL}")
+
+    x64, _ = batch(64)
+    torch.cuda.reset_peak_memory_stats()
+    med, lo, hi = time_ms(lambda: gpu.outputSingle(x64), 10, spread=True)
+    print(f"resnet50 ({card}): output at batch 64 {med:.3f} ms by CUDA "
+          f"events (min {lo:.3f}, max {hi:.3f}), {64 / med * 1e3:.1f} "
+          f"images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    out = {"output64_ms": med}
+    for n in RESNET_FIT_BATCHES:
+        out[n] = _resnet_fit_timing(torch, card, gpu, n)
+    del gpu
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -4176,6 +4513,7 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"cuDNN {torch.backends.cudnn.version()}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
@@ -4215,6 +4553,7 @@ def main():
     probe_launches = probe_main_phase(torch, probe_matmul, bottleneck)
     lenet_phase(torch, card)
     cnn_phase(torch, card)
+    resnet50_phase(torch, card)
 
     pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(via deeplearning4j_tpu/models/bert.py:197)")

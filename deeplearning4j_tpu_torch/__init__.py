@@ -14,3 +14,5 @@ from deeplearning4j_tpu_torch import backend  # noqa: F401  (TF32 off)
 __version__ = "0.1.0"
 
 from deeplearning4j_tpu_torch.ndarray import Nd4j, INDArray  # noqa: E402,F401
+from deeplearning4j_tpu_torch.backend import Nd4jBackend  # noqa: E402,F401
+from deeplearning4j_tpu_torch.runtime import RuntimeConfig  # noqa: E402,F401

@@ -2,7 +2,8 @@
 
 Copied from ``deeplearning4j_tpu/datasets/dataset.py`` (numpy only; the port
 keeps its own copy). Arrays stay host-side numpy until a step moves them to
-the network's device. MultiDataSet comes with the data-tier slice.
+the network's device. ``MultiDataSet`` holds lists of them, for graphs
+with several inputs or outputs.
 """
 
 from __future__ import annotations
@@ -129,3 +130,32 @@ class SplitTestAndTrain:
 
     def getTest(self):
         return self.test
+
+
+class MultiDataSet:
+    """Multi-input/multi-output container: lists of features, labels and
+    their masks (one array is taken as a list of one)."""
+
+    def __init__(self, features=None, labels=None, featuresMasks=None,
+                 labelsMasks=None):
+        as_list = lambda v: None if v is None else [  # noqa: E731
+            _np(x) for x in (v if isinstance(v, (list, tuple)) else [v])]
+        self.features = as_list(features) or []
+        self.labels = as_list(labels) or []
+        self.featuresMasks = as_list(featuresMasks)
+        self.labelsMasks = as_list(labelsMasks)
+
+    def getFeatures(self, i=None):
+        return self.features if i is None else self.features[i]
+
+    def getLabels(self, i=None):
+        return self.labels if i is None else self.labels[i]
+
+    def numFeatureArrays(self):
+        return len(self.features)
+
+    def numLabelsArrays(self):
+        return len(self.labels)
+
+    def numExamples(self):
+        return 0 if not self.features else self.features[0].shape[0]

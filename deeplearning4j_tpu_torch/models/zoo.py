@@ -2,11 +2,12 @@
 
 Counterpart of ``deeplearning4j_tpu/models/zoo.py``: the
 ``MultiLayerNetwork`` models, LeNet (the LeNet-MNIST baseline), SimpleCNN,
-AlexNet, VGG16, VGG19, Darknet19 and TextGenerationLSTM. Each ``conf()``
+AlexNet, VGG16, VGG19, Darknet19 and TextGenerationLSTM, and ResNet50 (the
+ImageNet throughput baseline), a ``ComputationGraph``. Each ``conf()``
 builds the same configuration (and JSON) as the JAX package's, where
-every model but LeNet and TextGenerationLSTM builds it inside ``init()``;
-``init(device=None)`` puts the network on "cuda" unless the caller names
-another device. Weights are drawn from ``seed`` with a
+every model but LeNet, ResNet50 and TextGenerationLSTM builds it inside
+``init()``; ``init(device=None)`` puts the network on "cuda" unless the
+caller names another device. Weights are drawn from ``seed`` with a
 ``torch.Generator``, so they differ from the JAX package's; parity goes
 through transferred weights.
 """
@@ -15,11 +16,14 @@ from __future__ import annotations
 
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    LSTM, BatchNormalization, ConvolutionLayer, ConvolutionMode, DenseLayer,
-    DropoutLayer, GlobalPoolingLayer, LocalResponseNormalization, LossLayer,
-    OutputLayer, PoolingType, RnnOutputLayer, SubsamplingLayer)
+    LSTM, ActivationLayer, BatchNormalization, ConvolutionLayer,
+    ConvolutionMode, DenseLayer, DropoutLayer, GlobalPoolingLayer,
+    LocalResponseNormalization, LossLayer, OutputLayer, PoolingType,
+    RnnOutputLayer, SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 from deeplearning4j_tpu_torch.optimize.updaters import Adam, Nesterovs
@@ -234,6 +238,92 @@ class Darknet19(ZooModel):
                                  activation="softmax"))
                 .setInputType(InputType.convolutional(h, w, c))
                 .build())
+
+
+class ResNet50(ZooModel):
+    """ResNet-50 as a ComputationGraph: a 7x7/2 conv stem with
+    BatchNormalization and a 3x3/2 max pool, then STAGES of bottleneck
+    blocks (1x1, 3x3, 1x1 convs, each with BatchNormalization; a projected
+    shortcut on each stage's first block, an identity one after; the sum
+    through ReLU), global average pooling and a softmax output;
+    Nesterovs(1e-2, 0.9) unless another updater is given. Float32 only
+    until the precision slice: ``dataType="bfloat16"`` raises."""
+
+    # (tag, blocks, (f1, f2, f3), the first block's stride)
+    STAGES = (("s2", 3, (64, 64, 256), 1),
+              ("s3", 4, (128, 128, 512), 2),
+              ("s4", 6, (256, 256, 1024), 2),
+              ("s5", 3, (512, 512, 2048), 2))
+
+    def __init__(self, numClasses=1000, seed=123, inputShape=(3, 224, 224),
+                 updater=None, dataType="float32"):
+        if dataType != "float32":
+            raise NotImplementedError(
+                f"ResNet50 in {dataType} comes with the precision slice "
+                f"(ROADMAP.md, queue 1 item 6)")
+        self.numClasses = numClasses
+        self.seed = seed
+        self.inputShape = inputShape
+        self.updater = updater or Nesterovs(1e-2, 0.9)
+        self.dataType = dataType
+
+    def conf(self):
+        c, h, w = self.inputShape
+        g = (NeuralNetConfiguration.Builder().seed(self.seed)
+             .dataType(self.dataType)
+             .updater(self.updater).weightInit(WeightInit.RELU)
+             .graphBuilder()
+             .addInputs("in"))
+        g.setInputTypes(InputType.convolutional(h, w, c))
+
+        def conv(name, n, k, s, inp):
+            g.addLayer(name, ConvolutionLayer.Builder().nOut(n)
+                       .kernelSize([k, k]).stride([s, s])
+                       .convolutionMode(ConvolutionMode.SAME)
+                       .activation("identity").build(), inp)
+            return name
+
+        def bn(name, inp, act="identity"):
+            g.addLayer(name,
+                       BatchNormalization.Builder().activation(act).build(),
+                       inp)
+            return name
+
+        x = bn("bn1", conv("conv1", 64, 7, 2, "in"), "relu")
+        g.addLayer("pool1", SubsamplingLayer.Builder().kernelSize([3, 3])
+                   .stride([2, 2]).convolutionMode(ConvolutionMode.SAME)
+                   .build(), x)
+        x = "pool1"
+
+        def bottleneck(tag, inp, filters, stride, project):
+            f1, f2, f3 = filters
+            a = bn(f"{tag}_b1", conv(f"{tag}_c1", f1, 1, stride, inp),
+                   "relu")
+            a = bn(f"{tag}_b2", conv(f"{tag}_c2", f2, 3, 1, a), "relu")
+            a = bn(f"{tag}_b3", conv(f"{tag}_c3", f3, 1, 1, a))
+            s = (bn(f"{tag}_projbn", conv(f"{tag}_proj", f3, 1, stride, inp))
+                 if project else inp)
+            g.addVertex(f"{tag}_add", ElementWiseVertex("Add"), a, s)
+            g.addLayer(f"{tag}_out",
+                       ActivationLayer.Builder().activation("relu").build(),
+                       f"{tag}_add")
+            return f"{tag}_out"
+
+        for stage, blocks, filters, stride in self.STAGES:
+            for i in range(blocks):
+                x = bottleneck(f"{stage}_{i}", x, filters,
+                               stride if i == 0 else 1, i == 0)
+        g.addLayer("avgpool", GlobalPoolingLayer.Builder().build(), x)
+        g.addLayer("out", OutputLayer.Builder().nOut(self.numClasses)
+                   .activation("softmax").lossFunction("mcxent").build(),
+                   "avgpool")
+        g.setOutputs("out")
+        return g.build()
+
+    def init(self, device=None) -> ComputationGraph:
+        """The graph with weights drawn from ``seed``, on ``device``
+        ("cuda" unless the caller names another)."""
+        return ComputationGraph(self.conf(), device=device).init()
 
 
 class TextGenerationLSTM(ZooModel):

@@ -6,6 +6,10 @@ from deeplearning4j_tpu_torch.nn.losses import LossFunction  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.configuration import (  # noqa: F401
     BackpropType, MultiLayerConfiguration, NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (  # noqa: F401
+    ComputationGraphConfiguration, ElementWiseVertex, GraphVertex,
+    L2NormalizeVertex, MergeVertex, ReshapeVertex, ScaleVertex, ShiftVertex,
+    StackVertex, SubsetVertex)
 from deeplearning4j_tpu_torch.nn.conf import layers  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
     ActivationLayer, BatchNormalization, Bidirectional, Convolution1DLayer,
@@ -18,3 +22,4 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
     ZeroPaddingLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401
     GradientNormalization, MultiLayerNetwork)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: F401

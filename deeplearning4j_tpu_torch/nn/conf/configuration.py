@@ -277,6 +277,29 @@ class NeuralNetConfiguration:
         def miniBatch(self, flag=True):
             return self
 
+        def trainingWorkspaceMode(self, *_):
+            """Accepted and ignored: PyTorch's caching allocator manages
+            device memory, and there are no workspaces."""
+            return self
+
+        def inferenceWorkspaceMode(self, *_):
+            """Accepted and ignored, as ``trainingWorkspaceMode``."""
+            return self
+
+        def cudnnAlgoMode(self, *_):
+            """Accepted and ignored: the configuration and its JSON are
+            unchanged, ``cudnn.benchmark`` stays off and cuDNN picks each
+            convolution's algorithm by its heuristics, so a shape takes
+            the same algorithm every call and TF32 stays off."""
+            return self
+
         def list(self):
             return ListBuilder(self._defaults, self._seed, self._dataType,
                                self._precision)
+
+        def graphBuilder(self):
+            from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+                GraphBuilder)
+
+            return GraphBuilder(self._defaults, self._seed, self._dataType,
+                                self._precision)

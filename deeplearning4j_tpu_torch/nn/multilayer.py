@@ -98,6 +98,26 @@ def _shapes(group):
     return tree_map(lambda v: tuple(v.shape), group)
 
 
+def _as_input(x, device, dtype):
+    """A batch (INDArray, tensor or numpy) as a tensor on ``device``;
+    float inputs take ``dtype``."""
+    if isinstance(x, INDArray):
+        x = x.torch()
+    x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                        else x, device=device)
+    if x.is_floating_point() and x.dtype != dtype:
+        x = x.to(dtype)
+    return x
+
+
+def _dropout_generator(seed, it, device):
+    """A step's dropout generator, seeded from ``seed`` + 1 and the
+    iteration."""
+    seq = np.random.SeedSequence([int(seed) + 1, int(it)])
+    return torch.Generator(device=device).manual_seed(
+        int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+
+
 class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
@@ -166,13 +186,7 @@ class MultiLayerNetwork:
     def _input(self, x):
         """A batch (INDArray, tensor or numpy) as a tensor on this
         network's device; float inputs take the configured dtype."""
-        if isinstance(x, INDArray):
-            x = x.torch()
-        x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
-                            else x, device=self.device)
-        if x.is_floating_point() and x.dtype != self.conf.dtype:
-            x = x.to(self.conf.dtype)
-        return x
+        return _as_input(x, self.device, self.conf.dtype)
 
     # -- pure forward --------------------------------------------------------
     def _forward(self, params, states, x, training=False, generator=None,
@@ -335,9 +349,7 @@ class MultiLayerNetwork:
         iteration; None when no layer drops out."""
         if not any(lr.dropOut and lr.dropOut < 1.0 for lr in self.layers):
             return None
-        seed = np.random.SeedSequence([int(self.conf.seed) + 1, int(it)])
-        return torch.Generator(device=self.device).manual_seed(
-            int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+        return _dropout_generator(self.conf.seed, it, self.device)
 
     def _step(self, states, f, l, lmask):
         """One optimizer step on a device batch; returns (loss, states).

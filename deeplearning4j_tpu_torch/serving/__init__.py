@@ -10,12 +10,14 @@ from deeplearning4j_tpu_torch.serving.buckets import (
 from deeplearning4j_tpu_torch.serving.registry import (
     ModelNotFound, ModelRegistry)
 from deeplearning4j_tpu_torch.serving.servable import (
-    FnServable, NetworkServable, SameDiffServable, Servable, as_servable)
+    FnServable, GraphServable, NetworkServable, SameDiffServable, Servable,
+    as_servable)
 from deeplearning4j_tpu_torch.serving.session import InferenceSession
 
 __all__ = [
     "BucketLadder", "DEFAULT_BATCH_BUCKETS", "DynamicBatcher", "FnServable",
-    "InferenceSession", "ModelNotFound", "ModelRegistry", "NetworkServable",
+    "GraphServable", "InferenceSession", "ModelNotFound", "ModelRegistry",
+    "NetworkServable",
     "QueueFullError", "SameDiffServable", "Servable", "ServingShutdown",
     "ServingTimeout", "as_servable", "execute_plan", "pad_batch",
     "pad_rows", "pad_time", "run_batch", "unpad",

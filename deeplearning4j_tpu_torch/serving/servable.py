@@ -98,6 +98,28 @@ class NetworkServable(Servable):
         return (self.net._params, self.net._states)
 
 
+class GraphServable(Servable):
+    """ComputationGraph with a single input and a single output: runs the
+    graph's own forward, as ``outputSingle`` does, with the params read
+    from the live graph at call time."""
+
+    def __init__(self, graph, example_shape, dtype=None):
+        if len(graph.conf.inputs) != 1 or len(graph.conf.outputs) != 1:
+            raise ValueError(
+                f"serving supports single-input/single-output graphs; "
+                f"got inputs={graph.conf.inputs} "
+                f"outputs={graph.conf.outputs}")
+        super().__init__(example_shape, graph.device,
+                         _model_dtype(graph) if dtype is None else dtype)
+        self.graph = graph
+
+    def _infer_fn(self):
+        return self.graph._infer_fn(False)
+
+    def _call_args(self):
+        return (self.graph._params, self.graph._states)
+
+
 class SameDiffServable(Servable):
     """SameDiff graph: serve one placeholder -> one output variable. The
     graph's values are read at call time (a graph trained since it was
@@ -161,6 +183,8 @@ def as_servable(model, example_shape=None, dtype=None,
     kind = type(model).__name__
     if kind == "MultiLayerNetwork":
         return NetworkServable(model, example_shape, dtype)
+    if kind == "ComputationGraph":
+        return GraphServable(model, example_shape, dtype)
     if kind == "SameDiff":
         if input_name is None or output_name is None:
             raise ValueError(
@@ -170,5 +194,5 @@ def as_servable(model, example_shape=None, dtype=None,
     if callable(model):
         return FnServable(model, example_shape, dtype)
     raise TypeError(f"cannot serve a {kind} (the port serves "
-                    f"MultiLayerNetwork, SameDiff and plain functions so "
-                    f"far)")
+                    f"MultiLayerNetwork, ComputationGraph, SameDiff and "
+                    f"plain functions so far)")

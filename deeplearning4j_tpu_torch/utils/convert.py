@@ -4,8 +4,10 @@ No JAX counterpart. ``params_from_numpy`` takes the per-layer
 ``{name: ndarray}`` dicts of a network (the JAX package's
 ``net._params`` as numpy arrays, or the arrays of a ``params.npz``) and
 returns the port's per-layer ``{name: Tensor}`` dicts, checked against the
-configuration's shapes. A layer whose params nest groups (Bidirectional's
-``{"fwd": {...}, "bwd": {...}}``) takes nested dicts alike. Both packages
+configuration's shapes; for a ComputationGraph the dicts are keyed by
+node name instead of listed by layer. A layer whose params nest groups
+(Bidirectional's ``{"fwd": {...}, "bwd": {...}}``) takes nested dicts
+alike. Both packages
 then compute the same function.
 ``states_from_numpy`` does the same for the layer states (per layer a
 dict of the layer's state, e.g. BatchNormalization's running ``mean`` and
@@ -28,16 +30,37 @@ import torch
 from deeplearning4j_tpu_torch.tree_util import tree_map
 
 
-def params_from_numpy(conf, arrays, device):
-    """``arrays``: one dict per layer of ``conf``, each holding exactly the
-    layer's parameters by name. Returns tensors of ``conf``'s dtype on
-    ``device`` (copies: the caller's arrays are never aliased)."""
+def _each(conf, arrays, what, suffix, fn):
+    """``fn(layer, arrays, where)`` for each layer of a
+    MultiLayerConfiguration (a list, by index) or each node of a
+    ComputationGraphConfiguration (a dict, by name; ``layer`` None for a
+    vertex), with ``arrays`` checked to cover exactly those."""
+    if hasattr(conf, "nodes"):
+        if not isinstance(arrays, dict) or set(arrays) != set(conf.nodes):
+            got = sorted(arrays) if isinstance(arrays, dict) else \
+                type(arrays).__name__
+            raise ValueError(f"{what} for {got}, the graph has "
+                             f"{sorted(conf.nodes)}")
+        return {name: fn(node if hasattr(node, "param_shapes") else None,
+                         arrays[name],
+                         f"node {name!r} ({type(node).__name__}){suffix}")
+                for name, (node, _) in conf.nodes.items()}
     if len(arrays) != len(conf.layers):
-        raise ValueError(f"{len(arrays)} param dicts for "
-                         f"{len(conf.layers)} layers")
-    return [_group_from_numpy(lr.param_shapes(), arrs, conf.dtype, device,
-                              f"layer {i} ({type(lr).__name__})")
-            for i, (lr, arrs) in enumerate(zip(conf.layers, arrays))]
+        raise ValueError(f"{len(arrays)} {what} for {len(conf.layers)} "
+                         f"layers")
+    return [fn(lr, a, f"layer {i} ({type(lr).__name__}){suffix}")
+            for i, (lr, a) in enumerate(zip(conf.layers, arrays))]
+
+
+def params_from_numpy(conf, arrays, device):
+    """``arrays``: for a MultiLayerConfiguration one dict per layer, for a
+    ComputationGraphConfiguration one dict per node by name (``{}`` for a
+    vertex), each holding exactly the layer's parameters by name. Returns
+    tensors of ``conf``'s dtype on ``device`` in the same layout (copies:
+    the caller's arrays are never aliased)."""
+    return _each(conf, arrays, "param dicts", "", lambda lr, arrs, where:
+                 _group_from_numpy({} if lr is None else lr.param_shapes(),
+                                   arrs, conf.dtype, device, where))
 
 
 def _group_from_numpy(want, arrs, dtype, device, where):
@@ -61,36 +84,31 @@ def _group_from_numpy(want, arrs, dtype, device, where):
 
 
 def states_from_numpy(conf, arrays, device):
-    """``arrays``: one dict per layer of ``conf``, each holding exactly the
-    layer's state by name (the JAX package's ``net._states`` as numpy).
-    Returns tensors of ``conf``'s dtype on ``device`` (copies)."""
-    if len(arrays) != len(conf.layers):
-        raise ValueError(f"{len(arrays)} layer states for "
-                         f"{len(conf.layers)} layers")
-    return [_group_from_numpy(
-        tree_map(lambda t: tuple(t.shape), lr.init_state(conf.dtype,
-                                                         "meta")),
-        arrs, conf.dtype, device, f"layer {i} ({type(lr).__name__}) state")
-        for i, (lr, arrs) in enumerate(zip(conf.layers, arrays))]
+    """``arrays``: the layer states in ``params_from_numpy``'s layout
+    (the JAX package's ``net._states`` as numpy). Returns tensors of
+    ``conf``'s dtype on ``device`` (copies)."""
+    def state(lr, arrs, where):
+        want = {} if lr is None else tree_map(
+            lambda t: tuple(t.shape), lr.init_state(conf.dtype, "meta"))
+        return _group_from_numpy(want, arrs, conf.dtype, device, where)
+
+    return _each(conf, arrays, "layer states", " state", state)
 
 
 def opt_states_from_numpy(conf, arrays, device):
-    """``arrays``: one updater state per layer of ``conf`` with numpy
-    leaves. Returns the same structure with tensors of ``conf``'s dtype on
-    ``device`` (copies)."""
-    if len(arrays) != len(conf.layers):
-        raise ValueError(f"{len(arrays)} updater states for "
-                         f"{len(conf.layers)} layers")
-    return [tree_map(lambda a: torch.tensor(np.asarray(a), dtype=conf.dtype,
-                                             device=device), st)
-            for st in arrays]
+    """``arrays``: the updater states with numpy leaves, one a layer (a
+    list) or a node (a dict by name). Returns the same structure with
+    tensors of ``conf``'s dtype on ``device`` (copies)."""
+    return _each(conf, arrays, "updater states", "", lambda lr, st, where:
+                 tree_map(lambda a: torch.tensor(
+                     np.asarray(a), dtype=conf.dtype, device=device), st))
 
 
 def opt_states_to_numpy(states):
-    """The port's per-layer updater states, or layer states
-    (``states_to_numpy``), with numpy leaves (host copies)."""
-    return [tree_map(lambda t: t.detach().cpu().numpy(), st)
-            for st in states]
+    """The port's updater states, or layer states (``states_to_numpy``),
+    per layer (a list) or per node (a dict), with numpy leaves (host
+    copies)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), states)
 
 
 states_to_numpy = opt_states_to_numpy

@@ -5,8 +5,8 @@
   ``jax`` or ``deeplearning4j_tpu`` (checked on the source's AST, so a
   lazy import inside a function counts too).
 - With CUDA absent, every entry point given no device raises instead of
-  running on the CPU, training included; a CUDA tensor never reaches the
-  plain version.
+  running on the CPU, training included (networks, graphs, the zoo,
+  restored zips); a CUDA tensor never reaches the plain version.
 """
 
 import ast
@@ -17,7 +17,8 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch
-from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+from deeplearning4j_tpu_torch.models.zoo import ResNet50, TextGenerationLSTM
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.modelimport import TFGraphMapper, protobuf
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving import InferenceSession
@@ -81,6 +82,10 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/modelimport/__init__.py",
                  "deeplearning4j_tpu_torch/modelimport/tensorflow.py",
                  "deeplearning4j_tpu_torch/modelimport/protobuf.py",
+                 "deeplearning4j_tpu_torch/nn/graph.py",
+                 "deeplearning4j_tpu_torch/nn/conf/graph_conf.py",
+                 "deeplearning4j_tpu_torch/runtime.py",
+                 "deeplearning4j_tpu_torch/backend.py",
                  "tests/samediff_op_cases.py",
                  "chip_smoke.py"):
         assert want in names
@@ -116,6 +121,28 @@ def test_restore_without_device_raises_without_cuda(no_cuda, tmp_path):
     path = tmp_path / "missing.zip"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelSerializer.restoreMultiLayerNetwork(str(path))
+
+
+class _OneBlockResNet(ResNet50):
+    STAGES = (("s2", 1, (4, 4, 8), 1),)
+
+
+def test_graph_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResNet50().init()
+    model = _OneBlockResNet(numClasses=3, inputShape=(3, 16, 16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ComputationGraph(model.conf())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init()
+    graph = model.init(device="cpu")
+    assert graph.device.type == "cpu"
+    path = str(tmp_path / "graph.zip")
+    ModelSerializer.writeModel(graph, path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelSerializer.restoreComputationGraph(path)
+    assert ModelSerializer.restoreComputationGraph(
+        path, device="cpu").device.type == "cpu"
 
 
 def test_training_raises_without_cuda_unless_cpu_is_named(no_cuda, tmp_path):

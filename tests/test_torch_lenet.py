@@ -335,17 +335,25 @@ def test_zoo_exports_and_the_lenet_widths():
 @pytest.mark.parametrize("module", [
     "deeplearning4j_tpu_torch.models.zoo",
     "deeplearning4j_tpu_torch.nn.multilayer",
+    "deeplearning4j_tpu_torch.nn.graph",
     "deeplearning4j_tpu_torch.utils.serializer"])
 def test_every_entry_point_turns_tf32_off_before_a_conv(module):
-    """LeNet().init(), a bare MultiLayerNetwork and a restored zip each
-    import backend.py, which turns TF32 off for cuBLAS and cuDNN (the JAX
-    package computes float32 in float32)."""
+    """LeNet().init() and ResNet50().init(), a bare MultiLayerNetwork or
+    ComputationGraph and a restored zip each import backend.py, which
+    turns TF32 off for cuBLAS and cuDNN (the JAX package computes float32
+    in float32) and, where the build has the switch, sets cuDNN's
+    convolutions to "ieee" by name."""
     code = ("import torch\n"
             "torch.backends.cudnn.allow_tf32 = True\n"
             "torch.backends.cuda.matmul.allow_tf32 = True\n"
+            "conv = getattr(torch.backends.cudnn, 'conv', None)\n"
+            "switch = hasattr(conv, 'fp32_precision')\n"
+            "if switch:\n"
+            "    conv.fp32_precision = 'tf32'\n"
             f"import {module}\n"
             "assert not torch.backends.cudnn.allow_tf32\n"
-            "assert not torch.backends.cuda.matmul.allow_tf32\n")
+            "assert not torch.backends.cuda.matmul.allow_tf32\n"
+            "assert not switch or conv.fp32_precision == 'ieee'\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
