@@ -107,7 +107,31 @@ weights from a numpy seed:
   share of the float32 peak, device time by kernel, the idle share and
   the peak memory; ``output`` at batch 64.
   No hand-written kernel is on these paths: cuDNN and cuBLAS carry
-  them.
+  them;
+- YOLO2 (the zoo's ComputationGraph: Darknet-19 with the SpaceToDepth
+  reorg, 416x416x3, 80 classes, 5 COCO priors, Adam(1e-3)) from
+  ``YOLO2().init()`` on synthesised COCO-shaped data (1-4 boxes an image
+  in the reference's label format), against the same graph on the CPU:
+  the head and the decoded output in training mode and, with the
+  running statistics set to one batch's, in inference;
+  ``YoloUtils.getPredictedObjects`` on both (the same detections); 3
+  Adam steps at batch 4 each from the same state (losses, the 22
+  BatchNormalization nodes' running statistics and each param array's
+  update gated); a zip restored on the card and the CPU; a served burst
+  against ``outputSingle``; ``output`` at 16 and the fit step at batch 16
+  and 64 with images/s, the share of the float32 peak, device time by
+  kernel, the idle share and the peak memory. TinyYOLO (VOC's 20
+  classes, a MultiLayerNetwork) likewise: output, 2 steps, a burst, the
+  fit step at 64. Then rows 1-3 through MaskZeroLayer(LSTM 64) and
+  FrozenLayer(LSTM 64) at (200, 32, 64) against the CPU (their launches
+  counted on the ``fit`` and ``output`` path, the frozen weights
+  bit-equal), and every other class of the slice at small widths
+  (Convolution3D, the 3-D and 1-D shape layers, LocallyConnected,
+  PReLU, the attention layers and AttentionVertex, capsules,
+  CenterLoss, OCNN; AutoEncoder and VAE with the noise passed in) on the
+  card against the CPU. The phase alone: ``import chip_smoke`` and call
+  ``detection_phase(torch, card, lstm)`` after building the LSTM
+  sources.
 
 Each main path sets its kernels' launch counters to 0 just before it runs
 and reads them just after.
@@ -4495,6 +4519,902 @@ def resnet50_phase(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# object detection (YOLO2, TinyYOLO), the LSTM wrappers and the remaining
+# layer modules
+# ---------------------------------------------------------------------------
+
+YOLO_SHAPE = (3, 416, 416)
+YOLO_GRID = 13
+YOLO_LR = 1e-3           # the zoo's Adam(1e-3)
+YOLO_CHECK_BATCH, YOLO_STEP_BATCH, YOLO_STEPS = 2, 4, 3
+TINY_STEPS = 2
+YOLO_BURST = (1, 3, 8, 2, 5, 1, 12, 4)   # rows a served request
+YOLO_FIT_BATCHES = (16, 64)
+TINY_FIT_BATCH = 64
+YOLO_TIMED = 4           # fit steps a timing
+YOLO_PARAMS = 50962889   # the JAX package's counts for the same confs
+TINY_PARAMS = 15861773
+YOLO_THRESHOLD = 0.5     # YoloUtils' default object-confidence threshold
+WRAP_STEPS = 2
+SMALL_LR = 1e-2
+# Adam steps card vs CPU (``_adam_gap``). Adam divides each weight's
+# step by the root of its own squared-gradient history, so a weight whose
+# gradient is rounding noise, or whose first moment cancels, moves by up
+# to a whole lr one way on one device and the other way on the other:
+# the weights a step leaves measure that amplification, not the card's
+# arithmetic (NVIDIA H100 80GB HBM3, 700.00 W: YOLO2's first step leaves
+# 1 of a BatchNormalization array's 128 weights 2 lr apart, 0.177 of its
+# update's norm, and so does the CPU at 1 thread against 8; its second
+# step left one array's update 0.056 of its norm apart and 7.0% of its
+# weights beyond PARAM_TOL lr in one run, 0.121 and 14.8% in another).
+# The gate reads what the step took in: the gradient each device's first
+# moment took in, (m1 - beta1 m0) / (1 - beta1), and the squared
+# gradient its second moment took in, (v1 - beta2 v0) / (1 - beta2),
+# card against CPU within RESNET_UPDATE_TOL of each param array's norm
+# (the gate of ResNet-50's Nesterovs steps, whose update is linear in the
+# gradient), the squares within twice that (a square doubles a relative
+# error); and each device's weights moved by Adam's step of its own new
+# moments, within PARAM_TOL lr (a missing or misapplied update is about
+# lr off). Weights under a NoOp updater (FrozenLayer) do not move. YOLO2
+# on the card (NVIDIA H100 80GB HBM3, 700.00 W, 3 runs of 3 steps):
+# gradients 1.0e-2 to 3.3e-2 of an array's norm apart, squares 1.5e-2 to
+# 5.4e-2, the weights off Adam's step by 6.0e-5 lr (the rounding of a
+# weight near 1); the CPU at 1 thread against 8: 8.9e-4 and 1.3e-3.
+
+# The decoded detections card vs CPU, of each field's largest value: wh =
+# prior * exp(twh) turns the head's absolute rounding into relative
+# error of the largest boxes, so the decoded output reads 0.80e-4 to
+# 1.02e-4 where the head's own output (gated at CNN_TOL) reads less
+# (NVIDIA H100 80GB HBM3, 700.00 W; YOLO2 at batch 2 and 4).
+YOLO_DECODE_TOL = 5e-4
+
+
+def coco_batch(rng, n, classes=80, grid=YOLO_GRID, shape=YOLO_SHAPE):
+    """n synthetic images with 1-4 boxes each, labelled as the reference's
+    Yolo2OutputLayer reads them: [n, 4+classes, grid, grid], the box's
+    corners (x1, y1, x2, y2) in grid units and a one-hot class at the
+    cell of its centre (a later box in the same cell replaces an earlier
+    one, one object a cell)."""
+    x = rng.normal(size=(n,) + shape).astype(np.float32)
+    y = np.zeros((n, 4 + classes, grid, grid), np.float32)
+    for i in range(n):
+        for _ in range(rng.integers(1, 5)):
+            cx, cy = rng.uniform(0.5, grid - 0.5, 2)
+            w, h = rng.uniform(0.3, 6.0, 2)
+            gx, gy = int(cx), int(cy)
+            y[i, :, gy, gx] = 0.0
+            y[i, 0:4, gy, gx] = (max(cx - w / 2, 0.0), max(cy - h / 2, 0.0),
+                                 min(cx + w / 2, grid), min(cy + h / 2,
+                                                            grid))
+            y[i, 4 + rng.integers(0, classes), gy, gx] = 1.0
+    return x, y
+
+
+def _graph_types(conf):
+    """{node: its input types} over a graph's declared input types."""
+    types = dict(conf.input_types)
+    ins = {}
+    for name in conf.topo_order:
+        node, inputs = conf.nodes[name]
+        ins[name] = [types[i] for i in inputs]
+        multi = type(node).__name__.endswith("Vertex") or getattr(
+            node, "MULTI_INPUT", False)
+        types[name] = (node.infer(*ins[name]) if multi
+                       else node.infer(ins[name][0]))
+    return ins, types
+
+
+def _graph_forward_macs(conf):
+    """``_forward_macs`` of a graph: multiply-adds an example of its conv
+    and dense nodes."""
+    ins, types = _graph_types(conf)
+    macs = 0
+    for name in conf.topo_order:
+        node, _ = conf.nodes[name]
+        kind, out = type(node).__name__, types[name]
+        if kind == "ConvolutionLayer":
+            kh, kw = node.kernelSize
+            macs += out.height * out.width * node.nOut * node.nIn * kh * kw
+        elif kind in ("DenseLayer", "OutputLayer"):
+            macs += node.nIn * node.nOut
+    return macs
+
+
+def _activation_elements(conf):
+    """Elements an example of every node's output in a graph."""
+    _, types = _graph_types(conf)
+    return sum(t.arrayElementsPerExample() for name, t in types.items()
+               if name in conf.nodes)
+
+
+def _match_detections(got, want, gates):
+    """(detections of ``want`` with no detection of ``got`` of the same
+    example and class whose fields lie within ``gates`` ({field: gate}),
+    and the detections of ``got`` left over)."""
+    def key(o):
+        return (o.exampleNumber, o.predictedClass)
+
+    def near(a, b):
+        return all(abs(getattr(a, k) - getattr(b, k)) <= g
+                   for k, g in gates.items())
+
+    left = list(got)
+    missing = []
+    for w in want:
+        hit = next((g for g in left if key(g) == key(w) and near(g, w)),
+                   None)
+        if hit is None:
+            missing.append(w)
+        else:
+            left.remove(hit)
+    return missing, left
+
+
+def _detection_check(torch, gpu, cpu, x):
+    """YoloUtils.getPredictedObjects on the card's decoded output and the
+    CPU's: the same detections (example, class, and centre, size and
+    confidence each within YOLO_DECODE_TOL of that field's largest value
+    in the CPU's decoded output), but where a box's object confidence
+    lies within its gate of the threshold on either device (those are
+    counted and printed)."""
+    from deeplearning4j_tpu_torch.nn.objdetect import YoloUtils
+
+    d_gpu, d_cpu = gpu.outputSingle(x), cpu.outputSingle(x)
+    a_gpu, a_cpu = d_gpu.toNumpy(), d_cpu.toNumpy()
+    fields = {"xy": slice(0, 2), "wh": slice(2, 4), "conf": slice(4, 5),
+              "classes": slice(5, None)}
+    scale = {k: float(np.abs(a_cpu[:, :, f]).max())
+             for k, f in fields.items()}
+    err = max(float(np.abs(a_gpu[:, :, f] - a_cpu[:, :, f]).max())
+              / scale[k] for k, f in fields.items())
+    gates = {"centerX": YOLO_DECODE_TOL * scale["xy"],
+             "centerY": YOLO_DECODE_TOL * scale["xy"],
+             "width": YOLO_DECODE_TOL * scale["wh"],
+             "height": YOLO_DECODE_TOL * scale["wh"],
+             "confidence": YOLO_DECODE_TOL * scale["conf"]}
+    conf = np.stack([a_gpu[:, :, 4], a_cpu[:, :, 4]])
+    border = np.abs(conf - YOLO_THRESHOLD) <= gates["confidence"]
+    n_border = int(border.any(axis=0).sum())
+    t0 = time.perf_counter()
+    got = YoloUtils.getPredictedObjects(d_gpu, YOLO_THRESHOLD)
+    decode_s = time.perf_counter() - t0
+    want = YoloUtils.getPredictedObjects(d_cpu, YOLO_THRESHOLD)
+    missing, extra = _match_detections(got, want, gates)
+
+    def excused(o):
+        # a box at the threshold on either device, in o's cell
+        gx, gy = int(o.centerX), int(o.centerY)
+        return bool(border[:, o.exampleNumber, :, gy, gx].any())
+
+    unexcused = [o for o in missing + extra if not excused(o)]
+    print(f"yolo2: decoded output (inference) card vs CPU max|d|/max "
+          f"{err:.3e} (each field against its largest: xy, wh, confidence,"
+          f" classes); getPredictedObjects at {YOLO_THRESHOLD}: card "
+          f"{len(got)}, CPU {len(want)} detections over {x.shape[0]} images"
+          f" ({len({o.predictedClass for o in want})} classes); "
+          f"{len(missing)} CPU detections without a card twin, "
+          f"{len(extra)} card ones without a CPU twin; {n_border} boxes "
+          f"whose confidence lies within {gates['confidence']:.3e} of the "
+          f"threshold, {len(unexcused)} differences away from it; card "
+          f"decode {decode_s * 1e3:.2f} ms", flush=True)
+    if err > YOLO_DECODE_TOL or not want or unexcused:
+        fail(f"yolo2: detections differ between card and CPU ({err:.3e}, "
+             f"{len(unexcused)} away from the threshold)")
+
+
+def _adam_groups(net):
+    """(updater, weights, first moments, second moments) of each node or
+    layer holding params, the tensors as lists in one order (no moments
+    under NoOp)."""
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    graph = hasattr(net.conf, "nodes")
+    groups = []
+    for k in (net.conf.nodes if graph else range(len(net.layers))):
+        if not net._params[k]:
+            continue
+        upd = net._updater(k) if graph else net._layer_updater(k)
+        kind = type(upd).__name__
+        if kind not in ("Adam", "NoOp"):
+            fail(f"no Adam step check for a {kind} updater")
+        state = net._opt_states[k]
+        moments = ((tree_leaves(state["m"]), tree_leaves(state["v"]))
+                   if kind == "Adam" else ([], []))
+        groups.append((upd, tree_leaves(net._params[k])) + moments)
+    return groups
+
+
+def _adam_before(net):
+    """What ``_adam_gap`` reads of the state a step starts from: the
+    network's iteration and, on the CPU, each param group's weights and
+    Adam moments."""
+    return net._iteration, [
+        [[t.detach().cpu().clone() for t in ts] for ts in group[1:]]
+        for group in _adam_groups(net)]
+
+
+def _norm_gap(got, want):
+    """||got - want|| / ||want||, 0 where the two are equal."""
+    d = float((got - want).norm())
+    return d / max(float(want.norm()), 1e-30) if d else 0.0
+
+
+def _adam_gap(before, got, want):
+    """Two networks each stepped once by ``fit`` from the state ``before``
+    (``_adam_before``): (the largest, over the param arrays, of the gap in
+    norm between the gradients their first moments took in; the same of
+    the squared gradients their second moments took in; the largest
+    distance, in lr, of either network's weights from Adam's step of its
+    own new moments (inf where a NoOp weight moved); the largest distance
+    of the two networks' weights in lr; the weights more than PARAM_TOL lr
+    apart; the weights in all)."""
+    it, groups = before
+    grad = sq = form = reach = 0.0
+    apart = total = 0
+    for (w0s, m0s, v0s), (upd, *mine), (_, *theirs) in zip(
+            groups, _adam_groups(got), _adam_groups(want)):
+        nets = [[[t.detach().cpu() for t in ts] for ts in leaves]
+                for leaves in (mine, theirs)]
+        if not m0s:
+            if any(not bool((w0 == w1).all()) for w, _, _ in nets
+                   for w0, w1 in zip(w0s, w)):
+                form = float("inf")
+            continue
+        lr, bc = upd.lr(it), upd._bias_correction(it)
+        b1, b2 = upd.beta1, upd.beta2
+        for k, w0 in enumerate(w0s):
+            d = nets[0][0][k] - nets[1][0][k]
+            reach = max(reach, float(d.abs().max()) / lr)
+            apart += int((d.abs() > PARAM_TOL * lr).sum())
+            total += d.numel()
+            took = []
+            for w, m, v in nets:
+                adam = lr * bc * m[k] / (v[k].sqrt() + upd.epsilon)
+                form = max(form, float((w0 - w[k] - adam).abs().max()) / lr)
+                took.append(((m[k] - b1 * m0s[k]) / (1 - b1),
+                             (v[k] - b2 * v0s[k]) / (1 - b2)))
+            grad = max(grad, _norm_gap(took[0][0], took[1][0]))
+            sq = max(sq, _norm_gap(took[0][1], took[1][1]))
+    if got._iteration != it + 1 or want._iteration != it + 1:
+        fail(f"a fit call took {got._iteration - it} and "
+             f"{want._iteration - it} steps, not one")
+    return grad, sq, form, reach, apart, total
+
+
+def _gap_text(gap):
+    grad, sq, form, reach, apart, total = gap
+    return (f"gradients apart by up to {grad:.3e} of an array's norm, "
+            f"squared gradients {sq:.3e}; weights off Adam's step of their "
+            f"moments by up to {form:.3e} lr; weights apart by up to "
+            f"{reach:.4f} lr, {apart} of {total} by more than {PARAM_TOL} "
+            f"lr")
+
+
+def _adam_gate(name, step, gap):
+    """Fails unless the gradient an Adam step took in agrees with the
+    CPU's within RESNET_UPDATE_TOL of each array's norm, its square within
+    twice that, and each device's weights moved by Adam's step of its own
+    moments within PARAM_TOL lr."""
+    grad, sq, form = gap[:3]
+    if grad > RESNET_UPDATE_TOL or sq > 2 * RESNET_UPDATE_TOL or \
+            form > PARAM_TOL:
+        fail(f"{name}: step {step}: {_gap_text(gap)} (limits "
+             f"{RESNET_UPDATE_TOL} and {2 * RESNET_UPDATE_TOL} of the norm, "
+             f"{PARAM_TOL} lr)")
+
+
+def _steps_from_same_state(torch, name, gpu, cpu, batches, bns=None):
+    """One fit step a batch on the card and the CPU, each from the card's
+    state: each step's loss (TRAIN_LOSS_TOL relative), the
+    BatchNormalization running statistics (CNN_TOL of the largest) and
+    what each Adam step took in and did (``_adam_gate``) gated; the CPU at
+    one thread against itself at all as the yardstick of step 0."""
+    graph = hasattr(gpu.conf, "nodes")
+    if bns is None:
+        bns = ([n for n, (node, _) in gpu.conf.nodes.items()
+                if type(node).__name__ == "BatchNormalization"] if graph
+               else [i for i, lr_ in enumerate(gpu.layers)
+                     if type(lr_).__name__ == "BatchNormalization"])
+    yard = _graph_cpu_twin(gpu) if graph else _cpu_twin(gpu)
+    worst = worst_bn = 0.0
+    for step, (x, y) in enumerate(batches):
+        for twin in (cpu, yard) if step == 0 else (cpu,):
+            _copy_state(torch, gpu, twin)
+        before = _adam_before(cpu)
+        t0 = time.perf_counter()
+        gpu.fit((x, y))
+        g_loss = gpu.score()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu.fit((x, y))
+        t_cpu = time.perf_counter() - t0
+        rel = abs(g_loss - cpu.score()) / abs(cpu.score())
+        bn = max((_rel_err(gpu._states[n][k].cpu(), cpu._states[n][k])
+                  for n in bns for k in ("mean", "var")), default=0.0)
+        gap = _adam_gap(before, gpu, cpu)
+        worst, worst_bn = max(worst, rel), max(worst_bn, bn)
+        print(f"{name} step {step} (batch {x.shape[0]}, from the same "
+              f"state): loss card {g_loss:.6f}, CPU {cpu.score():.6f} (rel "
+              f"{rel:.3e}); running mean/var of {len(bns)} "
+              f"BatchNormalization layers max|d|/max {bn:.3e}; "
+              f"{_gap_text(gap)}; card {t_card:.3f} s, CPU {t_cpu:.3f} s",
+              flush=True)
+        if step == 0:
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                yard.fit((x, y))
+            finally:
+                torch.set_num_threads(threads)
+            print(f"{name} step 0 on the CPU at 1 thread against {threads}:"
+                  f" {_gap_text(_adam_gap(before, yard, cpu))}",
+                  flush=True)
+        _adam_gate(name, step, gap)
+    del yard
+    if worst > TRAIN_LOSS_TOL:
+        fail(f"{name}: losses differ by {worst:.3e} > {TRAIN_LOSS_TOL}")
+    if worst_bn > CNN_TOL:
+        fail(f"{name}: running statistics differ by {worst_bn:.3e} > "
+             f"{CNN_TOL}")
+
+
+def _output_gap(gpu, cpu, xs, train=False):
+    """max|card - CPU| / max|CPU| of the first output."""
+    want = cpu.output(*xs, train=train) if hasattr(cpu.conf, "nodes") \
+        else [cpu.output(xs[0], train=train)]
+    got = gpu.output(*xs, train=train) if hasattr(gpu.conf, "nodes") \
+        else [gpu.output(xs[0], train=train)]
+    want, got = want[0].toNumpy(), got[0].toNumpy()
+    if not np.isfinite(got).all():
+        fail("a card output is not finite")
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _head_gap(torch, gpu, cpu, x, train=False):
+    """max|card - CPU| / max|CPU| of a detector's head, the output
+    layer's input (before the decode)."""
+    heads = []
+    for net in (gpu, cpu):
+        with torch.no_grad():
+            if hasattr(net.conf, "nodes"):
+                env, _ = net._forward(net._params, net._states,
+                                      {net.conf.inputs[0]: x}, train,
+                                      stop_before_output=True)
+                h = env[net.conf.outputs[0]]
+            else:
+                h, _ = net._forward(net._params, net._states,
+                                    net._input(x), train,
+                                    upto=len(net.layers) - 1)
+        heads.append(h.cpu())
+    return _rel_err(*heads)
+
+
+def _detector_output_check(torch, name, gpu, cpu, x, train, what):
+    """The head (CNN_TOL) and the decoded output (YOLO_DECODE_TOL) card
+    against CPU."""
+    head = _head_gap(torch, gpu, cpu, x, train)
+    dec = _output_gap(gpu, cpu, [x], train)
+    print(f"{name}: output ({what}) at batch {x.shape[0]} card vs CPU "
+          f"max|d|/max: head {head:.3e}, decoded {dec:.3e}", flush=True)
+    if head > CNN_TOL or dec > YOLO_DECODE_TOL:
+        fail(f"{name}: output ({what}) card vs CPU head {head:.3e} (limit "
+             f"{CNN_TOL}), decoded {dec:.3e} (limit {YOLO_DECODE_TOL})")
+
+
+def _detector_fit_timing(torch, card, name, gpu, batch, macs, rng,
+                         classes):
+    """The fit step at ``batch`` by CUDA events, host clock over a fit call
+    of YOLO_TIMED steps, images/s, the share of the float32 peak (6 FLOP a
+    forward multiply-add), the peak memory, device time by kernel and the
+    idle share."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    ds = DataSet(*coco_batch(rng, batch, classes))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    med, lo, hi = time_ms(lambda: gpu.fit(ds), YOLO_TIMED, spread=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host, _, _ = _fit_steps_ms(torch, gpu, [ds] * YOLO_TIMED, reps=1)
+    flop = 6 * macs * batch
+    bound = flop / PEAK_F32 * 1e3
+    print(f"{name} ({card}): fit step at batch {batch} ({YOLO_SHAPE[1]}x"
+          f"{YOLO_SHAPE[2]}, float32): {med:.3f} ms by CUDA events (min "
+          f"{lo:.3f}, max {hi:.3f}; {YOLO_TIMED} steps), "
+          f"{batch / med * 1e3:.1f} images/s; host clock {host:.3f} ms a "
+          f"step over a fit call of {YOLO_TIMED}; {flop / 1e12:.3f} TFLOP "
+          f"a step, {flop / med / 1e9:.2f} TFLOP/s, {100 * bound / med:.1f}%"
+          f" of the float32 peak (bound {bound:.3f} ms); peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    _profile_fit(torch, f"{name} b{batch}", gpu, ds, med, card, top=12)
+
+
+def _yolo2_checks(torch, card):
+    """YOLO2 (the zoo's, 416x416x3, 80 classes, the 5 COCO priors) on the
+    card against its CPU twin: output in training mode; the running
+    statistics set to one batch's, output in inference and the
+    detections; 3 Adam steps at batch 4 from the same state; a zip; a
+    served burst; then ``output`` at 16 and the fit step at batch 16 and
+    64."""
+    import tempfile
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.models import YOLO2
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+
+    rng = np.random.default_rng(SEED + 416)
+    t0 = time.perf_counter()
+    gpu = YOLO2().init()
+    init_s = time.perf_counter() - t0
+    if gpu.device.type != "cuda":
+        fail(f"YOLO2().init() put the graph on {gpu.device}, not cuda")
+    kinds = [type(n).__name__ for n, _ in gpu.conf.nodes.values()]
+    bns = [name for name, (n, _) in gpu.conf.nodes.items()
+           if type(n).__name__ == "BatchNormalization"]
+    macs = _graph_forward_macs(gpu.conf)
+    print(f"yolo2: {gpu.numParams()} params, {len(kinds)} nodes "
+          f"({kinds.count('ConvolutionLayer')} conv, {len(bns)} "
+          f"BatchNormalization, SpaceToDepth reorg merged into the "
+          f"{YOLO_GRID}x{YOLO_GRID} head); {macs / 1e9:.2f} G multiply-adds "
+          f"an image forward; init {init_s:.2f} s", flush=True)
+    if gpu.numParams() != YOLO_PARAMS or len(bns) != 22:
+        fail(f"yolo2 has {gpu.numParams()} params, {len(bns)} "
+             f"BatchNormalization nodes")
+    cpu = _graph_cpu_twin(gpu)
+
+    x, _ = coco_batch(rng, YOLO_CHECK_BATCH)
+    _detector_output_check(torch, "yolo2", gpu, cpu, x, True,
+                           "training mode, batch statistics")
+
+    _calibrate_bn(torch, gpu, gpu._input(coco_batch(rng, 16)[0]))
+    _copy_state(torch, gpu, cpu)
+    x, _ = coco_batch(rng, YOLO_CHECK_BATCH)
+    _detector_output_check(torch, "yolo2", gpu, cpu, x, False,
+                           "inference, running statistics of one batch "
+                           "of 16")
+    _detection_check(torch, gpu, cpu, coco_batch(rng, 4)[0])
+
+    batches = [coco_batch(rng, YOLO_STEP_BATCH) for _ in range(YOLO_STEPS)]
+    print(f"yolo2: training labels hold "
+          f"{[int(b[1][:, 4:].sum()) for b in batches]} boxes over "
+          f"{YOLO_STEP_BATCH} images a batch", flush=True)
+    _steps_from_same_state(torch, "yolo2", gpu, cpu, batches, bns)
+    if any(float(gpu._states[n]["mean"].abs().max()) == 0 for n in bns):
+        fail("yolo2: a BatchNormalization node kept no running mean")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "yolo2.zip")
+        ModelSerializer.writeModel(gpu, path)
+        size = Path(path).stat().st_size
+        back = ModelSerializer.restoreComputationGraph(path)
+        back_cpu = ModelSerializer.restoreComputationGraph(path,
+                                                           device="cpu")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves([back._params, back._states, back._opt_states]),
+        tree_leaves([gpu._params, gpu._states, gpu._opt_states])))
+    want = gpu.outputSingle(x).toNumpy()
+    bits = np.array_equal(back.outputSingle(x).toNumpy(), want)
+    err = float(np.abs(back_cpu.outputSingle(x).toNumpy() - want).max()
+                / np.abs(want).max())
+    print(f"yolo2: zip {size} bytes; restored on the card: state equal "
+          f"{same}, iteration {back.getIterationCount()}, output bit-equal "
+          f"{bits}; restored on the CPU: output max|d|/max {err:.3e}",
+          flush=True)
+    if not (same and bits) or back.device.type != "cuda" or \
+            back.getIterationCount() != gpu.getIterationCount() or \
+            err > YOLO_DECODE_TOL:
+        fail("yolo2: the restored graph differs from the saved one")
+    del back, back_cpu, cpu
+
+    requests = [coco_batch(rng, n)[0] for n in YOLO_BURST]
+    answers, warmed, dispatches, _, serve_s = _serve_burst(
+        torch, "yolo2", gpu, YOLO_SHAPE, requests,
+        BucketLadder((1, 4, 8, 16)), ())
+    worst = 0.0
+    for r, y in zip(requests, answers):
+        if y.shape != (r.shape[0], 5, 85, YOLO_GRID, YOLO_GRID) or \
+                not np.isfinite(y).all():
+            fail(f"yolo2: served {y.shape} for a request of {r.shape}")
+        want = gpu.outputSingle(r).toNumpy()
+        worst = max(worst, float(np.abs(y - want).max() / np.abs(want).max()))
+    print(f"yolo2 ({card}): served {len(requests)} requests "
+          f"({sum(YOLO_BURST)} images) in {len(dispatches)} dispatches "
+          f"{sorted(s[0] for s in dispatches)}, {serve_s:.4f} s; warmup of "
+          f"{len(warmed)} shapes; served vs outputSingle max|d|/max "
+          f"{worst:.3e}", flush=True)
+    # a bucket's batch may take another cuDNN algorithm than the
+    # request's own batch: rows differ by the rounding the decode check
+    # allows
+    if worst > YOLO_DECODE_TOL:
+        fail(f"yolo2: served rows vs outputSingle {worst:.3e} > "
+             f"{YOLO_DECODE_TOL}")
+
+    x16, _ = coco_batch(rng, 16)
+    med, lo, hi = time_ms(lambda: gpu.outputSingle(x16), 10, spread=True)
+    print(f"yolo2 ({card}): output at batch 16 {med:.3f} ms by CUDA events "
+          f"(min {lo:.3f}, max {hi:.3f}), {16 / med * 1e3:.1f} images/s",
+          flush=True)
+    # reckoned before the run: about six float32 tensors a node output
+    # kept for backward, plus params, gradients and Adam's two moments
+    act = _activation_elements(gpu.conf)
+    for n in YOLO_FIT_BATCHES:
+        print(f"yolo2: batch {n} reckoned at ~"
+              f"{(6 * act * n + 4 * gpu.numParams()) * 4 / 2**30:.1f} GiB "
+              f"({act / 1e6:.1f} M activation elements an image)",
+              flush=True)
+    for n in YOLO_FIT_BATCHES:
+        _detector_fit_timing(torch, card, "yolo2", gpu, n, macs, rng, 80)
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def _tiny_yolo_checks(torch, card):
+    """TinyYOLO at VOC widths (416x416, 20 classes), a
+    MultiLayerNetwork: output in training mode against its CPU twin, 2
+    Adam steps from the same state, a served burst, the fit step at batch
+    64."""
+    from deeplearning4j_tpu_torch.models import TinyYOLO
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+
+    rng = np.random.default_rng(SEED + 20)
+    gpu = TinyYOLO().init()
+    if gpu.device.type != "cuda" or gpu.numParams() != TINY_PARAMS:
+        fail(f"TinyYOLO().init(): {gpu.numParams()} params on {gpu.device}")
+    cpu = _cpu_twin(gpu)
+    cpu._states = [{k: v.cpu() for k, v in s.items()} for s in gpu._states]
+    x, _ = coco_batch(rng, YOLO_CHECK_BATCH, 20)
+    print(f"tinyyolo: {gpu.numParams()} params", flush=True)
+    _detector_output_check(torch, "tinyyolo", gpu, cpu, x, True,
+                           "training mode, batch statistics")
+    _steps_from_same_state(torch, "tinyyolo", gpu, cpu, [
+        coco_batch(rng, YOLO_STEP_BATCH, 20) for _ in range(TINY_STEPS)])
+    del cpu
+    requests = [coco_batch(rng, n, 20)[0] for n in YOLO_BURST]
+    answers, _, dispatches, _, serve_s = _serve_burst(
+        torch, "tinyyolo", gpu, YOLO_SHAPE, requests,
+        BucketLadder((1, 4, 8, 16)), ())
+    worst = max(float(np.abs(y - gpu.output(r).toNumpy()).max()
+                      / np.abs(gpu.output(r).toNumpy()).max())
+                for r, y in zip(requests, answers))
+    print(f"tinyyolo ({card}): served {len(requests)} requests in "
+          f"{len(dispatches)} dispatches, {serve_s:.4f} s; served vs output "
+          f"max|d|/max {worst:.3e}", flush=True)
+    if worst > YOLO_DECODE_TOL or any(
+            y.shape[1:] != (5, 25, YOLO_GRID, YOLO_GRID) for y in answers):
+        fail(f"tinyyolo: served rows vs output {worst:.3e}")
+    _detector_fit_timing(torch, card, "tinyyolo", gpu, TINY_FIT_BATCH,
+                         _forward_macs(gpu.conf), rng, 20)
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def _wrapped_lstm_net_conf():
+    """MaskZeroLayer(LSTM 64) over float sequences of IMDB's embedding
+    width (128), a FrozenLayer(LSTM 64) above it, a per-step softmax."""
+    from deeplearning4j_tpu_torch import nn
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    t, _, h = IMDB_SHAPE
+    return (nn.NeuralNetConfiguration.Builder().seed(SEED).updater(
+        Adam(1e-3)).list()
+        .layer(nn.MaskZeroLayer(underlying=nn.LSTM.Builder().nOut(h)
+                                .build()))
+        .layer(nn.FrozenLayer(layer=nn.LSTM.Builder().nOut(h).build()))
+        .layer(nn.RnnOutputLayer.Builder().nOut(2).activation("softmax")
+               .lossFunction("mcxent").build())
+        .setInputType(nn.InputType.recurrent(IMDB_EMBED, t))
+        .build())
+
+
+def wrapped_lstm_phase(torch, lstm):
+    """Rows 1-3 through the wrappers at the IMDB widths (T=200, N=32,
+    H=64): MaskZeroLayer(LSTM) over zero-padded float sequences, with a
+    FrozenLayer(LSTM) above it, on the card against the CPU from the same
+    weights: ``gradients`` (GRAD_TOL), ``output`` (KERNEL_TOL of the
+    largest) with its row-2 launches, and WRAP_STEPS fit steps each from
+    the same state (the main path: rows 1 and 3 launched, the loss to
+    TRAIN_LOSS_TOL, the step by ``_adam_gate``), the frozen weights
+    bit-equal. Returns the launches."""
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    t, n, h = IMDB_SHAPE
+    conf = _wrapped_lstm_net_conf()
+    rng = np.random.default_rng(SEED + 64)
+    arrays = [_random_group(lr_.param_shapes(), rng) for lr_ in conf.layers]
+    gpu, cpu = _net_pair(conf.to_json(), arrays)
+
+    def batch():
+        x = rng.normal(size=(n, IMDB_EMBED, t)).astype(np.float32)
+        for i, length in enumerate(rng.integers(t // 4, t + 1, n)):
+            x[i, :, length:] = 0.0          # zero-padded tails
+        y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, (n, t))]
+        return x, y.transpose(0, 2, 1).copy()
+
+    x, y = batch()
+    worst_g = _worst_grad(torch, gpu.gradients(x, y), cpu.gradients(x, y))
+    kernels = (lstm.lstm_seq_infer, lstm.lstm_seq_fwd, lstm.lstm_seq_bwd)
+    out, infer = _launches(kernels, lambda: gpu.output(x).toNumpy())
+    want = cpu.output(x).toNumpy()
+    err = float(np.abs(out - want).max() / np.abs(want).max())
+    pad = np.all(x == 0, axis=1)
+    h1 = gpu.feedForward(x)[1].toNumpy().transpose(0, 2, 1)
+    print(f"wrapped lstm: MaskZeroLayer(LSTM {h}) + FrozenLayer(LSTM {h}) "
+          f"at T={t} N={n}: gradients card vs CPU max|d|/max {worst_g:.3e};"
+          f" output {err:.3e}, launches {infer}; {int(pad.sum())} masked "
+          f"steps, their outputs all zero {bool(np.all(h1[pad] == 0))}",
+          flush=True)
+    if worst_g > GRAD_TOL or err > KERNEL_TOL or not np.all(h1[pad] == 0):
+        fail(f"wrapped lstm: gradients {worst_g:.3e}, output {err:.3e}")
+    if infer != {"lstm_seq_infer": 2, "lstm_seq_fwd": 0,
+                 "lstm_seq_bwd": 0}:
+        fail(f"wrapped lstm: output launched {infer}")
+    frozen = [p.clone() for p in tree_leaves(gpu._params[1])]
+    batches = [batch() for _ in range(WRAP_STEPS)]
+
+    def steps():
+        for xb, yb in batches:
+            gpu.fit((xb, yb))
+
+    _copy_state(torch, gpu, cpu)
+    before = _adam_before(cpu)
+    _, fit = _launches(kernels, lambda: gpu.fit(batches[0]))
+    cpu.fit(batches[0])
+    rel = abs(gpu.score() - cpu.score()) / abs(cpu.score())
+    gap = _adam_gap(before, gpu, cpu)
+    for xb, yb in batches[1:]:
+        _copy_state(torch, gpu, cpu)
+        gpu.fit((xb, yb))
+        cpu.fit((xb, yb))
+        rel = max(rel, abs(gpu.score() - cpu.score()) / abs(cpu.score()))
+    still = all(torch.equal(a, b) for a, b in zip(
+        frozen, tree_leaves(gpu._params[1])))
+    print(f"wrapped lstm: {WRAP_STEPS} Adam steps from the same state, "
+          f"losses card vs CPU within {rel:.3e}; step 0: {_gap_text(gap)}; "
+          f"launches in a step {fit}; the FrozenLayer's weights bit-equal "
+          f"{still}", flush=True)
+    _adam_gate("wrapped lstm", 0, gap)
+    if rel > TRAIN_LOSS_TOL or not still:
+        fail(f"wrapped lstm: losses {rel:.3e}, frozen weights kept "
+             f"{still}")
+    if fit != {"lstm_seq_infer": 0, "lstm_seq_fwd": 2, "lstm_seq_bwd": 2}:
+        fail(f"wrapped lstm: a fit step launched {fit}")
+    _, fit_all = _launches(kernels, steps)
+    del gpu, cpu
+    return {"fit": fit_all, "eval": infer}
+
+
+def _small_nets():
+    """Small-width networks holding every other class of this slice, as
+    (name, configuration, input shapes, label shape, label kind)."""
+    from deeplearning4j_tpu_torch import nn
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    def conf(layers, it):
+        b = (nn.NeuralNetConfiguration.Builder().seed(SEED)
+             .updater(Adam(SMALL_LR)).list())
+        for lr_ in layers:
+            b = b.layer(lr_)
+        return b.setInputType(it).build()
+
+    g = (nn.NeuralNetConfiguration.Builder().seed(SEED)
+         .updater(Adam(SMALL_LR)).graphBuilder().addInputs("q", "kv"))
+    g.setInputTypes(nn.InputType.recurrent(6, 10),
+                    nn.InputType.recurrent(8, 12))
+    g.addLayer("att", nn.AttentionVertex(nOut=8, nHeads=2), "q", "kv",
+               "kv")
+    g.addLayer("pool", nn.GlobalPoolingLayer.Builder().build(), "att")
+    g.addLayer("out", nn.CenterLossOutputLayer.Builder().nOut(3)
+               .lambdaCoeff(0.1).build(), "pool")
+    g.setOutputs("out")
+    return [
+        ("conv3d", conf([
+            nn.Convolution3D.Builder(nOut=4, kernelSize=[3, 3, 3],
+                                     convolutionMode="same",
+                                     activation="relu").build(),
+            nn.Subsampling3DLayer.Builder(kernelSize=[2, 2, 2],
+                                          stride=[2, 2, 2]).build(),
+            nn.Cropping3D(cropping=(1, 0, 0)),
+            nn.Upsampling3D(size=2),
+            nn.Subsampling3DLayer.Builder(poolingType="avg",
+                                          kernelSize=[2, 2, 2]).build(),
+            nn.DenseLayer.Builder(nOut=16, activation="tanh").build(),
+            nn.OutputLayer.Builder(nOut=3).build()],
+            nn.InputType.convolutional3D(8, 8, 8, 2)),
+         [(8, 2, 8, 8, 8)], 3, "classes"),
+        ("conv2d", conf([
+            nn.ConvolutionLayer.Builder().nOut(6).kernelSize([3, 3])
+            .activation("relu").build(),
+            nn.Cropping2D(cropping=(1, 0, 1, 1)),
+            nn.PReLULayer(alphaInit=0.1),
+            nn.LocallyConnected2D.Builder(nOut=4, kernelSize=[3, 3],
+                                          stride=[2, 2]).build(),
+            nn.FrozenLayer(layer=nn.BatchNormalization.Builder().build()),
+            nn.CenterLossOutputLayer.Builder().nOut(3).lambdaCoeff(0.1)
+            .build()], nn.InputType.convolutional(16, 16, 3)),
+         [(8, 3, 16, 16)], 3, "classes"),
+        ("sequence", conf([
+            nn.RepeatVector(repetitionFactor=9),
+            nn.Cropping1D(cropping=(1, 0)),
+            nn.Upsampling1D(size=2),
+            nn.LocallyConnected1D.Builder(nOut=8, kernelSize=3,
+                                          activation="tanh").build(),
+            nn.SelfAttentionLayer.Builder(nOut=8, nHeads=2).build(),
+            nn.RecurrentAttentionLayer.Builder(nOut=6).build(),
+            nn.LearnedSelfAttentionLayer.Builder(nOut=6, nHeads=2,
+                                                 nQueries=4).build(),
+            nn.RnnOutputLayer.Builder().nOut(2).build()],
+            nn.InputType.feedForward(5)),
+         [(8, 5)], (2, 4), "steps"),
+        ("ocnn", conf([
+            nn.ElementWiseMultiplicationLayer(activation="tanh"),
+            nn.DenseLayer.Builder(nOut=8, activation="tanh").build(),
+            nn.OCNNOutputLayer.Builder(hiddenSize=6, nu=0.1,
+                                       windowSize=64).build()],
+            nn.InputType.feedForward(4)),
+         [(32, 4)], 1, "zeros"),
+        ("capsnet", conf([
+            nn.ConvolutionLayer.Builder().nOut(8).kernelSize([3, 3])
+            .activation("relu").build(),
+            nn.PrimaryCapsules.Builder(capsuleDimensions=4, channels=2,
+                                       kernelSize=[3, 3],
+                                       stride=[2, 2]).build(),
+            nn.CapsuleLayer.Builder(capsules=3, capsuleDimensions=6,
+                                    routings=3).build(),
+            nn.CapsuleStrengthLayer.Builder().build(),
+            nn.ActivationLayer.Builder().activation("softmax").build(),
+            nn.LossLayer(lossFunction="mcxent", activation="identity")],
+            nn.InputType.convolutional(12, 12, 1)),
+         [(8, 1, 12, 12)], 3, "classes"),
+        ("attention_vertex", g.build(), [(8, 6, 10), (8, 8, 12)], 3,
+         "classes"),
+    ]
+
+
+def _pretrain_check(torch):
+    """AutoEncoder and VAE: each layer's pretrain loss and its gradients
+    with the same noise passed in (the AE's corruption mask, the VAE's
+    eps) on the card against the CPU (GRAD_TOL of the largest), and one
+    ``pretrainLayer`` step of each on the card."""
+    from deeplearning4j_tpu_torch import nn
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    conf = (nn.NeuralNetConfiguration.Builder().seed(SEED)
+            .updater(Adam(SMALL_LR)).list()
+            .layer(nn.AutoEncoder.Builder(nIn=64, nOut=32,
+                                          corruptionLevel=0.3).build())
+            .layer(nn.VariationalAutoencoder.Builder(
+                nOut=8, encoderLayerSizes=(24,), decoderLayerSizes=(24,),
+                numSamples=2,
+                reconstructionDistribution="gaussian").build())
+            .layer(nn.OutputLayer.Builder().nOut(4).build()).build())
+    rng = np.random.default_rng(SEED + 7)
+    arrays = [_random_group(lr_.param_shapes(), rng) for lr_ in conf.layers]
+    gpu, cpu = _net_pair(conf.to_json(), arrays)
+    x = (rng.random((32, 64)) > 0.5).astype(np.float32)
+    for i, noise in ((0, {"keep": rng.random((32, 64)) > 0.3}),
+                     (1, {"eps": rng.normal(size=(2, 32, 8)).astype(
+                         np.float32)})):
+        grads = []
+        for net in (gpu, cpu):
+            with torch.no_grad():
+                h, _ = net._forward(net._params, net._states,
+                                    net._input(x), upto=i)
+            p = {k: v.detach().requires_grad_()
+                 for k, v in net._params[i].items()}
+            loss = net.layers[i].pretrain_loss(
+                p, h, **{k: torch.as_tensor(v, device=net.device)
+                         for k, v in noise.items()})
+            grads.append((loss, torch.autograd.grad(
+                loss, tree_leaves(p))))
+        (lg, gg), (lc, gc) = grads
+        lg, lc = float(lg.detach()), float(lc.detach())
+        rel = abs(lg - lc) / abs(lc)
+        g_err = max(_rel_err(a.cpu(), b) for a, b in zip(gg, gc))
+        print(f"pretrain: {type(gpu.layers[i]).__name__} pretrain loss with"
+              f" the noise passed in card {lg:.6f}, CPU {lc:.6f} (rel "
+              f"{rel:.3e}); gradients max|d|/max {g_err:.3e}", flush=True)
+        if rel > TRAIN_LOSS_TOL or g_err > GRAD_TOL:
+            fail(f"pretrain: layer {i} card vs CPU loss {rel:.3e}, "
+                 f"gradients {g_err:.3e}")
+    for i in (0, 1):
+        before = [p.clone() for p in tree_leaves(gpu._params[i])]
+        gpu.pretrainLayer(i, (x, None))
+        moved = max(float((a - b).abs().max()) for a, b in zip(
+            before, tree_leaves(gpu._params[i])))
+        if not np.isfinite(gpu.score()) or moved == 0:
+            fail(f"pretrain: pretrainLayer({i}) on the card: loss "
+                 f"{gpu.score()}, moved {moved}")
+
+
+def small_layers_phase(torch):
+    """Every other class of this slice at small widths, on the card
+    against its CPU twin from the same weights: the output (CNN_TOL of
+    the largest) and one Adam step (the loss to TRAIN_LOSS_TOL relative,
+    the step by ``_adam_gate``, OCNN's state through the
+    loss-state channel); then the pretrain check."""
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    rng = np.random.default_rng(SEED + 3)
+    for name, conf, shapes, n_out, kind in _small_nets():
+        graph = hasattr(conf, "nodes")
+        if graph:
+            from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+            gpu = ComputationGraph(conf).init()
+            cpu = _graph_cpu_twin(gpu)
+        else:
+            from deeplearning4j_tpu_torch.nn.multilayer import (
+                MultiLayerNetwork)
+
+            gpu = MultiLayerNetwork(conf).init()
+            cpu = _cpu_twin(gpu)
+            cpu._states = [{k: v.cpu() for k, v in s.items()}
+                           for s in gpu._states]
+        xs = [rng.normal(size=s).astype(np.float32) for s in shapes]
+        n = shapes[0][0]
+        if kind == "classes":
+            y = np.eye(n_out, dtype=np.float32)[rng.integers(0, n_out, n)]
+        elif kind == "steps":
+            c, t = n_out
+            y = np.eye(c, dtype=np.float32)[rng.integers(0, c, (n, t))]
+            y = y.transpose(0, 2, 1).copy()
+        else:
+            y = np.zeros((n, n_out), np.float32)
+        err = _output_gap(gpu, cpu, xs)
+        before = _adam_before(cpu)
+        data = (xs, [y]) if graph else (xs[0], y)
+        if graph:
+            from deeplearning4j_tpu_torch.datasets import MultiDataSet
+
+            data = MultiDataSet(xs, [y])
+        gpu.fit(data)
+        cpu.fit(data)
+        rel = abs(gpu.score() - cpu.score()) / max(abs(cpu.score()), 1e-30)
+        gap = _adam_gap(before, gpu, cpu)
+        kinds = sorted({type(node).__name__ for node in (
+            [nd for nd, _ in conf.nodes.values()] if graph else
+            conf.layers)})
+        extra = ""
+        if name == "ocnn":
+            r_g, r_c = (float(s[-1]["r"]) for s in (gpu._states,
+                                                     cpu._states))
+            extra = f"; OCNN r card {r_g:.6f}, CPU {r_c:.6f}"
+            if abs(r_g - r_c) > CNN_TOL * max(abs(r_c), 1e-30) or \
+                    int(gpu._states[-1]["seen"]) != 1:
+                fail(f"small {name}: OCNN state card {r_g} CPU {r_c}")
+        print(f"small {name} ({', '.join(kinds)}): output card vs CPU "
+              f"max|d|/max {err:.3e}; one step loss card {gpu.score():.6f}"
+              f" CPU {cpu.score():.6f} (rel {rel:.3e}), {_gap_text(gap)}"
+              f"{extra}", flush=True)
+        _adam_gate(f"small {name}", 0, gap)
+        if err > CNN_TOL or rel > TRAIN_LOSS_TOL:
+            fail(f"small {name}: output {err:.3e}, loss {rel:.3e}")
+        del gpu, cpu
+    _pretrain_check(torch)
+
+
+def detection_phase(torch, card, lstm):
+    """YOLO2 (the zoo's ComputationGraph, 416x416x3, 80 classes) and
+    TinyYOLO (VOC's 20 classes) through the port's entry points, rows 1-3
+    through MaskZeroLayer(LSTM) and FrozenLayer(LSTM), and every other
+    class of this slice at small widths, each on the card against its
+    CPU twin. Returns the wrapped LSTM's launches."""
+    t0 = time.perf_counter()
+    flags = _tf32_flags(torch)
+    if flags["cuda.matmul.allow_tf32"] or flags["cudnn.allow_tf32"] or \
+            flags.get("cudnn.conv.fp32_precision", "ieee") != "ieee":
+        fail(f"TF32 is on: {flags}")
+    _yolo2_checks(torch, card)
+    _tiny_yolo_checks(torch, card)
+    wrapped = wrapped_lstm_phase(torch, lstm)
+    small_layers_phase(torch)
+    print(f"detection: phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return wrapped
+
+
 def main():
     import torch
 
@@ -4554,6 +5474,7 @@ def main():
     lenet_phase(torch, card)
     cnn_phase(torch, card)
     resnet50_phase(torch, card)
+    wrapped = detection_phase(torch, card, lstm)
 
     pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(via deeplearning4j_tpu/models/bert.py:197)")
@@ -4573,6 +5494,19 @@ def main():
           train_rows[name])[IMDB_SHAPE]["err"], IMDB_SHAPE,
          dict((rows if name == "lstm_seq_infer" else
                train_rows[name])[IMDB_SHAPE], path="bilstm_imdb"))
+        for name, source, line in (("lstm_seq_infer", "lstm_seq_infer.cu",
+                                    115),
+                                   ("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
+                                   ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
+    ] + [
+        # rows 1-3 through MaskZeroLayer(LSTM) and FrozenLayer(LSTM): row 2
+        # launched by output, rows 1 and 3 by fit
+        (name, source, f"kernels/lstm.py:{line}",
+         wrapped["eval" if name == "lstm_seq_infer" else "fit"][name],
+         (rows if name == "lstm_seq_infer" else
+          train_rows[name])[IMDB_SHAPE]["err"], IMDB_SHAPE,
+         dict((rows if name == "lstm_seq_infer" else
+               train_rows[name])[IMDB_SHAPE], path="maskzero_lstm"))
         for name, source, line in (("lstm_seq_infer", "lstm_seq_infer.cu",
                                     115),
                                    ("lstm_seq_fwd", "lstm_seq_infer.cu", 97),

@@ -20,6 +20,24 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
     PoolingType, RnnOutputLayer, SeparableConvolution2D, SimpleRnn,
     SpaceToDepth, Subsampling1DLayer, SubsamplingLayer, Upsampling2D,
     ZeroPaddingLayer)
+from deeplearning4j_tpu_torch.nn.conf.objdetect import (  # noqa: F401
+    Yolo2OutputLayer)
+from deeplearning4j_tpu_torch.nn.conf.attention import (  # noqa: F401
+    AttentionVertex, LearnedSelfAttentionLayer, RecurrentAttentionLayer,
+    SelfAttentionLayer)
+from deeplearning4j_tpu_torch.nn.conf.capsnet import (  # noqa: F401
+    CapsuleLayer, CapsuleStrengthLayer, PrimaryCapsules)
+from deeplearning4j_tpu_torch.nn.conf.layers_extra import (  # noqa: F401
+    CenterLossOutputLayer, Convolution3D, Cropping1D, Cropping2D,
+    Cropping3D, ElementWiseMultiplicationLayer, FrozenLayer,
+    LocallyConnected1D, LocallyConnected2D, MaskZeroLayer,
+    OCNNOutputLayer, PReLULayer, RepeatVector, Subsampling3DLayer,
+    Upsampling1D, Upsampling3D)
+from deeplearning4j_tpu_torch.nn.objdetect import (  # noqa: F401
+    DetectedObject, YoloUtils)
+from deeplearning4j_tpu_torch.nn.conf.variational import (  # noqa: F401
+    AutoEncoder, BernoulliReconstructionDistribution,
+    GaussianReconstructionDistribution, VariationalAutoencoder)
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401
     GradientNormalization, MultiLayerNetwork)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: F401

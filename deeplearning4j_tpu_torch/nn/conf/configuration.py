@@ -9,6 +9,7 @@ JAX package's does: a flat [N, C*H*W] input (``convolutionalFlat``) is
 reshaped to [N, C, H, W] before the first conv or pooling layer, and conv
 activations are flattened channel-major to [N, C*H*W] before the first
 layer that does not take them as they are (a dense or output layer).
+A wrapper (FrozenLayer, MaskZeroLayer) is inferred by its inner layer.
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     DepthToSpace, DropoutLayer, EmbeddingSequenceLayer, GlobalPoolingLayer,
     LocalResponseNormalization, SimpleRnn, SpaceToDepth, SubsamplingLayer,
     Upsampling2D, ZeroPaddingLayer)
+from deeplearning4j_tpu_torch.nn.conf.capsnet import PrimaryCapsules
+from deeplearning4j_tpu_torch.nn.conf.layers_extra import (
+    Cropping2D, FrozenLayer, LocallyConnected2D, MaskZeroLayer, PReLULayer)
+from deeplearning4j_tpu_torch.nn.conf.objdetect import Yolo2OutputLayer
+from deeplearning4j_tpu_torch.nn.conf.variational import (
+    AutoEncoder, VariationalAutoencoder)
 from deeplearning4j_tpu_torch.optimize.updaters import (
     IUpdater, Sgd, updater_from_config)
 
@@ -34,10 +41,11 @@ _PP_FLATTEN = "cnn_to_ff"
 _PP_TO_CNN = "ff_to_cnn"
 
 # layers that take conv activations as they are: no flatten before them
-_TAKES_CONV = (ActivationLayer, BatchNormalization, Deconvolution2D,
-               DepthToSpace, DropoutLayer, GlobalPoolingLayer,
-               LocalResponseNormalization, SpaceToDepth, Upsampling2D,
-               ZeroPaddingLayer)
+_TAKES_CONV = (ActivationLayer, BatchNormalization, Cropping2D,
+               Deconvolution2D, DepthToSpace, DropoutLayer,
+               GlobalPoolingLayer, LocalResponseNormalization,
+               LocallyConnected2D, PReLULayer, PrimaryCapsules, SpaceToDepth,
+               Upsampling2D, Yolo2OutputLayer, ZeroPaddingLayer)
 
 
 def _apply_preprocessor(pp, x):
@@ -55,7 +63,10 @@ def _apply_preprocessor(pp, x):
 
 def _wants_conv(layer):
     """Layers that consume CNN activations directly (GlobalPooling reduces
-    the spatial axes itself; Dropout and Activation keep the shape)."""
+    the spatial axes itself; Dropout and Activation keep the shape); a
+    FrozenLayer as its inner layer."""
+    if isinstance(layer, FrozenLayer):
+        return _wants_conv(layer.layer)
     return isinstance(layer, _TAKES_CONV)
 
 
@@ -93,19 +104,24 @@ class MultiLayerConfiguration:
             # no declared input type: a first layer that states its nIn
             # implies the input kind, and inference chains from there
             first = self.layers[0]
+            while isinstance(first, (FrozenLayer, MaskZeroLayer)):
+                first = (first.layer if isinstance(first, FrozenLayer)
+                         else first.underlying)
             n_in = getattr(first, "nIn", None)
             if n_in is None:
                 return
             if isinstance(first, (LSTM, SimpleRnn, Convolution1DLayer,
                                   EmbeddingSequenceLayer)):
                 it = InputType.recurrent(n_in)
-            elif isinstance(first, DenseLayer):
+            elif isinstance(first, (DenseLayer, AutoEncoder,
+                                    VariationalAutoencoder)):
                 it = InputType.feedForward(n_in)
             else:
                 return
         for i, lr in enumerate(self.layers):
             if isinstance(it, ConvolutionalFlatType) and isinstance(
-                    lr, (ConvolutionLayer, SubsamplingLayer)):
+                    lr, (ConvolutionLayer, PrimaryCapsules,
+                         SubsamplingLayer)):
                 self.preprocessors[i] = (
                     _PP_TO_CNN, (it.channels, it.height, it.width))
                 it = InputType.convolutional(it.height, it.width, it.channels)

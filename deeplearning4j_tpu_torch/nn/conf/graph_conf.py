@@ -7,8 +7,9 @@ topological order (Kahn's algorithm seeded from the sorted names, so
 inference over the declared input types and the same JSON, so a graph
 configuration written by either package builds the same graph in the
 other. As in the JAX package, a graph records no preprocessors: each
-node takes its inputs as they come. ``AttentionVertex`` comes with the
-attention layers.
+node takes its inputs as they come. ``AttentionVertex`` lives with the
+attention layers (``nn/conf/attention.py``): it has params, so it is a
+layer node with ``MULTI_INPUT``, fed the list of its inputs.
 """
 
 from __future__ import annotations

@@ -36,10 +36,16 @@ layer) in ``_forward``, ``_loss_from`` and ``feedForward``, so
 A training step is eager PyTorch: the forward with the fused loss,
 ``torch.autograd.grad`` (through the LSTM kernels' autograd Function on the
 GPU), per-layer gradient normalization, the updater, and ``p -= u`` in
-place. Left for later slices, as in ROADMAP.md: the precision policies'
-compute cast and loss scaler, the loss-state and aux-loss channels of
-``_loss_from``, training health, telemetry, listeners, pretraining,
-prefetch and fitMultiBatch.
+place. An output layer with ``LOSS_UPDATES_STATE`` (OCNN's threshold
+``r``) returns its new state with the loss in training (the loss-state
+channel of ``_loss_from``). ``pretrainLayer`` and ``pretrain`` minimize
+an AutoEncoder's or a VAE's ``pretrain_loss`` with the layer's own
+updater, the layers below frozen, the noise drawn from a generator seeded
+by ``conf.seed + 2 + layer`` and the iteration.
+
+Left for later slices, as in ROADMAP.md: the precision policies' compute
+cast and loss scaler, the aux-loss channel (with MoELayer), training
+health, telemetry, listeners, prefetch and fitMultiBatch.
 """
 
 from __future__ import annotations
@@ -110,10 +116,10 @@ def _as_input(x, device, dtype):
     return x
 
 
-def _dropout_generator(seed, it, device):
-    """A step's dropout generator, seeded from ``seed`` + 1 and the
-    iteration."""
-    seq = np.random.SeedSequence([int(seed) + 1, int(it)])
+def _dropout_generator(seed, it, device, offset=1):
+    """A step's generator, seeded from ``seed`` + ``offset`` (1 for
+    dropout) and the iteration."""
+    seq = np.random.SeedSequence([int(seed) + offset, int(it)])
     return torch.Generator(device=device).manual_seed(
         int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1)))
 
@@ -320,7 +326,14 @@ class MultiLayerNetwork:
         h, new_states = self._forward(params, states, f, training, generator,
                                       upto=out_idx)
         h = _apply_preprocessor(self.conf.preprocessors[out_idx], h)
-        loss = self.layers[out_idx].compute_loss(params[out_idx], h, l, mask)
+        out_layer = self.layers[out_idx]
+        if training and getattr(out_layer, "LOSS_UPDATES_STATE", False):
+            # the loss-state channel: the output layer's apply() does not
+            # run in training, so its state update rides with the loss
+            loss, new_states[out_idx] = out_layer.compute_loss_with_state(
+                params[out_idx], h, l, mask, states[out_idx])
+        else:
+            loss = out_layer.compute_loss(params[out_idx], h, l, mask)
         reg = 0.0
         for lr, p in zip(self.layers, params):
             leaves = tree_leaves(p)
@@ -334,13 +347,18 @@ class MultiLayerNetwork:
         return loss + reg, new_states
 
     def _value_and_grad(self, states, f, l, mask, training, generator):
-        """(loss, new_states, per-layer gradients) at the current params."""
+        """(loss, new_states, per-layer gradients) at the current params; a
+        parameter the loss does not reach (a VAE's log-variance head in
+        supervised training) gets a zero gradient."""
         leaves = [tree_map(lambda v: v.detach().requires_grad_(), p)
                   for p in self._params]
         loss, new_states = self._loss_from(leaves, states, f, l, training,
                                            generator, mask=mask)
         flat = tree_leaves(leaves)
-        grads = iter(torch.autograd.grad(loss, flat) if flat else ())
+        grads = torch.autograd.grad(loss, flat, allow_unused=True) \
+            if flat else ()
+        grads = iter(torch.zeros_like(v) if g is None else g
+                     for v, g in zip(flat, grads))
         return (loss.detach(), _detached(new_states),
                 [tree_fill(p, grads) for p in leaves])
 
@@ -450,6 +468,63 @@ class MultiLayerNetwork:
                                       *self._device_batch(fc, lc, mc))
         self._states = self._strip_rnn_states(states)
         return loss
+
+    # -- layerwise unsupervised pretraining ----------------------------------
+    def pretrainLayer(self, layer_idx: int, data, epochs: int = 1):
+        """Unsupervised pretraining of ONE layer: each batch's features go
+        through layers [0, layer_idx) in inference mode, then one step of
+        the layer's ``pretrain_loss`` with the layer's own updater."""
+        self._check_init()
+        lr = self.layers[layer_idx]
+        if not getattr(lr, "HAS_PRETRAIN_LOSS", False):
+            raise ValueError(
+                f"layer {layer_idx} ({type(lr).__name__}) has no "
+                f"unsupervised pretrain loss")
+        updater = self._layer_updater(layer_idx)
+        loss = None
+        for epoch_i in range(epochs):
+            batches, data = _prepare_batches(data, epoch_i, epochs)
+            for ds in batches:
+                feats, _, _, _ = _split_dataset_full(ds)
+                f = self._input(_host_array(feats[0]))
+                with torch.no_grad():
+                    h, _ = self._forward(self._params, self._states, f,
+                                         upto=layer_idx)
+                    h = _apply_preprocessor(
+                        self.conf.preprocessors[layer_idx], h)
+                gen = _dropout_generator(self.conf.seed, self._iteration,
+                                         self.device, offset=2 + layer_idx)
+                leaves = tree_map(lambda v: v.detach().requires_grad_(),
+                                  self._params[layer_idx])
+                loss = lr.pretrain_loss(leaves, h, gen)
+                g = tree_fill(leaves, iter(torch.autograd.grad(
+                    loss, tree_leaves(leaves))))
+                loss = loss.detach()
+                with torch.no_grad():
+                    g = _normalize_grads(
+                        g, lr.gradientNormalization,
+                        lr.gradientNormalizationThreshold or 1.0)
+                    upd, self._opt_states[layer_idx] = updater.apply_mixed(
+                        g, self._opt_states[layer_idx],
+                        self._params[layer_idx], self._iteration)
+                    for p, u in zip(tree_leaves(self._params[layer_idx]),
+                                    tree_leaves(upd)):
+                        p.sub_(u)
+                self._iteration += 1
+        if loss is not None:
+            self._score = float(loss)
+        return self
+
+    def pretrain(self, data, epochs: int = 1):
+        """Pretrain every pretrainable layer in order; a one-shot iterable
+        is materialized once, so every layer sees the data."""
+        if not hasattr(data, "reset") and not isinstance(
+                data, (list, tuple)):
+            data = list(_as_batches(data))
+        for i, lr in enumerate(self.layers):
+            if getattr(lr, "HAS_PRETRAIN_LOSS", False):
+                self.pretrainLayer(i, data, epochs)
+        return self
 
     # -- scoring / gradients ---------------------------------------------------
     def score(self, dataset=None) -> float:

@@ -11,8 +11,10 @@ alike. Both packages
 then compute the same function.
 ``states_from_numpy`` does the same for the layer states (per layer a
 dict of the layer's state, e.g. BatchNormalization's running ``mean`` and
-``var``, ``{}`` for a layer without), and ``states_to_numpy`` is its
-inverse. ``opt_states_from_numpy`` does the same for the updater state (the JAX
+``var``, OCNN's ``r`` and its int32 ``seen``, each leaf in the dtype of
+the layer's ``init_state``; ``{}`` for a layer without), and
+``states_to_numpy`` is its inverse. A wrapper's (FrozenLayer,
+MaskZeroLayer) params and state are its inner layer's. ``opt_states_from_numpy`` does the same for the updater state (the JAX
 package's ``net._opt_states`` as numpy: per layer ``()`` or nested dicts
 such as Adam's ``{"m": {...}, "v": {...}}``), and ``opt_states_to_numpy``
 is its inverse, so both packages can start from the same state.
@@ -65,7 +67,9 @@ def params_from_numpy(conf, arrays, device):
 
 def _group_from_numpy(want, arrs, dtype, device, where):
     """One param group (nested groups recursively) in ``want``'s names
-    and order, each array checked against its shape."""
+    and order, each array checked against its shape. A leaf of ``want``
+    may be a (shape, dtype) pair, whose dtype then overrides ``dtype``
+    (OCNN's int32 step count ``seen``)."""
     if not isinstance(arrs, dict) or set(arrs) != set(want):
         got = sorted(arrs) if isinstance(arrs, dict) else type(arrs).__name__
         raise ValueError(f"{where} has params {sorted(want)}, got {got}")
@@ -75,11 +79,15 @@ def _group_from_numpy(want, arrs, dtype, device, where):
             p[name] = _group_from_numpy(shape, arrs[name], dtype, device,
                                         f"{where} group {name}")
             continue
+        leaf_dtype = dtype
+        if isinstance(shape, tuple) and len(shape) == 2 and isinstance(
+                shape[1], torch.dtype):
+            shape, leaf_dtype = shape
         a = np.asarray(arrs[name])
         if a.shape != shape:
             raise ValueError(f"{where} param {name}: shape {a.shape}, "
                              f"configuration says {shape}")
-        p[name] = torch.tensor(a, dtype=dtype, device=device)
+        p[name] = torch.tensor(a, dtype=leaf_dtype, device=device)
     return p
 
 
@@ -89,7 +97,8 @@ def states_from_numpy(conf, arrays, device):
     ``conf``'s dtype on ``device`` (copies)."""
     def state(lr, arrs, where):
         want = {} if lr is None else tree_map(
-            lambda t: tuple(t.shape), lr.init_state(conf.dtype, "meta"))
+            lambda t: (tuple(t.shape), t.dtype),
+            lr.init_state(conf.dtype, "meta"))
         return _group_from_numpy(want, arrs, conf.dtype, device, where)
 
     return _each(conf, arrays, "layer states", " state", state)

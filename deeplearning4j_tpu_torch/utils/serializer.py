@@ -14,8 +14,11 @@ the updater, ``updaterState.npz`` (the updater state's leaves keyed
 (a graph's nodes by sorted name), dict keys sorted at every level, so
 Adam writes m.R, m.W, m.b, v.R, v.W, v.b, and under Bidirectional m.bwd.R, ..., m.fwd.b, v.bwd.R, ...) and
 ``trainingState.json`` (iteration and epoch). A zip written by either
-package restores in the other. Sharded checkpoints, normalizers and
-bfloat16 parameters come with later slices.
+package restores in the other. A layer state's leaf keeps the dtype of
+the layer's ``init_state`` (OCNN's int32 ``seen``); a wrapper's
+(FrozenLayer, MaskZeroLayer) params and state are its inner layer's.
+Sharded checkpoints, normalizers and bfloat16 parameters come with later
+slices.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@
   ``jax`` or ``deeplearning4j_tpu`` (checked on the source's AST, so a
   lazy import inside a function counts too).
 - With CUDA absent, every entry point given no device raises instead of
-  running on the CPU, training included (networks, graphs, the zoo,
-  restored zips); a CUDA tensor never reaches the plain version.
+  running on the CPU, training and pretraining included (networks,
+  graphs, the zoo with its detectors, restored zips); a CUDA tensor
+  never reaches the plain version.
 """
 
 import ast
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch
-from deeplearning4j_tpu_torch.models.zoo import ResNet50, TextGenerationLSTM
+from deeplearning4j_tpu_torch.models.zoo import (
+    YOLO2, ResNet50, TextGenerationLSTM, TinyYOLO, UNet)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.modelimport import TFGraphMapper, protobuf
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -84,6 +86,13 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/modelimport/protobuf.py",
                  "deeplearning4j_tpu_torch/nn/graph.py",
                  "deeplearning4j_tpu_torch/nn/conf/graph_conf.py",
+                 "deeplearning4j_tpu_torch/nn/conf/layers_extra.py",
+                 "deeplearning4j_tpu_torch/nn/conf/attention.py",
+                 "deeplearning4j_tpu_torch/nn/conf/capsnet.py",
+                 "deeplearning4j_tpu_torch/nn/conf/variational.py",
+                 "deeplearning4j_tpu_torch/nn/conf/objdetect.py",
+                 "deeplearning4j_tpu_torch/nn/objdetect.py",
+                 "deeplearning4j_tpu_torch/models/zoo.py",
                  "deeplearning4j_tpu_torch/runtime.py",
                  "deeplearning4j_tpu_torch/backend.py",
                  "tests/samediff_op_cases.py",
@@ -163,3 +172,43 @@ def test_training_raises_without_cuda_unless_cpu_is_named(no_cuda, tmp_path):
         ModelSerializer.restoreMultiLayerNetwork(path)
     restored = ModelSerializer.restoreMultiLayerNetwork(path, device="cpu")
     assert restored.getIterationCount() == 1
+
+
+def test_detection_and_zoo_entry_points_raise_without_cuda(no_cuda,
+                                                            tmp_path):
+    """TinyYOLO (a network) and YOLO2 and UNet (graphs) given no device,
+    and a restored zip of each kind, raise; the CPU runs when named."""
+    for model in (TinyYOLO(numClasses=2, inputShape=(3, 64, 64)),
+                  YOLO2(numClasses=2, inputShape=(3, 64, 64)),
+                  UNet(inputShape=(3, 16, 16), base=2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model.init()
+    net = TinyYOLO(numClasses=2, inputShape=(3, 64, 64)).init(device="cpu")
+    out = net.output(np.zeros((1, 3, 64, 64), np.float32))
+    assert out.shape() == (1, 5, 7, 2, 2) and out.device.type == "cpu"
+    path = str(tmp_path / "tiny.zip")
+    ModelSerializer.writeModel(net, path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelSerializer.restoreMultiLayerNetwork(path)
+    graph = UNet(inputShape=(3, 16, 16), base=2).init(device="cpu")
+    path = str(tmp_path / "unet.zip")
+    ModelSerializer.writeModel(graph, path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelSerializer.restoreComputationGraph(path)
+
+
+def test_pretrain_stays_on_the_named_device(no_cuda):
+    """pretrainLayer runs on the CPU only when it is named."""
+    from deeplearning4j_tpu_torch import nn
+
+    conf = (nn.NeuralNetConfiguration.Builder().list()
+            .layer(nn.AutoEncoder.Builder(nIn=4, nOut=3).build())
+            .layer(nn.OutputLayer.Builder().nOut(2).build())
+            .build())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiLayerNetwork(conf)
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    net.pretrainLayer(0, (np.ones((2, 4), np.float32), None))
+    assert net.getIterationCount() == 1
+    assert all(v.device.type == "cpu" for p in net._params
+               for v in p.values())

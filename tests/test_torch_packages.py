@@ -106,13 +106,22 @@ def test_package_exports_every_ported_name(package):
     (".", ["Nd4j", "INDArray"]),
     ("nn", ["MultiLayerNetwork", "NeuralNetConfiguration", "LSTM",
             "Bidirectional", "LastTimeStep", "SimpleRnn", "InputType",
-            "GradientNormalization", "layers"]),
+            "GradientNormalization", "layers", "Yolo2OutputLayer",
+            "YoloUtils", "DetectedObject", "AttentionVertex",
+            "SelfAttentionLayer", "CapsuleLayer", "PrimaryCapsules",
+            "FrozenLayer", "MaskZeroLayer", "OCNNOutputLayer",
+            "CenterLossOutputLayer", "Convolution3D", "AutoEncoder",
+            "VariationalAutoencoder"]),
+    ("nn.conf", ["variational", "objdetect", "layers_extra", "attention",
+                 "capsnet"]),
     ("nn.conf", ["InputType", "MultiLayerConfiguration",
                  "NeuralNetConfiguration"]),
     ("datasets", ["DataSet", "DataSetIterator", "ListDataSetIterator",
                   "ExistingDataSetIterator", "SplitTestAndTrain"]),
     ("optimize", ["Adam", "Sgd", "updater_from_config", "CycleSchedule"]),
     ("utils", ["ModelSerializer"]),
+    ("models", ["TinyYOLO", "YOLO2", "UNet", "SqueezeNet", "Xception",
+                "NASNet", "FaceNetNN4Small2", "InceptionResNetV1"]),
     ("models", ["TextGenerationLSTM", "ZooModel", "BertConfig",
                 "BertTrainer", "mlm_loss", "synthetic_mlm_batch",
                 "bert_forward", "bert_init_params"]),
