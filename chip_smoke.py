@@ -4268,7 +4268,8 @@ def _calibrate_bn(torch, graph, x):
         node.decay = 0.0
     try:
         with torch.no_grad():
-            _, states = graph._forward(graph._params, graph._states,
+            _, states = graph._forward(graph._compute_params(graph._params),
+                                       graph._states,
                                        {graph.conf.inputs[0]: x}, True)
     finally:
         for node, decay in zip(bns, decays):
@@ -4276,10 +4277,13 @@ def _calibrate_bn(torch, graph, x):
     graph._states = states
 
 
-def _resnet_fit_timing(torch, card, gpu, batch):
+def _resnet_fit_timing(torch, card, gpu, batch, what="float32",
+                       peak=PEAK_F32):
     """The fit step at ``batch``: CUDA events a step, host clock over a
-    fit call of RESNET_TIMED steps, the share of the float32 peak, the
-    peak memory, device time by kernel and the idle share."""
+    fit call of RESNET_TIMED steps, the share of ``peak`` (the float32
+    rate; the bf16 tensor rate under a bf16 policy), the peak memory,
+    device time by kernel and the idle share. Returns (step ms, peak GiB,
+    device ms a step or None)."""
     from deeplearning4j_tpu_torch.datasets import DataSet
 
     rng = np.random.default_rng(SEED + batch)
@@ -4289,19 +4293,20 @@ def _resnet_fit_timing(torch, card, gpu, batch):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     med, lo, hi = time_ms(lambda: gpu.fit(ds), RESNET_TIMED, spread=True)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    mem = torch.cuda.max_memory_allocated() / 2**30
     host, _, _ = _fit_steps_ms(torch, gpu, [ds] * RESNET_TIMED, reps=1)
-    bound = RESNET_FLOP * batch / PEAK_F32 * 1e3
+    bound = RESNET_FLOP * batch / peak * 1e3
     print(f"resnet50 ({card}): fit step at batch {batch} ({IMAGENET[1]}x"
-          f"{IMAGENET[2]}, float32): {med:.3f} ms by CUDA events (min "
+          f"{IMAGENET[2]}, {what}): {med:.3f} ms by CUDA events (min "
           f"{lo:.3f}, max {hi:.3f}; {RESNET_TIMED} steps), "
           f"{batch / med * 1e3:.1f} images/s; host clock {host:.3f} ms a "
           f"step over a fit call of {RESNET_TIMED}; {RESNET_FLOP * batch / 1e12:.3f} TFLOP a step, "
           f"{RESNET_FLOP * batch / med / 1e9:.2f} TFLOP/s, "
-          f"{100 * bound / med:.1f}% of the float32 peak (bound "
-          f"{bound:.3f} ms); peak memory {peak:.2f} GiB", flush=True)
-    _profile_fit(torch, f"resnet50 b{batch}", gpu, ds, med, card, top=12)
-    return med, peak
+          f"{100 * bound / med:.1f}% of the {peak / 1e12:.0f} TFLOP/s peak "
+          f"(bound {bound:.3f} ms); peak memory {mem:.2f} GiB", flush=True)
+    device = _profile_fit(torch, f"resnet50 {what} b{batch}", gpu, ds, med,
+                          card, top=12)
+    return med, mem, device
 
 
 def resnet50_phase(torch, card):
@@ -5415,6 +5420,537 @@ def detection_phase(torch, card, lstm):
     return wrapped
 
 
+# ---------------------------------------------------------------------------
+# precision: ResNet-50 in bfloat16 and bf16_mixed, LeNet bf16_mixed and
+# int8, the char-RNN under bf16_mixed
+# ---------------------------------------------------------------------------
+
+BF16_UNIT = 2.0 ** -8    # bfloat16's unit roundoff
+BF16_FACTOR = 4          # the card's bf16 error over the CPU's, at most
+PREC_STEPS = 2           # fit steps a path, each from the card's state
+PREC_ACC = 0.01          # LeNet bf16_mixed vs float32 test accuracy
+PTQ_TOL = 0.05           # the JAX package's int8 calibration bar
+PTQ_BATCHES = 4          # calibration batches of LENET_BATCH test digits
+PREC_BURST = (1, 7, 64, 3, 128, 16, 1, 33)   # rows an int8 request
+SYNC_STEPS = 3           # fit steps a synchronisation count
+
+
+def _f32np(t):
+    """A host float32 copy of a tensor (bfloat16 exactly)."""
+    return t.detach().float().cpu().numpy()
+
+
+def _bf16_gate(what, card, cpu, f32):
+    """The bf16 rule: the card's error against the float32 yardstick at
+    most BF16_FACTOR times the CPU's own (the same policy's plain run),
+    never held tighter than BF16_FACTOR unit roundoffs of the
+    yardstick's largest element. Returns (card error, CPU error)."""
+    card, cpu, f32 = (np.asarray(a, np.float64) for a in (card, cpu, f32))
+    return _bf16_check(what, card, float(np.abs(card - f32).max()),
+                       float(np.abs(cpu - f32).max()),
+                       BF16_UNIT * float(np.abs(f32).max()))
+
+
+def _bf16_check(what, card, e_card, e_cpu, floor):
+    """Fails unless ``card`` is finite and ``e_card`` ≤ BF16_FACTOR x
+    max(``e_cpu``, ``floor``); returns (e_card, e_cpu, e_card over
+    max(e_cpu, floor), the share of the gate's limit used times
+    BF16_FACTOR)."""
+    base = max(e_cpu, floor)
+    if not np.isfinite(card).all() or e_card > BF16_FACTOR * base:
+        fail(f"{what}: the card's bf16 error {e_card:.3e} against float32 "
+             f"is more than {BF16_FACTOR} x the CPU's {e_cpu:.3e} (floor "
+             f"{floor:.3e})")
+    return e_card, e_cpu, e_card / max(base, 1e-30)
+
+
+def _twin(net, device, f32=False):
+    """The same network on ``device`` from ``net``'s params and layer
+    states (exact); with ``f32`` the float32 yardstick: the configuration
+    without its policy and in float32, the values upcast."""
+    from deeplearning4j_tpu_torch.utils.convert import (
+        params_from_numpy, states_from_numpy, states_to_numpy)
+
+    d = json.loads(net.conf.to_json())
+    if f32:
+        d["dataType"], d["precision"] = "float32", None
+    conf = type(net.conf).from_json(json.dumps(d))
+    twin = type(net)(conf, device=device).init(params_from_numpy(
+        conf, states_to_numpy(net._params), device))
+    twin._states = states_from_numpy(conf, states_to_numpy(net._states),
+                                     device)
+    return twin
+
+
+def _copy_all(torch, src, dst):
+    """``dst`` set to ``src``'s params, layer states, updater state (cast
+    to ``dst``'s dtypes) and loss-scaler state."""
+    _copy_state(torch, src, dst)
+    if dst._prec_state:
+        dst._prec_state = {k: v.detach().to(dst.device).clone()
+                           for k, v in src._prec_state.items()}
+
+
+def _scaler_state(net):
+    return {k: float(v) for k, v in net._prec_state.items()}
+
+
+def _prec_steps(torch, name, gpu, cpu, y32, batches):
+    """Each batch one fit step on the card, on the CPU (same policy) and
+    on the card's float32 yardstick, all three from the card's state:
+    the loss, every param array's update (floor: the largest update of
+    the step) and every running statistic gated by the bf16 rule, the
+    loss scaler's state card against CPU exactly."""
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    worst = (0.0, 0.0)
+    for step, ds in enumerate(batches):
+        for twin in (cpu, y32):
+            _copy_all(torch, gpu, twin)
+        before = [_f32np(v) for v in tree_leaves(gpu._params)]
+        s_before = [_f32np(v) for v in tree_leaves(gpu._states)]
+        t0 = time.perf_counter()
+        gpu.fit(ds)
+        loss = gpu.score()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu.fit(ds)
+        t_cpu = time.perf_counter() - t0
+        y32.fit(ds)
+        errs = [_bf16_gate(f"{name} step {step} loss", loss, cpu.score(),
+                           y32.score())]
+        deltas = [[_f32np(v) - b for v, b in zip(tree_leaves(n._params),
+                                                  before)]
+                  for n in (gpu, cpu, y32)]
+        top = max(float(np.abs(d).max()) for d in deltas[2])
+        for i, (a, b, c) in enumerate(zip(*deltas)):
+            errs.append(_bf16_check(
+                f"{name} step {step}: param array {i}'s update", a,
+                float(np.abs(a - c).max()), float(np.abs(b - c).max()),
+                BF16_UNIT * top))
+        for i, (a, b, c, s0) in enumerate(zip(
+                *([_f32np(v) for v in tree_leaves(n._states)]
+                  for n in (gpu, cpu, y32)), s_before)):
+            errs.append(_bf16_gate(f"{name} step {step} state {i}", a - s0,
+                                   b - s0, c - s0))
+        if _scaler_state(gpu) != _scaler_state(cpu):
+            fail(f"{name} step {step}: scaler {_scaler_state(gpu)} on the "
+                 f"card, {_scaler_state(cpu)} on the CPU")
+        ratio = max(r for _, _, r in errs)
+        worst = max(worst, (ratio, loss))
+        print(f"{name} step {step} (batch {len(ds.features)}, from the "
+              f"card's state): loss card {loss:.6f}, CPU {cpu.score():.6f}, "
+              f"float32 {y32.score():.6f}; the card's bf16 error against "
+              f"float32 over the CPU's (floored; the gate is "
+              f"{BF16_FACTOR}), largest over the loss, {len(before)} "
+              f"updates and {len(s_before)} statistics: {ratio:.3f}; scaler "
+              f"{_scaler_state(gpu) or 'none'}; card {t_card:.3f} s, CPU "
+              f"{t_cpu:.3f} s", flush=True)
+    return worst[0]
+
+
+def _sync_count(torch, fn):
+    """Synchronising CUDA calls in ``fn()``, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _all_counters(modules):
+    """Every kernel wrapper of ``modules`` that counts its launches."""
+    return [getattr(m, n) for m in modules for n in dir(m)
+            if hasattr(getattr(m, n), "launches") and
+            callable(getattr(m, n))]
+
+
+def _resnet_precision(torch, card, policy, counters):
+    """ResNet-50 at 224x224 under ``policy`` ("bfloat16": the zoo's
+    dataType, the uniform policy; "bf16_mixed": the builder's policy on
+    the zoo's configuration) on the card, with its CPU twin and the
+    card's float32 yardstick from the same weights."""
+    import tempfile
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+
+    rng = np.random.default_rng(SEED + 60)
+
+    def batch(n):
+        x = rng.normal(size=(n,) + IMAGENET).astype(np.float32)
+        return x, np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, n)]
+
+    if policy == "bfloat16":
+        gpu = ResNet50(dataType="bfloat16").init()
+    else:
+        conf = ResNet50().conf()
+        conf.precision = policy
+        gpu = ComputationGraph(conf).init()
+    pol = gpu.conf.precision_policy
+    dts = {str(v.dtype) for v in tree_leaves(
+        [gpu._params, gpu._states, gpu._opt_states])}
+    print(f"resnet50 {policy}: {gpu.numParams()} params on {gpu.device}; "
+          f"params, running statistics and moments {sorted(dts)}; compute "
+          f"{pol.compute_dtype}; loss scaling {pol.loss_scaling}; scaler "
+          f"{_scaler_state(gpu) or 'none'}", flush=True)
+    if gpu.device.type != "cuda" or dts != {
+            "torch." + pol.param_dtype} or gpu.numParams() != RESNET_PARAMS:
+        fail(f"resnet50 {policy}: {gpu.device}, dtypes {dts}")
+    cpu, y32 = _twin(gpu, "cpu"), _twin(gpu, gpu.device, f32=True)
+
+    x, _ = batch(RESNET_CHECK_BATCH)
+    outs = [n.outputSingle(x, train=True) for n in (gpu, cpu, y32)]
+    if outs[0].dataType() != pol.output_torch:
+        fail(f"resnet50 {policy}: output in {outs[0].dataType()}")
+    e = _bf16_gate(f"resnet50 {policy} output", *(o.toNumpy() for o in outs))
+    print(f"resnet50 {policy}: output at batch {RESNET_CHECK_BATCH} "
+          f"(training mode) in {outs[0].dataType()}: max|d| against "
+          f"float32 card {e[0]:.3e}, CPU {e[1]:.3e}", flush=True)
+
+    for fn in counters:
+        fn.launches = 0
+    worst = _prec_steps(torch, f"resnet50 {policy}", gpu, cpu, y32,
+                        [DataSet(*batch(RESNET_STEP_BATCH))
+                         for _ in range(PREC_STEPS)])
+    launched = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    if launched:
+        fail(f"resnet50 {policy}: hand-written kernels launched {launched}")
+    out = {"worst": worst}
+
+    if pol.scaling_enabled:
+        # a step forced non-finite: skipped on the device, scale halved
+        snap = [v.clone() for v in tree_leaves(
+            [gpu._params, gpu._opt_states, gpu._states])]
+        before = _scaler_state(gpu)
+        xb, yb = batch(RESNET_STEP_BATCH)
+        xb[0, 0, 0, 0] = np.inf
+        gpu.fit(DataSet(xb, yb))
+        after = _scaler_state(gpu)
+        same = all(torch.equal(a, b) for a, b in zip(snap, tree_leaves(
+            [gpu._params, gpu._opt_states, gpu._states])))
+        print(f"resnet50 {policy}: a step with an inf input: {len(snap)} "
+              f"params, moments and statistics bitwise unchanged {same}; "
+              f"scaler {before} -> {after}", flush=True)
+        if not same or after["scale"] != before["scale"] / 2 or \
+                after["overflows"] != before["overflows"] + 1 or \
+                after["overflows"] != 1:
+            fail(f"resnet50 {policy}: the non-finite step was not skipped")
+        del snap
+    del cpu
+
+    _calibrate_bn(torch, gpu, gpu._input(batch(32)[0]))
+    _copy_all(torch, gpu, y32)
+    sets = [batch(n) for n in RESNET_EVAL]
+    ev = gpu.evaluate(ListDataSetIterator([DataSet(*s) for s in sets]))
+    outs = np.concatenate([gpu.outputSingle(f).toNumpy() for f, _ in sets])
+    labels = np.concatenate([l for _, l in sets]).argmax(axis=1)
+    n_eval = sum(RESNET_EVAL)
+    print(f"resnet50 {policy}: evaluate {n_eval} images: accuracy "
+          f"{ev.accuracy():.4f}, {int(ev.confusionMatrix().sum())} counted",
+          flush=True)
+    # evaluate pads the ragged batch, which may take another algorithm:
+    # one row's class may flip on a near-tie in bfloat16
+    if ev.confusionMatrix().sum() != n_eval or abs(
+            ev.accuracy() - float((outs.argmax(axis=1) == labels).mean())) \
+            > 1.0 / n_eval + 1e-9 or not np.isfinite(outs).all():
+        fail(f"resnet50 {policy}: evaluate disagrees with outputSingle")
+
+    x, _ = batch(RESNET_CHECK_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "resnet50.zip")
+        ModelSerializer.writeModel(gpu, path)
+        size = Path(path).stat().st_size
+        back = ModelSerializer.restoreComputationGraph(path)
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        tree_leaves([back._params, back._states, back._opt_states]),
+        tree_leaves([gpu._params, gpu._states, gpu._opt_states])))
+    bits = torch.equal(back.outputSingle(x).torch(),
+                       gpu.outputSingle(x).torch())
+    print(f"resnet50 {policy}: zip {size} bytes restored on the card: state "
+          f"bit-equal {same}, output bit-equal {bits}, scaler "
+          f"{_scaler_state(back) or 'none'}", flush=True)
+    if not (same and bits) or _scaler_state(back) != _scaler_state(gpu):
+        fail(f"resnet50 {policy}: the restored graph differs")
+    del back
+
+    requests = [batch(n)[0] for n in RESNET_BURST]
+    answers, warmed, dispatches, _, serve_s = _serve_burst(
+        torch, f"resnet50_{policy}", gpu, IMAGENET, requests,
+        BucketLadder((1, 4, 8, 16, 32)), ())
+    # a bucket's batch takes other cuDNN algorithms than the request's
+    # own, so in bfloat16 the rows differ by rounding: the bf16 rule,
+    # against the float32 yardstick, with outputSingle in the CPU's place
+    errs = []
+    for r, y in zip(requests, answers):
+        want = gpu.outputSingle(r).toNumpy()
+        if y.dtype != np.float32 or y.shape != want.shape:
+            fail(f"resnet50 {policy}: served {y.dtype} {y.shape}")
+        errs.append(_bf16_gate(f"resnet50 {policy} served rows", y, want,
+                               y32.outputSingle(r).toNumpy()))
+    print(f"resnet50 {policy} ({card}): served {len(requests)} requests "
+          f"({sum(RESNET_BURST)} rows, float32 at the host boundary) in "
+          f"{len(dispatches)} dispatches, {serve_s:.4f} s; against float32 "
+          f"served max|d| {max(e[0] for e in errs):.3e}, outputSingle "
+          f"{max(e[1] for e in errs):.3e}", flush=True)
+    del y32
+
+    if policy == "bfloat16":
+        # which kernels a bf16 BatchNormalization runs (training forward)
+        bn = gpu.conf.nodes["s3_0_b1"][0]
+        xb = torch.randn((64, bn.nIn, 28, 28), device=gpu.device,
+                         dtype=torch.bfloat16)
+        rows = _device_by_kernel(torch, lambda: bn.apply(
+            gpu._params["s3_0_b1"], gpu._states["s3_0_b1"], xb, True), n=2)
+        print(f"resnet50 bfloat16: one BatchNormalization's training "
+              f"forward at [64, {bn.nIn}, 28, 28] bf16 (running statistics "
+              f"{gpu._states['s3_0_b1']['mean'].dtype}): "
+              f"{sum(r[0] for r in rows):.4f} ms in "
+              f"{sum(r[1] for r in rows)} launches: "
+              + "; ".join(f"{n[:70]} ({ms:.4f} ms)" for ms, _, n in rows),
+              flush=True)
+    for n in RESNET_FIT_BATCHES:
+        out[n] = _resnet_fit_timing(torch, card, gpu, n, policy, PEAK_BF16)
+    del gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resnet_sync_counts(torch, card):
+    """Synchronising calls in a fit of SYNC_STEPS steps at batch 64:
+    float32 against bf16_mixed (its gate and scaler must add none)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    rng = np.random.default_rng(SEED + 61)
+    ds = DataSet(rng.normal(size=(64,) + IMAGENET).astype(np.float32),
+                 np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, 64)])
+    counts = {}
+    for policy in (None, "bf16_mixed"):
+        conf = ResNet50().conf()
+        conf.precision = policy
+        net = ComputationGraph(conf).init()
+        net.fit(ds)   # warm
+        counts[policy or "float32"] = _sync_count(
+            torch, lambda: net.fit(ListDataSetIterator([ds] * SYNC_STEPS)))
+        del net
+        torch.cuda.empty_cache()
+    print(f"resnet50 ({card}): synchronising CUDA calls in a fit of "
+          f"{SYNC_STEPS} steps at batch 64 (set_sync_debug_mode): {counts}",
+          flush=True)
+    if counts["bf16_mixed"] > counts["float32"]:
+        fail(f"bf16_mixed adds host synchronisations: {counts}")
+    return counts
+
+
+def _lenet_precision(torch, card, counters):
+    """LeNet-MNIST under bf16_mixed: 2 steps each from the card's state
+    against the CPU and the float32 yardstick, one epoch on the card
+    beside a float32 LeNet from the same weights (test accuracies), then
+    int8 PTQ of the trained net served through InferenceSession."""
+    from deeplearning4j_tpu_torch import precision
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.mnist import synthesize_mnist
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import (
+        DEFAULT_BATCH_BUCKETS, BucketLadder)
+
+    conf = LeNet().conf()
+    conf.precision = "bf16_mixed"
+    gpu = MultiLayerNetwork(conf).init()
+    f32 = _twin(gpu, gpu.device, f32=True)     # trained on its own
+    train = MnistDataSetIterator(batch_size=LENET_BATCH)
+    first = []
+    for ds in train:
+        first.append(ds)
+        if len(first) == PREC_STEPS:
+            break
+    worst = _prec_steps(torch, "lenet bf16_mixed", gpu, _twin(gpu, "cpu"),
+                        _twin(gpu, gpu.device, f32=True), first)
+    _copy_all(torch, gpu, f32)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    gpu.fit(MnistDataSetIterator(batch_size=LENET_BATCH))
+    torch.cuda.synchronize()
+    mixed_s = time.perf_counter() - t0
+    launched = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    t0 = time.perf_counter()
+    f32.fit(MnistDataSetIterator(batch_size=LENET_BATCH))
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    test = MnistDataSetIterator(batch_size=LENET_BATCH, train=False)
+    acc = gpu.evaluate(test).accuracy(), f32.evaluate(test).accuracy()
+    print(f"lenet ({card}): one more epoch from the same state: bf16_mixed "
+          f"{mixed_s:.3f} s, float32 {f32_s:.3f} s; test accuracy "
+          f"bf16_mixed {acc[0]:.4f}, float32 {acc[1]:.4f}; scaler "
+          f"{_scaler_state(gpu)}; masters "
+          f"{gpu._params[0]['W'].dtype}", flush=True)
+    if launched:
+        fail(f"lenet bf16_mixed launched hand-written kernels {launched}")
+    if abs(acc[0] - acc[1]) > PREC_ACC or acc[0] <= 0.5:
+        fail(f"lenet: bf16_mixed accuracy {acc[0]} vs float32 {acc[1]}")
+
+    calib = [synthesize_mnist(LENET_BATCH, seed=SEED + 70 + i)[0]
+             for i in range(PTQ_BATCHES)]
+    t0 = time.perf_counter()
+    qsv = precision.quantize(gpu, calib, example_shape=(784,))
+    quant_s = time.perf_counter() - t0
+    cpu = _twin(gpu, "cpu")
+    qcpu = precision.quantize(cpu, calib, example_shape=(784,),
+                              device="cpu")
+    extra = qsv.describe_extra()
+    payload = [(q, s) for p in qsv._qparams for q, s in
+               (v for v in p.values() if isinstance(v, tuple))]
+    same = all(torch.equal(a.cpu(), b) and torch.equal(s.cpu(), t)
+               for (a, s), (b, t) in zip(payload, [
+                   (q, s) for p in qcpu._qparams for q, s in
+                   (v for v in p.values() if isinstance(v, tuple))]))
+    print(f"lenet int8 ({card}): quantize {quant_s:.3f} s; payload "
+          f"{extra['bytes']} bytes ({len(payload)} int8 matrices, "
+          f"{payload[0][0].dtype} on {payload[0][0].device}); calibration "
+          f"max err {qsv.calibration_max_err:.3e} (CPU "
+          f"{qcpu.calibration_max_err:.3e}); int8 bits equal to the CPU's "
+          f"{same}", flush=True)
+    if not payload or payload[0][0].dtype != torch.int8 or \
+            payload[0][0].device.type != "cuda" or not same or \
+            qsv.calibration_max_err > PTQ_TOL:
+        fail("lenet int8: payload or calibration error")
+
+    requests = [synthesize_mnist(n, seed=SEED + 90 + n)[0]
+                for n in PREC_BURST]
+    for fn in counters:
+        fn.launches = 0
+    answers, warmed, dispatches, _, serve_s = _serve_burst(
+        torch, "lenet_int8", qsv, (784,), requests,
+        BucketLadder(DEFAULT_BATCH_BUCKETS), ())
+    launched = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    worst_q = worst_c = 0.0
+    for r, y in zip(requests, answers):
+        direct = qsv.infer(r)
+        want = np.asarray(qcpu.infer(r))
+        if y.shape != (r.shape[0], 10) or not np.isfinite(y).all():
+            fail(f"lenet int8: served {y.shape}")
+        worst_q = max(worst_q, float(np.abs(y - direct).max()))
+        worst_c = max(worst_c, float(np.abs(y - want).max()
+                                     / np.abs(want).max()))
+    lat = []
+    for r in requests:
+        t0 = time.perf_counter()
+        qsv.infer(r)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    print(f"lenet int8 ({card}): served {len(requests)} requests "
+          f"({sum(PREC_BURST)} rows) in {len(dispatches)} dispatches, "
+          f"burst {serve_s * 1e3:.3f} ms; warmup of {len(warmed)} shapes; "
+          f"one infer a request {statistics.median(lat):.3f} ms median, "
+          f"{max(lat):.3f} ms max; served vs infer max|d| {worst_q:.3e}, "
+          f"vs the CPU's int8 servable max|d|/max {worst_c:.3e}; kernels "
+          f"{launched or 'none'}", flush=True)
+    if worst_q > SERVE_TOL or worst_c > CNN_TOL or launched:
+        fail("lenet int8: served answers differ")
+    return {"worst": worst, "accuracy": acc, "bytes": extra["bytes"],
+            "calibration_max_err": qsv.calibration_max_err,
+            "burst_ms": serve_s * 1e3}
+
+
+def _char_rnn_precision(torch, counters):
+    """The GravesLSTM char-RNN (77/256/100, batch 32) under bf16_mixed:
+    2 fit steps each from the card's state against the CPU and the
+    float32 yardstick; the recurrence runs the plain loop (no kernel of
+    rows 1-6 or the step route)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = TextGenerationLSTM().conf()
+    conf.precision = "bf16_mixed"
+    gpu = MultiLayerNetwork(conf).init()
+    rng = np.random.default_rng(SEED + 80)
+    batches = [DataSet(*next_char_batch(rng, 32, 77, 100))
+               for _ in range(PREC_STEPS)]
+    cpu, y32 = _twin(gpu, "cpu"), _twin(gpu, gpu.device, f32=True)
+    launches = {}
+    inner = gpu.fit
+
+    def counted_fit(ds):
+        for fn in counters:
+            fn.launches = 0
+        res = inner(ds)
+        for fn in counters:
+            launches[fn.__name__] = launches.get(fn.__name__, 0) + \
+                fn.launches
+        return res
+
+    gpu.fit = counted_fit
+    worst = _prec_steps(torch, "char-rnn bf16_mixed", gpu, cpu, y32,
+                        batches)
+    del gpu.fit
+    for fn in counters:
+        fn.launches = 0
+    y = gpu.output(batches[0].features)
+    n_out = sum(fn.launches for fn in counters)
+    print(f"char-rnn bf16_mixed: output {y.dataType()} {y.shape()}; "
+          f"launches of the hand-written kernels in the {PREC_STEPS} steps "
+          f"{sum(launches.values())} (rows 1-6 and the step route: "
+          f"{ {k: v for k, v in launches.items() if v} or 'none' }), in "
+          f"output {n_out}", flush=True)
+    if sum(launches.values()) or n_out or y.dataType() != torch.float32:
+        fail(f"char-rnn bf16_mixed launched kernels {launches}")
+    return worst
+
+
+def precision_phase(torch, card, f32=None):
+    """The precision slice on the card: ResNet-50 (BASELINE config 1) in
+    bfloat16 and under bf16_mixed, LeNet under bf16_mixed and served
+    int8, the char-RNN under bf16_mixed; each against its CPU twin and
+    the card's float32 yardstick from the same weights, with no
+    hand-written kernel on these paths. ``f32``: ``resnet50_phase``'s
+    result, whose float32 fit steps are printed beside these."""
+    from deeplearning4j_tpu_torch.kernels import (
+        bottleneck, flash, gru, lstm, probe_matmul, rnn_step)
+
+    counters = _all_counters((lstm, gru, rnn_step, flash, probe_matmul,
+                              bottleneck))
+    print(f"precision: counting {len(counters)} kernel wrappers "
+          f"({', '.join(sorted(fn.__name__ for fn in counters))})",
+          flush=True)
+    out = {"char_rnn": _char_rnn_precision(torch, counters),
+           "lenet": _lenet_precision(torch, card, counters),
+           "syncs": _resnet_sync_counts(torch, card)}
+    for policy in ("bfloat16", "bf16_mixed"):
+        out[policy] = _resnet_precision(torch, card, policy, counters)
+    if f32 is not None:
+        out["float32"] = f32
+    for policy in ("float32", "bfloat16", "bf16_mixed"):
+        for n in RESNET_FIT_BATCHES if policy in out else ():
+            ms, mem, device = out[policy][n]
+            idle = ("not measured" if device is None else
+                    f"{100 * (1 - device / ms):.1f}%")
+            print(f"precision ({card}): ResNet-50 {policy} fit step at "
+                  f"batch {n}: {ms:.3f} ms (CUDA events), "
+                  f"{n / ms * 1e3:.1f} images/s, "
+                  f"{100 * RESNET_FLOP * n / PEAK_BF16 * 1e3 / ms:.2f}% of "
+                  f"the bf16 dense peak "
+                  f"({100 * RESNET_FLOP * n / PEAK_F32 * 1e3 / ms:.1f}% of "
+                  f"the float32 peak), device idle {idle}, peak memory "
+                  f"{mem:.2f} GiB", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -5473,8 +6009,9 @@ def main():
     probe_launches = probe_main_phase(torch, probe_matmul, bottleneck)
     lenet_phase(torch, card)
     cnn_phase(torch, card)
-    resnet50_phase(torch, card)
+    resnet_f32 = resnet50_phase(torch, card)
     wrapped = detection_phase(torch, card, lstm)
+    precision_phase(torch, card, resnet_f32)
 
     pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(via deeplearning4j_tpu/models/bert.py:197)")

@@ -33,6 +33,8 @@ gruCell.
 
 from __future__ import annotations
 
+import functools
+
 import math as _math
 
 import numpy as np
@@ -1010,20 +1012,24 @@ def lstmLayer(x, w, r, b=None, h0=None, c0=None, forgetBias=0.0,
     plain versions on the CPU): ``lstm_seq`` when grad mode is on and an
     input requires grad, ``lstm_seq_infer`` otherwise. ``unroll`` is the
     reference's ``lax.scan`` unroll factor, taken for its signature and
-    ignored: the kernel runs the whole sequence."""
+    ignored: the kernel runs the whole sequence.
+
+    Another dtype (bfloat16 under a precision policy) runs a plain PyTorch
+    loop over T on any device, as the JAX package runs a ``lax.scan``
+    there (its Pallas kernel takes float32 only): the step's arithmetic is
+    the scan's, forgetBias added inside the step, and a float32 carry
+    beside bfloat16 weights promotes the step to float32, as JAX's type
+    promotion does."""
     n, _, t = x.shape
     hsz = r.shape[0]
-    if x.device.type == "cuda" and any(
-            a is not None and a.dtype != torch.float32
-            for a in (x, w, r, b, h0, c0)):
-        raise NotImplementedError(
-            "lstmLayer on CUDA runs the float32 recurrence kernel only; "
-            "other precisions come with the precision slice (ROADMAP.md, "
-            "queue 1)")
     if h0 is None:
         h0 = torch.zeros((n, hsz), dtype=x.dtype, device=x.device)
     if c0 is None:
         c0 = torch.zeros((n, hsz), dtype=x.dtype, device=x.device)
+    if any(a is not None and a.dtype != torch.float32
+           for a in (x, w, r, b, h0, c0)):
+        return _lstm_loop(x, w, r, b, h0, c0, forgetBias,
+                          returnFullSequence)
 
     xw = x.permute(2, 0, 1) @ w     # [T, N, 4H]: one batched matmul
     if b is not None:
@@ -1035,6 +1041,32 @@ def lstmLayer(x, w, r, b=None, h0=None, c0=None, forgetBias=0.0,
     if not returnFullSequence:
         return hT, hT, cT
     return hs.permute(1, 2, 0), hT, cT   # [N, H, T]
+
+
+def _lstm_loop(x, w, r, b, h0, c0, forgetBias, returnFullSequence):
+    """``lstmLayer``'s recurrence as the JAX package's ``lax.scan`` step,
+    one timestep at a time, in the promoted dtype of its operands."""
+    hsz = r.shape[0]
+    xw = x.permute(2, 0, 1) @ w     # [T, N, 4H]: one batched matmul
+    if b is not None:
+        xw = xw + b
+    dt = functools.reduce(torch.promote_types,
+                          (xw.dtype, r.dtype, h0.dtype, c0.dtype))
+    xw, r, h, c = (a.to(dt) for a in (xw, r, h0, c0))
+    hs = []
+    for xw_t in xw:
+        z = xw_t + h @ r
+        i, f, g, o = (z[..., k * hsz:(k + 1) * hsz] for k in range(4))
+        i = torch.sigmoid(i)
+        f = torch.sigmoid(f + forgetBias)
+        g = torch.tanh(g)
+        o = torch.sigmoid(o)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h)
+    if not returnFullSequence:
+        return h, h, c
+    return torch.stack(hs, dim=2), h, c   # [N, H, T]
 
 
 @op("gruCell")

@@ -264,8 +264,9 @@ class ResNet50(GraphZooModel):
     blocks (1x1, 3x3, 1x1 convs, each with BatchNormalization; a projected
     shortcut on each stage's first block, an identity one after; the sum
     through ReLU), global average pooling and a softmax output;
-    Nesterovs(1e-2, 0.9) unless another updater is given. Float32 only
-    until the precision slice: ``dataType="bfloat16"`` raises."""
+    Nesterovs(1e-2, 0.9) unless another updater is given.
+    ``dataType="bfloat16"`` is the uniform bfloat16 policy: params,
+    running statistics, updater state and compute in bfloat16."""
 
     # (tag, blocks, (f1, f2, f3), the first block's stride)
     STAGES = (("s2", 3, (64, 64, 256), 1),
@@ -275,10 +276,6 @@ class ResNet50(GraphZooModel):
 
     def __init__(self, numClasses=1000, seed=123, inputShape=(3, 224, 224),
                  updater=None, dataType="float32"):
-        if dataType != "float32":
-            raise NotImplementedError(
-                f"ResNet50 in {dataType} comes with the precision slice "
-                f"(ROADMAP.md, queue 1 item 6)")
         self.numClasses = numClasses
         self.seed = seed
         self.inputShape = inputShape

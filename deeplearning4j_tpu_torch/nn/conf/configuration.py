@@ -86,8 +86,8 @@ class MultiLayerConfiguration:
         self.dataType = dataType
         self.backpropType = backpropType
         self.tbpttLength = tbpttLength
-        # a precision policy (name or JSON) is carried for the round trip;
-        # the network refuses to run one until the precision slice lands
+        # precision policy: a name, a Policy or its JSON, or None (the
+        # uniform policy of dataType); resolved by precision_policy
         self.precision = precision
         self.preprocessors: list = [None] * len(layers)
         self.layer_input_types: list = [None] * len(layers)
@@ -144,7 +144,7 @@ class MultiLayerConfiguration:
             "dataType": self.dataType,
             "backpropType": self.backpropType,
             "tbpttLength": self.tbpttLength,
-            "precision": self.precision,
+            "precision": _json_precision(self.precision),
         }, indent=1)
 
     toJson = to_json
@@ -170,6 +170,21 @@ class MultiLayerConfiguration:
     def dtype(self):
         """The torch dtype of dataType."""
         return torch_dtype(self.dataType)
+
+    @property
+    def precision_policy(self):
+        """The effective precision.Policy (uniform in dataType when no
+        policy is configured)."""
+        from deeplearning4j_tpu_torch.precision.policy import resolve_policy
+
+        return resolve_policy(self.precision, self.dataType)
+
+
+def _json_precision(precision):
+    """A configuration's precision as its JSON: a Policy's ``to_json()``
+    (a named policy's name), a name or a dict as it is."""
+    return precision.to_json() if hasattr(precision, "to_json") \
+        else precision
 
 
 def _json_defaults(defaults):
@@ -282,6 +297,15 @@ class NeuralNetConfiguration:
             return self
 
         def precision(self, policy):
+            """A precision policy: a name ("bf16_mixed", "bf16",
+            "fp16_mixed", "float32", ...) or a precision.Policy.
+            "bf16_mixed" is float32 master weights, bfloat16 compute and
+            float32 outputs with dynamic loss scaling in the step. Checked
+            here, so a typo fails at build, not at the first fit."""
+            from deeplearning4j_tpu_torch.precision.policy import (
+                resolve_policy)
+
+            resolve_policy(policy, self._dataType)
             self._precision = policy
             return self
 

@@ -190,8 +190,8 @@ class ComputationGraphConfiguration:
         self.input_types = input_types or {}
         self.backpropType = backpropType
         self.tbpttLength = tbpttLength
-        # a precision policy (name or JSON) is carried for the round trip;
-        # the graph refuses to run one until the precision slice lands
+        # precision policy: a name, a Policy or its JSON, or None (the
+        # uniform policy of dataType); resolved by precision_policy
         self.precision = precision
         self.topo_order: list[str] = []
         self._finalize()
@@ -241,9 +241,17 @@ class ComputationGraphConfiguration:
         """The torch dtype of dataType."""
         return torch_dtype(self.dataType)
 
+    @property
+    def precision_policy(self):
+        """The effective precision.Policy (uniform in dataType when no
+        policy is configured)."""
+        from deeplearning4j_tpu_torch.precision.policy import resolve_policy
+
+        return resolve_policy(self.precision, self.dataType)
+
     def to_json(self):
         from deeplearning4j_tpu_torch.nn.conf.configuration import (
-            _json_defaults)
+            _json_defaults, _json_precision)
 
         nodes = {}
         for name, (node, ins) in self.nodes.items():
@@ -261,7 +269,7 @@ class ComputationGraphConfiguration:
                            for k, v in self.input_types.items()},
             "backpropType": self.backpropType,
             "tbpttLength": self.tbpttLength,
-            "precision": self.precision,
+            "precision": _json_precision(self.precision),
         }, indent=1)
 
     toJson = to_json

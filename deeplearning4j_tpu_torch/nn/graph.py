@@ -24,9 +24,16 @@ iterator of them, and pads a ragged last batch to the largest batch seen
 by repeating its last row, with label mask 0 on the padding rows; the
 padding rows enter the batch statistics, as in the JAX package.
 
-Left for later slices, as in ROADMAP.md: ``fitMultiBatch``, the
-precision policies and loss scaler, listeners, training health and
-telemetry.
+The precision policy works as in ``MultiLayerNetwork``: params, layer
+states and updater state in the param dtype; inputs cast to the compute
+dtype; under ``*_mixed`` the masters cast to the compute dtype inside
+what autograd differentiates and inference in the compute dtype with the
+output dtype returned; with loss scaling the gated step and the scaler
+state (``_prec_state``), published one step behind through
+``precision.monitor_for("graph", ...)``.
+
+Left for later slices, as in ROADMAP.md: ``fitMultiBatch``, listeners,
+training health and telemetry beyond the precision monitor.
 """
 
 from __future__ import annotations
@@ -46,7 +53,11 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     OUTPUT_LAYER_TYPES, BaseLayer, Bidirectional)
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _as_input, _dropout_generator, _normalize_grads, _shapes)
+    _as_input, _dropout_generator, _gated_update, _io_dtype, _keep_if,
+    _normalize_grads, _shapes, _to_compute, _to_output)
+from deeplearning4j_tpu_torch.precision.monitor import monitor_for
+from deeplearning4j_tpu_torch.precision.policy import cast_floating
+from deeplearning4j_tpu_torch.precision.scaler import DynamicLossScaler
 from deeplearning4j_tpu_torch.serving.buckets import pad_rows
 from deeplearning4j_tpu_torch.tree_util import (
     tree_fill, tree_leaves, tree_map)
@@ -70,15 +81,14 @@ class ComputationGraph:
             if not isinstance(node, OUTPUT_LAYER_TYPES):
                 raise ValueError(f"output node {out!r} must be an "
                                  f"OutputLayer/LossLayer")
-        if conf.precision not in (None, "float32"):
-            raise NotImplementedError(
-                f"precision policy {conf.precision!r} comes with the "
-                f"precision slice (ROADMAP.md, queue 1)")
         self.device = resolve_device(device)
+        self._policy = conf.precision_policy
+        self._scaler = DynamicLossScaler.for_policy(self._policy)
         self._last_use = _last_uses(conf)
         self._params: dict[str, dict] = {}
         self._states: dict[str, dict] = {}
         self._opt_states: dict = {}
+        self._prec_state: dict = {}   # the loss scaler's state; {} = off
         self._stream_states = None   # rnnTimeStep carried state per node
         self._stream_batch = None
         self._bucket = None   # fit batch-size bucket (ragged tail pads to it)
@@ -91,9 +101,10 @@ class ComputationGraph:
     def init(self, params=None):
         """Initialize from the configuration's seed (one generator drawn
         from node by node in topological order), or install ``params``
-        ({node: {name: Tensor}} for every node, ``{}`` for a vertex, as
-        made by ``utils.convert.params_from_numpy``)."""
-        dtype = self.conf.dtype
+        ({node: {name: Tensor}} for every node, ``{}`` for a vertex, in
+        the policy's param dtype, as made by
+        ``utils.convert.params_from_numpy``)."""
+        dtype = self._policy.param_torch
         nodes = self.conf.nodes
         if params is None:
             gen = torch.Generator().manual_seed(int(self.conf.seed))
@@ -126,6 +137,8 @@ class ComputationGraph:
         self._opt_states = {name: (self._updater(name).init_state(p)
                                    if p else ())
                             for name, p in self._params.items()}
+        self._prec_state = (self._scaler.init_state(self.device)
+                            if self._scaler else {})
         self._initialized = True
         return self
 
@@ -139,16 +152,25 @@ class ComputationGraph:
 
     def _input(self, x):
         """A batch (INDArray, tensor or numpy) as a tensor on this graph's
-        device; float inputs take the configured dtype."""
-        return _as_input(x, self.device, self.conf.dtype)
+        device; float inputs take ``_io_dtype``."""
+        return _as_input(x, self.device, _io_dtype(self.conf))
+
+    def _compute_params(self, params):
+        """The params in the compute dtype under a ``*_mixed`` policy (a
+        differentiable cast); as they are otherwise."""
+        if self._policy.is_mixed:
+            return cast_floating(params, self._policy.compute_torch)
+        return params
 
     # -- forward over the DAG ------------------------------------------------
     def _forward(self, params, states, inputs: dict, training=False,
                  generator=None, stop_before_output=False):
         """(env, new_states): env holds the outputs' activations (with
         ``stop_before_output``, each output layer's input instead), every
-        other activation dropped after its last reader."""
-        env = {k: self._input(v) for k, v in inputs.items()}
+        other activation dropped after its last reader. Float inputs take
+        the policy's compute dtype."""
+        dt = self._policy.compute_torch
+        env = {k: _to_compute(self._input(v), dt) for k, v in inputs.items()}
         outputs = set(self.conf.outputs)
         last = self._last_use
         new_states = {}
@@ -176,21 +198,26 @@ class ComputationGraph:
         """``(params, states, x) -> y`` for a single-input, single-output
         graph (serving), under ``torch.inference_mode()``."""
         (name,), (out,) = self.conf.inputs, self.conf.outputs
+        dt = self._policy.output_torch
 
         def fn(params, states, x):
             with torch.inference_mode():
-                env, _ = self._forward(params, states, {name: x}, training)
-            return env[out]
+                env, _ = self._forward(self._compute_params(params), states,
+                                       {name: x}, training)
+            return _to_output(env[out], dt)
 
         return fn
 
     def output(self, *xs, train=False) -> list:
-        """output(x1, x2, ...): one ``INDArray`` per configured output."""
+        """output(x1, x2, ...): one ``INDArray`` per configured output, in
+        the policy's output dtype."""
         self._check_init()
         inputs = {n: self._input(x) for n, x in zip(self.conf.inputs, xs)}
         with torch.inference_mode():
-            env, _ = self._forward(self._params, self._states, inputs, train)
-        return [INDArray(env[o]) for o in self.conf.outputs]
+            env, _ = self._forward(self._compute_params(self._params),
+                                   self._states, inputs, train)
+        dt = self._policy.output_torch
+        return [INDArray(_to_output(env[o], dt)) for o in self.conf.outputs]
 
     def outputSingle(self, *xs, train=False) -> INDArray:
         return self.output(*xs, train=train)[0]
@@ -199,7 +226,9 @@ class ComputationGraph:
     def _loss_from(self, params, states, inputs, labels: dict, training,
                    generator, masks: dict | None = None):
         """The output layers' fused losses, summed, plus L1/L2 on every
-        parameter."""
+        parameter. Under a ``*_mixed`` policy the master params are cast
+        to the compute dtype here, inside what autograd differentiates."""
+        params = self._compute_params(params)
         env, new_states = self._forward(params, states, inputs, training,
                                         generator, stop_before_output=True)
         loss = 0.0
@@ -229,15 +258,19 @@ class ComputationGraph:
         return loss, new_states
 
     def _value_and_grad(self, states, inputs, labels, masks, training,
-                        generator):
+                        generator, prec=None):
         """(loss, new_states, {node: gradients}) at the current params; a
-        parameter the loss does not reach gets a zero gradient."""
+        parameter the loss does not reach gets a zero gradient. With the
+        scaler state ``prec`` the gradients are those of the scaled loss
+        (the loss returned is not scaled)."""
         leaves = {name: tree_map(lambda v: v.detach().requires_grad_(), p)
                   for name, p in self._params.items()}
         loss, new_states = self._loss_from(leaves, states, inputs, labels,
                                            training, generator, masks)
         flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True) \
+        target = loss if prec is None else self._scaler.scale_loss(loss,
+                                                                   prec)
+        grads = torch.autograd.grad(target, flat, allow_unused=True) \
             if flat else ()
         grads = (torch.zeros_like(v) if g is None else g
                  for v, g in zip(flat, grads))
@@ -255,11 +288,20 @@ class ComputationGraph:
 
     def _step(self, states, inputs, labels, masks):
         """One optimizer step on device feeds; returns (loss, states).
-        The params and the updater state are updated in place."""
+        The params and the updater state are updated in place; with loss
+        scaling, only where the unscaled gradients are all finite."""
         it = self._iteration
+        prec = self._prec_state if self._scaler is not None else {}
         loss, new_states, grads = self._value_and_grad(
-            states, inputs, labels, masks, True, self._dropout_generator(it))
+            states, inputs, labels, masks, True, self._dropout_generator(it),
+            prec=prec or None)
         with torch.no_grad():
+            if prec:
+                grads = self._scaler.unscale(grads, prec)
+                finite = self._scaler.all_finite(grads)
+                opt_before = [v.clone() for v in tree_leaves(
+                    self._opt_states)]
+            params, upds = [], []
             for name, (node, _) in self.conf.nodes.items():
                 if not self._params[name]:
                     continue
@@ -269,9 +311,18 @@ class ComputationGraph:
                     or 1.0)
                 upd, self._opt_states[name] = self._updater(name).apply_mixed(
                     g, self._opt_states[name], self._params[name], it)
+                if prec:   # applied below, once the gate is known
+                    params += tree_leaves(self._params[name])
+                    upds += tree_leaves(upd)
+                    continue
                 for p, u in zip(tree_leaves(self._params[name]),
                                 tree_leaves(upd)):
                     p.sub_(u)
+            if prec:
+                _gated_update(finite, params, upds, opt_before,
+                              tree_leaves(self._opt_states))
+                new_states = _keep_if(finite, new_states, states)
+                self._prec_state = self._scaler.next_state(prec, finite)
         self._iteration += 1
         return loss, new_states
 
@@ -304,6 +355,9 @@ class ComputationGraph:
         dropped."""
         self._check_init()
         last = None
+        pm = monitor_for("graph", self._policy)
+        if pm is not None:
+            pm.baseline_from(self._prec_state)
         for epoch_i in range(epochs):
             batches, data = _prepare_batches(data, epoch_i, epochs)
             for ds in batches:
@@ -325,13 +379,18 @@ class ComputationGraph:
                                  and v.shape[2] > self.conf.tbpttLength
                                  for v in inputs.values()))
                 if tbptt:
-                    last = self._fit_tbptt(inputs, labels, masks)
+                    last = self._fit_tbptt(inputs, labels, masks, pm)
                 else:
+                    it_used = self._iteration
                     last, states = self._step(
                         self._states,
                         *self._device_feeds(inputs, labels, masks))
                     self._states = self._strip_rnn_states(states)
+                    if pm is not None:
+                        pm.on_step(it_used, self._prec_state)
             self._epoch += 1
+        if pm is not None:
+            pm.flush()
         if last is not None:
             self._score = float(last)
         return self
@@ -379,7 +438,7 @@ class ComputationGraph:
             out[name] = {}
         return out
 
-    def _fit_tbptt(self, inputs, labels, masks):
+    def _fit_tbptt(self, inputs, labels, masks, pm=None):
         """Truncated BPTT: each segment of tbpttLength steps is one
         optimizer step; the recurrent state carries across segments,
         detached, and resets at the next minibatch. A short tail segment
@@ -411,8 +470,11 @@ class ComputationGraph:
                       for k, v in lc.items()}
                 mc = {k: pad_time(v, pad, 1) if v.ndim == 2 else v
                       for k, v in mc.items()}
+            it_used = self._iteration
             loss, states = self._step(states,
                                       *self._device_feeds(ic, lc, mc))
+            if pm is not None:
+                pm.on_step(it_used, self._prec_state)
         self._states = self._strip_rnn_states(states)
         return loss
 
@@ -435,7 +497,8 @@ class ComputationGraph:
                   for k, v in self._states.items()}
         with torch.inference_mode():
             env, new_states = self._forward(
-                self._params, states, dict(zip(self.conf.inputs, arrs)))
+                self._compute_params(self._params), states,
+                dict(zip(self.conf.inputs, arrs)))
         self._stream_states = {k: new_states[k] for k in rec}
         outs = [INDArray(y[:, :, 0] if single and y.dim() == 3 else y)
                 for y in (env[o] for o in self.conf.outputs)]
@@ -494,7 +557,7 @@ class ComputationGraph:
         leaves = [v.reshape(-1) for name in self.conf.topo_order
                   for v in tree_leaves(self._params[name])]
         if not leaves:
-            return INDArray(torch.zeros((0,), dtype=self.conf.dtype,
+            return INDArray(torch.zeros((0,), dtype=self._policy.param_torch,
                                         device=self.device))
         return INDArray(torch.cat(leaves))
 

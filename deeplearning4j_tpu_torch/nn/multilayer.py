@@ -43,9 +43,28 @@ an AutoEncoder's or a VAE's ``pretrain_loss`` with the layer's own
 updater, the layers below frozen, the noise drawn from a generator seeded
 by ``conf.seed + 2 + layer`` and the iteration.
 
-Left for later slices, as in ROADMAP.md: the precision policies' compute
-cast and loss scaler, the aux-loss channel (with MoELayer), training
-health, telemetry, listeners, prefetch and fitMultiBatch.
+The configuration's precision policy (``conf.precision_policy``) sets
+the dtypes, as in the JAX package: ``init`` allocates the params, layer
+states and updater state in the policy's param dtype; ``_forward`` casts
+float inputs to the compute dtype (float64 left alone); under a
+``*_mixed`` policy ``_loss_from`` casts the float32 masters to the
+compute dtype inside what autograd differentiates, so the gradients come
+back in float32 and the updater's moments stay float32, and inference
+(``output``, serving, ``rnnTimeStep``) runs in the compute dtype too and
+returns the output dtype. ``feedForward`` and ``pretrainLayer`` run in
+the param dtype. A batch enters as float32 (float64 for a float64
+network), labels included, as numpy arrays enter the JAX package. With
+loss scaling (``_prec_state``: the scaler's 0-d tensors) a step scales
+the loss, unscales the gradients exactly, and keeps the params, the
+updater state and the layer states bitwise as they were when a gradient
+is not finite (a ``torch.where`` on the device's flag), then advances the
+scaler; ``fit`` publishes the scaler state one step behind through
+``precision.monitor_for("fit", ...)``. Nothing on the step reads a device
+value on the host.
+
+Left for later slices, as in ROADMAP.md: the aux-loss channel (with
+MoELayer), training health, telemetry beyond the precision monitor,
+listeners, prefetch and fitMultiBatch.
 """
 
 from __future__ import annotations
@@ -64,6 +83,9 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (
     BackpropType, MultiLayerConfiguration, _apply_preprocessor)
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     OUTPUT_LAYER_TYPES, Bidirectional)
+from deeplearning4j_tpu_torch.precision.monitor import monitor_for
+from deeplearning4j_tpu_torch.precision.policy import cast_floating
+from deeplearning4j_tpu_torch.precision.scaler import DynamicLossScaler
 from deeplearning4j_tpu_torch.serving.buckets import pad_rows
 from deeplearning4j_tpu_torch.tree_util import (
     tree_fill, tree_items, tree_leaves, tree_map)
@@ -116,6 +138,46 @@ def _as_input(x, device, dtype):
     return x
 
 
+def _io_dtype(conf):
+    """The dtype a float batch enters a network in: float64 for a float64
+    network, float32 otherwise (the JAX package reads numpy through
+    ``jnp.asarray`` with 64-bit types off). The compute cast comes after,
+    in ``_forward``."""
+    return conf.dtype if conf.dtype == torch.float64 else torch.float32
+
+
+def _to_compute(x, dtype):
+    """A float batch in the compute dtype; integer ids and float64 as they
+    are."""
+    if x.is_floating_point() and x.dtype != dtype and \
+            x.dtype != torch.float64:
+        return x.to(dtype)
+    return x
+
+
+def _to_output(y, dtype):
+    """An inference result in the policy's output dtype."""
+    return y.to(dtype) if y.is_floating_point() and y.dtype != dtype else y
+
+
+def _gated_update(finite, params, upds, opt_before, opt_after):
+    """The updates applied where ``finite`` (a 0-d bool tensor) holds and
+    nothing changed where it does not: each param becomes
+    ``where(finite, p - u, p)`` in place, and each updater-state leaf (which
+    the updater moved in place) ``where(finite, new, old)`` from
+    ``opt_before``, its copy taken before the update. Bitwise: a finite
+    step's params are ``p - u`` as in the ungated step."""
+    for p, u in zip(params, upds):
+        p.copy_(torch.where(finite, p - u, p))
+    for new, old in zip(opt_after, opt_before):
+        new.copy_(torch.where(finite, new, old))
+
+
+def _keep_if(finite, new, old):
+    """Layer states: ``new`` where ``finite`` holds, else ``old``."""
+    return tree_map(lambda n, o: torch.where(finite, n, o), new, old)
+
+
 def _dropout_generator(seed, it, device, offset=1):
     """A step's generator, seeded from ``seed`` + ``offset`` (1 for
     dropout) and the iteration."""
@@ -132,14 +194,13 @@ class MultiLayerNetwork:
             raise ValueError("configuration has no layers")
         if not isinstance(self.layers[-1], OUTPUT_LAYER_TYPES):
             raise ValueError("last layer must be an OutputLayer")
-        if conf.precision not in (None, "float32"):
-            raise NotImplementedError(
-                f"precision policy {conf.precision!r} comes with the "
-                f"precision slice (ROADMAP.md, queue 1)")
         self.device = resolve_device(device)
+        self._policy = conf.precision_policy
+        self._scaler = DynamicLossScaler.for_policy(self._policy)
         self._params: list[dict] = []
         self._states: list[dict] = []
         self._opt_states: list = []
+        self._prec_state: dict = {}   # the loss scaler's state; {} = off
         self._stream_states = None   # rnnTimeStep carried state per layer
         self._stream_batch = None
         self._bucket = None   # fit batch-size bucket (ragged tail pads to it)
@@ -151,9 +212,9 @@ class MultiLayerNetwork:
     # -- init ----------------------------------------------------------------
     def init(self, params=None):
         """Initialize from the configuration's seed, or install ``params``
-        (a list of per-layer {name: Tensor} dicts, as made by
-        ``utils.convert.params_from_numpy``)."""
-        dtype = self.conf.dtype
+        (a list of per-layer {name: Tensor} dicts in the policy's param
+        dtype, as made by ``utils.convert.params_from_numpy``)."""
+        dtype = self._policy.param_torch
         if params is None:
             gen = torch.Generator().manual_seed(int(self.conf.seed))
             params = [lr.init_params(gen, dtype, self.device)
@@ -178,6 +239,8 @@ class MultiLayerNetwork:
                         for lr in self.layers]
         self._opt_states = [self._layer_updater(i).init_state(p) if p else ()
                             for i, p in enumerate(self._params)]
+        self._prec_state = (self._scaler.init_state(self.device)
+                            if self._scaler else {})
         self._initialized = True
         return self
 
@@ -191,12 +254,22 @@ class MultiLayerNetwork:
 
     def _input(self, x):
         """A batch (INDArray, tensor or numpy) as a tensor on this
-        network's device; float inputs take the configured dtype."""
-        return _as_input(x, self.device, self.conf.dtype)
+        network's device; float inputs take ``_io_dtype``."""
+        return _as_input(x, self.device, _io_dtype(self.conf))
+
+    def _compute_params(self, params):
+        """The params in the compute dtype under a ``*_mixed`` policy (a
+        differentiable cast); as they are otherwise."""
+        if self._policy.is_mixed:
+            return cast_floating(params, self._policy.compute_torch)
+        return params
 
     # -- pure forward --------------------------------------------------------
     def _forward(self, params, states, x, training=False, generator=None,
-                 upto=None):
+                 upto=None, compute_dtype=None):
+        """Float inputs take the policy's compute dtype, or
+        ``compute_dtype`` where the caller picks one."""
+        x = _to_compute(x, compute_dtype or self._policy.compute_torch)
         new_states = []
         n = len(self.layers) if upto is None else upto
         for i in range(n):
@@ -213,10 +286,13 @@ class MultiLayerNetwork:
         ``training`` the layers run in training mode without a generator,
         so dropout is off, as in the JAX package (no rng there)."""
 
+        out = self._policy.output_torch
+
         def fn(params, states, x):
             with torch.inference_mode():
-                y, _ = self._forward(params, states, x, training)
-            return y
+                y, _ = self._forward(self._compute_params(params), states, x,
+                                     training)
+            return _to_output(y, out)
 
         return fn
 
@@ -229,9 +305,10 @@ class MultiLayerNetwork:
 
     def feedForward(self, x, train: bool = False) -> list:
         """The input and every layer's activation, as ``INDArray``s (in
-        training mode without a generator, dropout off, with ``train``)."""
+        training mode without a generator, dropout off, with ``train``), in
+        the param dtype."""
         self._check_init()
-        x = self._input(x)
+        x = _to_compute(self._input(x), self._policy.param_torch)
         acts = [INDArray(x)]
         with torch.inference_mode():
             for i, lr in enumerate(self.layers):
@@ -287,7 +364,8 @@ class MultiLayerNetwork:
         states = [self._stream_states[i] if i in rec else s
                   for i, s in enumerate(self._states)]
         with torch.inference_mode():
-            y, new_states = self._forward(self._params, states, x)
+            y, new_states = self._forward(self._compute_params(self._params),
+                                          states, x)
         self._stream_states = {i: new_states[i] for i in rec}
         return INDArray(y[:, :, 0] if single and y.dim() == 3 else y)
 
@@ -321,7 +399,10 @@ class MultiLayerNetwork:
     def _loss_from(self, params, states, f, l, training, generator,
                    mask=None):
         """Forward to the last hidden activation, then the output layer's
-        fused pre-activation loss, plus L1/L2 on every parameter."""
+        fused pre-activation loss, plus L1/L2 on every parameter. Under a
+        ``*_mixed`` policy the master params are cast to the compute dtype
+        here, inside what autograd differentiates."""
+        params = self._compute_params(params)
         out_idx = len(self.layers) - 1
         h, new_states = self._forward(params, states, f, training, generator,
                                       upto=out_idx)
@@ -346,16 +427,21 @@ class MultiLayerNetwork:
                                         for w in leaves)
         return loss + reg, new_states
 
-    def _value_and_grad(self, states, f, l, mask, training, generator):
+    def _value_and_grad(self, states, f, l, mask, training, generator,
+                        prec=None):
         """(loss, new_states, per-layer gradients) at the current params; a
         parameter the loss does not reach (a VAE's log-variance head in
-        supervised training) gets a zero gradient."""
+        supervised training) gets a zero gradient. With the scaler state
+        ``prec`` the gradients are those of the scaled loss (the loss
+        returned is not scaled)."""
         leaves = [tree_map(lambda v: v.detach().requires_grad_(), p)
                   for p in self._params]
         loss, new_states = self._loss_from(leaves, states, f, l, training,
                                            generator, mask=mask)
         flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True) \
+        target = loss if prec is None else self._scaler.scale_loss(loss,
+                                                                   prec)
+        grads = torch.autograd.grad(target, flat, allow_unused=True) \
             if flat else ()
         grads = iter(torch.zeros_like(v) if g is None else g
                      for v, g in zip(flat, grads))
@@ -371,11 +457,20 @@ class MultiLayerNetwork:
 
     def _step(self, states, f, l, lmask):
         """One optimizer step on a device batch; returns (loss, states).
-        The params and the updater state are updated in place."""
+        The params and the updater state are updated in place; with loss
+        scaling, only where the unscaled gradients are all finite."""
         it = self._iteration
+        prec = self._prec_state if self._scaler is not None else {}
         loss, new_states, grads = self._value_and_grad(
-            states, f, l, lmask, True, self._dropout_generator(it))
+            states, f, l, lmask, True, self._dropout_generator(it),
+            prec=prec or None)
         with torch.no_grad():
+            if prec:
+                grads = self._scaler.unscale(grads, prec)
+                finite = self._scaler.all_finite(grads)
+                opt_before = [v.clone() for v in tree_leaves(
+                    self._opt_states)]
+            params, upds = [], []
             for i, lr in enumerate(self.layers):
                 if not self._params[i]:
                     continue
@@ -383,9 +478,18 @@ class MultiLayerNetwork:
                                      lr.gradientNormalizationThreshold or 1.0)
                 upd, self._opt_states[i] = self._layer_updater(i).apply_mixed(
                     g, self._opt_states[i], self._params[i], it)
+                if prec:   # applied below, once the gate is known
+                    params += tree_leaves(self._params[i])
+                    upds += tree_leaves(upd)
+                    continue
                 for p, u in zip(tree_leaves(self._params[i]),
                                 tree_leaves(upd)):
                     p.sub_(u)
+            if prec:
+                _gated_update(finite, params, upds, opt_before,
+                              tree_leaves(self._opt_states))
+                new_states = _keep_if(finite, new_states, states)
+                self._prec_state = self._scaler.next_state(prec, finite)
         self._iteration += 1
         return loss, new_states
 
@@ -406,6 +510,9 @@ class MultiLayerNetwork:
             data, epochs = (data, epochs), 1   # fit(features, labels)
         epochs = epochs or 1
         last_loss = None
+        pm = monitor_for("fit", self._policy)
+        if pm is not None:
+            pm.baseline_from(self._prec_state)
         for epoch_i in range(epochs):
             batches, data = _prepare_batches(data, epoch_i, epochs)
             for ds in batches:
@@ -423,12 +530,17 @@ class MultiLayerNetwork:
                          and self.conf.tbpttLength and f.ndim == 3
                          and f.shape[2] > self.conf.tbpttLength)
                 if tbptt:
-                    last_loss = self._fit_tbptt(f, l, lmask)
+                    last_loss = self._fit_tbptt(f, l, lmask, pm)
                 else:
+                    it_used = self._iteration
                     last_loss, states = self._step(
                         self._states, *self._device_batch(f, l, lmask))
                     self._states = self._strip_rnn_states(states)
+                    if pm is not None:
+                        pm.on_step(it_used, self._prec_state)
             self._epoch += 1
+        if pm is not None:
+            pm.flush()
         if last_loss is not None:
             self._score = float(last_loss)
         return self
@@ -439,7 +551,7 @@ class MultiLayerNetwork:
             out[i] = {}
         return out
 
-    def _fit_tbptt(self, f, l, lmask):
+    def _fit_tbptt(self, f, l, lmask, pm=None):
         """Truncated BPTT: each segment of tbpttLength steps is one
         optimizer step; h and c carry across segments, detached, and reset
         at the next minibatch."""
@@ -464,8 +576,11 @@ class MultiLayerNetwork:
                 if mc.ndim == 2:
                     mc = np.concatenate(
                         [mc, np.zeros((mc.shape[0], pad), mc.dtype)], axis=1)
+            it_used = self._iteration
             loss, states = self._step(states,
                                       *self._device_batch(fc, lc, mc))
+            if pm is not None:
+                pm.on_step(it_used, self._prec_state)
         self._states = self._strip_rnn_states(states)
         return loss
 
@@ -488,8 +603,9 @@ class MultiLayerNetwork:
                 feats, _, _, _ = _split_dataset_full(ds)
                 f = self._input(_host_array(feats[0]))
                 with torch.no_grad():
-                    h, _ = self._forward(self._params, self._states, f,
-                                         upto=layer_idx)
+                    h, _ = self._forward(
+                        self._params, self._states, f, upto=layer_idx,
+                        compute_dtype=self._policy.param_torch)
                     h = _apply_preprocessor(
                         self.conf.preprocessors[layer_idx], h)
                 gen = _dropout_generator(self.conf.seed, self._iteration,
@@ -595,7 +711,7 @@ class MultiLayerNetwork:
         self._check_init()
         leaves = [v.reshape(-1) for v in tree_leaves(self._params)]
         if not leaves:
-            return INDArray(torch.zeros((0,), dtype=self.conf.dtype,
+            return INDArray(torch.zeros((0,), dtype=self._policy.param_torch,
                                         device=self.device))
         return INDArray(torch.cat(leaves))
 
@@ -661,8 +777,9 @@ class MultiLayerNetwork:
 
     def clone(self) -> "MultiLayerNetwork":
         """A new network from this one's configuration JSON on the same
-        device, with copies of the params, layer states and updater state
-        (the counters start at 0, as in the JAX package)."""
+        device, with copies of the params, layer states, updater state and
+        loss-scaler state (the counters start at 0, as in the JAX
+        package)."""
         other = MultiLayerNetwork(
             MultiLayerConfiguration.from_json(self.conf.to_json()),
             device=self.device)
@@ -672,6 +789,7 @@ class MultiLayerNetwork:
             other._states = [tree_map(copy, s) for s in self._states]
             other._opt_states = [tree_map(copy, s)
                                  for s in self._opt_states]
+            other._prec_state = tree_map(copy, self._prec_state)
         return other
 
     def summary(self) -> str:

@@ -3,7 +3,9 @@
 Counterpart of ``deeplearning4j_tpu/serving/registry.py`` without the
 capacity planner and telemetry hooks (they come with the telemetry
 slice): a registry row is (name, version) -> Servable + BucketLadder, and
-`warmup()` runs the ladder's shapes once.
+`warmup()` runs the ladder's shapes once. A servable's
+``describe_extra()`` (a QuantizedServable's payload and calibration
+error) joins its row.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class _Entry:
 
     def describe(self) -> dict:
         sv = self.servable
-        return {
+        d = {
             "name": self.name,
             "version": self.version,
             "type": type(sv).__name__,
@@ -53,6 +55,12 @@ class _Entry:
             "warmed_shapes": [list(s) for s in sv.warmed_shapes],
             "warmup_seconds": self.warmup_seconds,
         }
+        # a quantized servable reports its int8 payload and calibration
+        # error beside the standard row
+        extra = getattr(sv, "describe_extra", None)
+        if callable(extra):
+            d.update(extra())
+        return d
 
 
 class ModelRegistry:
@@ -68,7 +76,8 @@ class ModelRegistry:
     def register(self, name, model, version=1, example_shape=None,
                  dtype=None, ladder=None, input_name=None,
                  output_name=None, warmup=False) -> _Entry:
-        """dtype=None takes the serving dtype from the model's dataType;
+        """dtype=None takes the serving dtype from the model's precision
+        policy (``servable._model_dtype``);
         a SameDiff graph is served from its placeholder ``input_name`` to
         its variable ``output_name``."""
         sv = (model if isinstance(model, Servable)

@@ -6,6 +6,13 @@ XLA executable to compile: PyTorch runs eagerly, so warmup runs the
 inference function once at each ladder shape, which builds the kernels
 and fills the allocator's caches before traffic arrives. Parameters are
 read from the live network at call time, never captured.
+
+The host boundary of a bfloat16 model (a network whose precision policy
+outputs bfloat16) is float32: requests come in as float32 arrays that
+hold bfloat16 values, and answers go out as float32, because numpy on
+the GPU machine has no bfloat16 (the JAX package's numpy has it through
+ml_dtypes). The network casts the batch to its compute dtype, so the
+values it computes on are the bfloat16 ones either way.
 """
 
 from __future__ import annotations
@@ -19,11 +26,14 @@ from deeplearning4j_tpu_torch.backend import resolve_device
 
 
 def _model_dtype(model) -> np.dtype:
-    """The serving-boundary dtype a model's configuration implies."""
+    """The serving-boundary dtype a model's configuration implies: its
+    precision policy's output dtype (the dataType without a policy), with
+    bfloat16 served as float32 (the module's host-boundary rule)."""
     conf = getattr(model, "conf", None)
-    if conf is not None and hasattr(conf, "dataType"):
-        return np.dtype(conf.dataType)
-    return np.dtype(np.float32)
+    if conf is None or not hasattr(conf, "precision_policy"):
+        return np.dtype(np.float32)
+    out = conf.precision_policy.output_dtype
+    return np.dtype(np.float32 if out == "bfloat16" else out)
 
 
 class Servable:
@@ -76,9 +86,12 @@ class Servable:
     # -- hot path -----------------------------------------------------------
     def infer(self, x) -> np.ndarray:
         """Run one already-bucketed batch; the result comes back to the
-        host as numpy (which waits for the device)."""
+        host as numpy (which waits for the device), a bfloat16 one as
+        float32."""
         x = torch.from_numpy(np.ascontiguousarray(x, dtype=self.dtype))
         y = self._infer_fn()(*self._call_args(), x.to(self.device))
+        if y.dtype == torch.bfloat16:
+            y = y.float()
         return y.cpu().numpy()
 
 
@@ -175,8 +188,9 @@ class FnServable(Servable):
 def as_servable(model, example_shape=None, dtype=None,
                 input_name=None, output_name=None) -> Servable:
     """Wrap a supported model type in its Servable adapter. dtype=None
-    takes the serving-boundary dtype from the model's dataType (float32
-    for a SameDiff graph or a plain function); a SameDiff graph needs the
+    takes the serving-boundary dtype from the model's precision policy
+    (``_model_dtype``; float32 for a SameDiff graph or a plain function); a
+    SameDiff graph needs the
     placeholder it is fed through and the variable it answers with."""
     if isinstance(model, Servable):
         return model

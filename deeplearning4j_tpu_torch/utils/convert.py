@@ -18,6 +18,11 @@ MaskZeroLayer) params and state are its inner layer's. ``opt_states_from_numpy``
 package's ``net._opt_states`` as numpy: per layer ``()`` or nested dicts
 such as Adam's ``{"m": {...}, "v": {...}}``), and ``opt_states_to_numpy``
 is its inverse, so both packages can start from the same state.
+The tensors take the configuration's precision policy's param dtype.
+An array in the JAX package's bfloat16 (ml_dtypes: numpy kind ``'V'``,
+two bytes, named ``bfloat16``) is read by its bits, with no import of
+ml_dtypes; the ``*_to_numpy`` functions give a bfloat16 leaf as float32
+(which holds it exactly), since numpy has no bfloat16 of its own.
 ``bert_params_from_numpy`` and ``bert_params_to_numpy`` carry a BERT
 parameter tree (``models/bert.py``) between the two packages, and
 ``bottleneck_params_from_numpy`` the bottleneck probe's parameters
@@ -30,6 +35,31 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.tree_util import tree_map
+
+
+def _is_bfloat16(a) -> bool:
+    """Whether a numpy array is in ml_dtypes' bfloat16 (read without
+    importing ml_dtypes)."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2 and \
+        a.dtype.name == "bfloat16"
+
+
+def tensor_from_numpy(a, dtype, device) -> torch.Tensor:
+    """A copy of ``a`` as a ``dtype`` tensor on ``device``; a bfloat16
+    array by its bits."""
+    a = np.asarray(a)
+    if _is_bfloat16(a):
+        bits = torch.from_numpy(np.array(a).view(np.int16))   # a copy
+        return bits.view(torch.bfloat16).to(device=device, dtype=dtype)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def tensor_to_numpy(t) -> np.ndarray:
+    """A host copy of a tensor; bfloat16 as float32."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy().copy()
 
 
 def _each(conf, arrays, what, suffix, fn):
@@ -58,11 +88,12 @@ def params_from_numpy(conf, arrays, device):
     """``arrays``: for a MultiLayerConfiguration one dict per layer, for a
     ComputationGraphConfiguration one dict per node by name (``{}`` for a
     vertex), each holding exactly the layer's parameters by name. Returns
-    tensors of ``conf``'s dtype on ``device`` in the same layout (copies:
-    the caller's arrays are never aliased)."""
+    tensors of ``conf``'s param dtype on ``device`` in the same layout
+    (copies: the caller's arrays are never aliased)."""
+    dtype = conf.precision_policy.param_torch
     return _each(conf, arrays, "param dicts", "", lambda lr, arrs, where:
                  _group_from_numpy({} if lr is None else lr.param_shapes(),
-                                   arrs, conf.dtype, device, where))
+                                   arrs, dtype, device, where))
 
 
 def _group_from_numpy(want, arrs, dtype, device, where):
@@ -87,19 +118,21 @@ def _group_from_numpy(want, arrs, dtype, device, where):
         if a.shape != shape:
             raise ValueError(f"{where} param {name}: shape {a.shape}, "
                              f"configuration says {shape}")
-        p[name] = torch.tensor(a, dtype=leaf_dtype, device=device)
+        p[name] = tensor_from_numpy(a, leaf_dtype, device)
     return p
 
 
 def states_from_numpy(conf, arrays, device):
     """``arrays``: the layer states in ``params_from_numpy``'s layout
     (the JAX package's ``net._states`` as numpy). Returns tensors of
-    ``conf``'s dtype on ``device`` (copies)."""
+    ``conf``'s param dtype on ``device`` (copies)."""
+    dtype = conf.precision_policy.param_torch
+
     def state(lr, arrs, where):
         want = {} if lr is None else tree_map(
             lambda t: (tuple(t.shape), t.dtype),
-            lr.init_state(conf.dtype, "meta"))
-        return _group_from_numpy(want, arrs, conf.dtype, device, where)
+            lr.init_state(dtype, "meta"))
+        return _group_from_numpy(want, arrs, dtype, device, where)
 
     return _each(conf, arrays, "layer states", " state", state)
 
@@ -107,17 +140,17 @@ def states_from_numpy(conf, arrays, device):
 def opt_states_from_numpy(conf, arrays, device):
     """``arrays``: the updater states with numpy leaves, one a layer (a
     list) or a node (a dict by name). Returns the same structure with
-    tensors of ``conf``'s dtype on ``device`` (copies)."""
+    tensors of ``conf``'s param dtype on ``device`` (copies)."""
+    dtype = conf.precision_policy.param_torch
     return _each(conf, arrays, "updater states", "", lambda lr, st, where:
-                 tree_map(lambda a: torch.tensor(
-                     np.asarray(a), dtype=conf.dtype, device=device), st))
+                 tree_map(lambda a: tensor_from_numpy(a, dtype, device), st))
 
 
 def opt_states_to_numpy(states):
     """The port's updater states, or layer states (``states_to_numpy``),
     per layer (a list) or per node (a dict), with numpy leaves (host
-    copies)."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), states)
+    copies; bfloat16 as float32)."""
+    return tree_map(tensor_to_numpy, states)
 
 
 states_to_numpy = opt_states_to_numpy

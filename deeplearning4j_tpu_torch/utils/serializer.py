@@ -13,12 +13,18 @@ the updater, ``updaterState.npz`` (the updater state's leaves keyed
 "0", "1", ... in ``jax.tree_util.tree_flatten`` order: layers in order
 (a graph's nodes by sorted name), dict keys sorted at every level, so
 Adam writes m.R, m.W, m.b, v.R, v.W, v.b, and under Bidirectional m.bwd.R, ..., m.fwd.b, v.bwd.R, ...) and
-``trainingState.json`` (iteration and epoch). A zip written by either
-package restores in the other. A layer state's leaf keeps the dtype of
-the layer's ``init_state`` (OCNN's int32 ``seen``); a wrapper's
-(FrozenLayer, MaskZeroLayer) params and state are its inner layer's.
-Sharded checkpoints, normalizers and bfloat16 parameters come with later
-slices.
+``trainingState.json`` (iteration and epoch, and ``lossScale``, the loss
+scaler's state, under a loss-scaling policy: a restored mixed-precision
+run resumes at its warmed scale, not at ``init_scale``). A bfloat16 leaf
+is stored as its bits, a same-width ``uint16`` array, and named
+``"bfloat16"`` in ``paramDtypes.json`` (params and layer states) or
+``updaterDtypes.json`` (updater state), as the JAX package does; neither
+writing nor reading imports ml_dtypes (``Tensor.view(torch.int16)`` and
+back). A zip written by either package restores in the other, bit-equal.
+A layer state's leaf keeps the dtype of the layer's ``init_state``
+(OCNN's int32 ``seen``); a wrapper's (FrozenLayer, MaskZeroLayer) params
+and state are its inner layer's. Sharded checkpoints (with the scaler
+state's ``prec`` tree) and normalizers come with later slices.
 """
 
 from __future__ import annotations
@@ -40,17 +46,38 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.tree_util import (
     tree_fill, tree_items, tree_leaves)
 from deeplearning4j_tpu_torch.utils.convert import (
-    params_from_numpy, states_from_numpy)
+    params_from_numpy, states_from_numpy, tensor_from_numpy)
 
 _SEP = "\x1f"  # unit separator: cannot appear in layer names
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    if t.dtype == torch.bfloat16:   # numpy has no bfloat16
-        raise NotImplementedError(
-            "writing bfloat16 arrays (paramDtypes.json) comes with the "
-            "precision slice")
-    return t.detach().cpu().numpy()
+    """A host copy of a leaf; bfloat16 as its bits in uint16 (numpy has no
+    bfloat16 of its own)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _encoded(named) -> tuple[dict, dict]:
+    """(arrays as written, {key: "bfloat16"} for the bfloat16 leaves)."""
+    return ({k: _host(v) for k, v in named.items()},
+            {k: "bfloat16" for k, v in named.items()
+             if v.dtype == torch.bfloat16})
+
+
+def _decoded(arr, dtype_name) -> np.ndarray:
+    """A stored array's values: a leaf named "bfloat16" from its uint16
+    bits as float32 (which holds every bfloat16 exactly, so the cast back
+    gives the same bits); any other as stored."""
+    if dtype_name is None:
+        return arr
+    if dtype_name != "bfloat16":
+        raise ValueError(f"stored dtype {dtype_name!r} is not one the port "
+                         f"reads")
+    bits = np.ascontiguousarray(arr).view(np.uint16).astype(np.uint32)
+    return (bits << np.uint32(16)).view(np.float32)
 
 
 def _npz_bytes(named) -> bytes:
@@ -82,18 +109,29 @@ class ModelSerializer:
                             f"{owner}'s {'/'.join(keys)} nests deeper "
                             f"than one group, which the zip's keys cannot "
                             f"hold")
-                    named[_SEP.join((kind, str(owner), *keys))] = _host(v)
+                    named[_SEP.join((kind, str(owner), *keys))] = v
+        arrays, dtypes = _encoded(named)
         with zipfile.ZipFile(path, "w") as zf:
             zf.writestr("configuration.json", model.conf.to_json())
             zf.writestr("modelType", "ComputationGraph" if is_graph
                         else "MultiLayerNetwork")
-            zf.writestr("params.npz", _npz_bytes(named))
+            if dtypes:
+                zf.writestr("paramDtypes.json", json.dumps(dtypes))
+            zf.writestr("params.npz", _npz_bytes(arrays))
             if saveUpdater:
                 leaves = tree_leaves(model._opt_states)
-                zf.writestr("updaterState.npz", _npz_bytes(
-                    {str(i): _host(v) for i, v in enumerate(leaves)}))
-                zf.writestr("trainingState.json", json.dumps(
-                    {"iteration": model._iteration, "epoch": model._epoch}))
+                arrays, dtypes = _encoded(
+                    {str(i): v for i, v in enumerate(leaves)})
+                if dtypes:
+                    zf.writestr("updaterDtypes.json", json.dumps(dtypes))
+                zf.writestr("updaterState.npz", _npz_bytes(arrays))
+                ts = {"iteration": model._iteration, "epoch": model._epoch}
+                if model._prec_state:
+                    # the scaler's state, so a resumed run keeps its
+                    # warmed scale (one read of three device scalars)
+                    ts["lossScale"] = {k: float(v) for k, v in
+                                       model._prec_state.items()}
+                zf.writestr("trainingState.json", json.dumps(ts))
 
     @staticmethod
     def _restore(path, expect, loadUpdater, device):
@@ -103,10 +141,9 @@ class ModelSerializer:
             mtype = zf.read("modelType").decode()
             if mtype != expect:
                 raise ValueError(f"model file holds a {mtype}, not {expect}")
-            if names & {"paramDtypes.json", "updaterDtypes.json"}:
-                raise NotImplementedError(
-                    "non-native parameter dtypes (paramDtypes.json) come "
-                    "with the precision slice")
+            stored = {name: json.loads(zf.read(name)) if name in names
+                      else {} for name in ("paramDtypes.json",
+                                           "updaterDtypes.json")}
             text = zf.read("configuration.json").decode()
             if mtype == "ComputationGraph":
                 conf = ComputationGraphConfiguration.from_json(text)
@@ -132,7 +169,8 @@ class ModelSerializer:
                                      else int(owner)]
                 for name in path[:-1]:   # a nested group
                     group = group.setdefault(name, {})
-                group[path[-1]] = npz[key]
+                group[path[-1]] = _decoded(
+                    npz[key], stored["paramDtypes.json"].get(key))
             model.init(params_from_numpy(conf, arrays["p"], device))
             model._states = states_from_numpy(conf, arrays["s"], device)
             if loadUpdater and "updaterState.npz" in names:
@@ -142,13 +180,19 @@ class ModelSerializer:
                     raise ValueError(
                         f"updaterState.npz holds {len(data.files)} arrays; "
                         f"the configuration's updaters have {n_leaves}")
-                leaves = (torch.tensor(data[str(i)], dtype=conf.dtype,
-                                       device=device)
-                          for i in range(n_leaves))
+                dtype = conf.precision_policy.param_torch
+                leaves = (tensor_from_numpy(_decoded(
+                    data[str(i)], stored["updaterDtypes.json"].get(str(i))),
+                    dtype, device) for i in range(n_leaves))
                 model._opt_states = tree_fill(model._opt_states, leaves)
                 ts = json.loads(zf.read("trainingState.json"))
                 model._iteration = ts["iteration"]
                 model._epoch = ts["epoch"]
+                if ts.get("lossScale") and model._prec_state:
+                    model._prec_state = {
+                        k: torch.tensor(v, dtype=model._prec_state[k].dtype,
+                                        device=device)
+                        for k, v in ts["lossScale"].items()}
         return model
 
     @staticmethod

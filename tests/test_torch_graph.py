@@ -22,6 +22,11 @@
 - ``GraphServable`` through ``InferenceSession``: served rows equal
   ``outputSingle`` to 1e-5 of the largest element (the CPU's conv picks
   its algorithm by batch size, so a padded bucket is not bit-equal).
+- The mixed graph under ``bf16_mixed``: gradients of the bf16-compute
+  loss against the JAX package's (each array's error against the float32
+  graph at most 4 times the reference's own, never tighter than 4 unit
+  roundoffs of 2^-8), one fit step's loss-scaler state equal, masters
+  and moments float32.
 - The repairs: ``Nd4jBackend``, ``RuntimeConfig`` and
   ``NeuralNetConfiguration.Builder``'s ``trainingWorkspaceMode``,
   ``inferenceWorkspaceMode`` and ``cudnnAlgoMode``, each against the
@@ -59,6 +64,7 @@ from deeplearning4j_tpu_torch.optimize import updaters as port_updaters
 from deeplearning4j_tpu_torch.runtime import RuntimeConfig
 from deeplearning4j_tpu_torch.serving import (
     GraphServable, InferenceSession, as_servable)
+from deeplearning4j_tpu_torch.tree_util import tree_leaves
 from deeplearning4j_tpu_torch.utils import ModelSerializer
 from deeplearning4j_tpu_torch.utils.convert import (
     opt_states_to_numpy, params_from_numpy, states_from_numpy,
@@ -367,19 +373,59 @@ def test_mixed_graph_trains_as_the_reference():
     assert set(port._opt_states["dv"]) == {"m", "v"}
 
 
+BF16_UNIT = 2.0 ** -8   # bfloat16's unit roundoff
+BF16_FACTOR = 4
+
+
 def test_precision_policies_wait_for_their_slice():
+    """The mixed graph under ``bf16_mixed`` against the JAX package's from
+    the same float32 masters: the JSON; the gradients of the bf16-compute
+    loss in float32, each array's error against the float32 graph's
+    gradients at most BF16_FACTOR times the JAX package's own (never held
+    tighter than BF16_FACTOR unit roundoffs of its largest element); one
+    fit step's loss-scaler state equal and the masters and moments still
+    float32; the output in float32. An uninitialised graph refuses
+    ``output``; ``fitMultiBatch`` and listeners still wait for ROADMAP.md
+    queue 1 items 12 and 13."""
+    with pytest.raises(RuntimeError, match="init"):
+        ComputationGraph(_mixed_conf(PORT), device="cpu").output(
+            np.zeros((1, 2, 8, 8), np.float32))
     conf = _mixed_conf(PORT)
     conf.precision = "bf16_mixed"
-    with pytest.raises(NotImplementedError, match="precision"):
-        ComputationGraph(conf, device="cpu")
-    g = ComputationGraph(_mixed_conf(PORT), device="cpu")
-    with pytest.raises(RuntimeError, match="init"):
-        g.output(np.zeros((1, 2, 8, 8), np.float32))
-    g.init()
+    text = conf.to_json()
+    jconf = _mixed_conf(JAX)
+    jconf.precision = "bf16_mixed"
+    assert jconf.to_json() == text
+    port = ComputationGraph(
+        graph_conf.ComputationGraphConfiguration.from_json(text),
+        device="cpu").init()
+    assert port.conf.precision_policy.is_mixed
+    jg = _jax_graph(port)
+    j32 = _jax_graph(ComputationGraph(_mixed_conf(PORT), device="cpu")
+                     .init(port._params))
+    feats, labels = _mixed_data(5, 4)
+    got = dict(_leaves(_np(port.gradients((feats, labels)))))
+    want = dict(_leaves(_np(jg.gradients((feats, labels)))))
+    f32 = dict(_leaves(_np(j32.gradients((feats, labels)))))
+    assert sorted(got) == sorted(want) == sorted(f32)
+    for k in f32:
+        assert got[k].dtype == np.float32
+        e_port = float(np.abs(got[k] - f32[k]).max())
+        e_ref = float(np.abs(np.asarray(want[k], np.float32) - f32[k]).max())
+        assert e_port <= BF16_FACTOR * max(
+            e_ref, BF16_UNIT * float(np.abs(f32[k]).max())), k
+    port.fit([(feats, labels)])
+    jg.fit([(feats, labels)])
+    assert {k: float(v) for k, v in port._prec_state.items()} == {
+        k: float(np.asarray(v)) for k, v in jg._prec_state.items()} == {
+        "scale": 2.0 ** 15, "good_steps": 1.0, "overflows": 0.0}
+    assert {v.dtype for v in tree_leaves(
+        [port._params, port._opt_states])} == {torch.float32}
+    assert all(y.dataType() == torch.float32 for y in port.output(*feats))
     with pytest.raises(NotImplementedError, match="item 12"):
-        g.fitMultiBatch(None, None)
+        port.fitMultiBatch(None, None)
     with pytest.raises(NotImplementedError, match="item 13"):
-        g.setListeners(object())
+        port.setListeners(object())
 
 
 # ---------------------------------------------------------------------------

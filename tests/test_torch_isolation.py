@@ -6,11 +6,18 @@
   lazy import inside a function counts too).
 - With CUDA absent, every entry point given no device raises instead of
   running on the CPU, training and pretraining included (networks,
-  graphs, the zoo with its detectors, restored zips); a CUDA tensor
-  never reaches the plain version.
+  graphs, the zoo with its detectors, restored zips, ResNet-50 in
+  bfloat16, an int8 QuantizedServable); a CUDA tensor never reaches the
+  plain version.
+- The bfloat16 paths of the serving boundary, the zip and the numpy
+  conversion run in a fresh interpreter that imports neither ``jax`` nor
+  ``ml_dtypes`` (the GPU machine has neither; JAX registers bfloat16
+  with numpy here, which would hide a ``np.dtype("bfloat16")``).
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -95,6 +102,15 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/models/zoo.py",
                  "deeplearning4j_tpu_torch/runtime.py",
                  "deeplearning4j_tpu_torch/backend.py",
+                 "deeplearning4j_tpu_torch/precision/__init__.py",
+                 "deeplearning4j_tpu_torch/precision/policy.py",
+                 "deeplearning4j_tpu_torch/precision/scaler.py",
+                 "deeplearning4j_tpu_torch/precision/monitor.py",
+                 "deeplearning4j_tpu_torch/precision/quantize.py",
+                 "deeplearning4j_tpu_torch/telemetry/__init__.py",
+                 "deeplearning4j_tpu_torch/telemetry/registry.py",
+                 "deeplearning4j_tpu_torch/telemetry/prometheus.py",
+                 "deeplearning4j_tpu_torch/telemetry/flight.py",
                  "tests/samediff_op_cases.py",
                  "chip_smoke.py"):
         assert want in names
@@ -139,6 +155,12 @@ class _OneBlockResNet(ResNet50):
 def test_graph_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ResNet50().init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResNet50(dataType="bfloat16").init()
+    bf16 = _OneBlockResNet(numClasses=3, inputShape=(3, 16, 16),
+                           dataType="bfloat16").init(device="cpu")
+    assert bf16.device.type == "cpu"
+    assert bf16._params["conv1"]["W"].dtype == torch.bfloat16
     model = _OneBlockResNet(numClasses=3, inputShape=(3, 16, 16))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ComputationGraph(model.conf())
@@ -195,6 +217,80 @@ def test_detection_and_zoo_entry_points_raise_without_cuda(no_cuda,
     ModelSerializer.writeModel(graph, path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelSerializer.restoreComputationGraph(path)
+
+
+def test_quantized_servable_raises_without_cuda_unless_cpu_is_named(
+        no_cuda):
+    from deeplearning4j_tpu_torch.models.zoo import LeNet
+    from deeplearning4j_tpu_torch.precision import (
+        QuantizedServable, quantize)
+
+    net = LeNet().init(device="cpu")
+    x = np.zeros((2, 784), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quantize(net, [x], example_shape=(784,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QuantizedServable(net, (784,))
+    qsv = quantize(net, [x], example_shape=(784,), device="cpu")
+    assert qsv.device.type == "cpu"
+    assert qsv._qparams[4]["W"][0].dtype == torch.int8
+    assert qsv.infer(x).shape == (2, 10)
+
+
+_NO_ML_DTYPES = """
+import sys, tempfile, os
+import numpy as np, torch
+from deeplearning4j_tpu_torch.nn import (
+    DenseLayer, MultiLayerNetwork, NeuralNetConfiguration, OutputLayer)
+from deeplearning4j_tpu_torch.serving import as_servable
+from deeplearning4j_tpu_torch.tree_util import tree_leaves
+from deeplearning4j_tpu_torch.utils import ModelSerializer
+from deeplearning4j_tpu_torch.utils.convert import (
+    opt_states_to_numpy, params_from_numpy)
+
+for policy, data_type in ((None, "bfloat16"), ("bf16", "float32"),
+                          ("bf16_mixed", "float32")):
+    b = NeuralNetConfiguration.Builder().seed(1).dataType(data_type)
+    if policy:
+        b = b.precision(policy)
+    conf = (b.list().layer(DenseLayer.Builder().nIn(4).nOut(8)
+                           .activation("relu").build())
+            .layer(OutputLayer.Builder().nOut(3).activation("softmax")
+                   .lossFunction("mcxent").build()).build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    x = np.random.default_rng(0).normal(size=(6, 4)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[[0, 1, 2, 0, 1, 2]]
+    net.fit([(x, y)], 2)
+    sv = as_servable(net, example_shape=(4,))
+    out = sv.infer(x)
+    assert sv.dtype == np.float32 and out.dtype == np.float32, policy
+    assert np.array_equal(out, net.output(x).toNumpy()), policy
+    host = opt_states_to_numpy(net._params)
+    again = params_from_numpy(conf, host, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(again), tree_leaves(net._params))), policy
+    path = os.path.join(tempfile.mkdtemp(), "m.zip")
+    ModelSerializer.writeModel(net, path)
+    back = ModelSerializer.restoreMultiLayerNetwork(path, device="cpu")
+    trees = [[m._params, m._states, m._opt_states] for m in (back, net)]
+    for a, b in zip(*map(tree_leaves, trees)):
+        assert a.dtype == b.dtype and torch.equal(a, b), policy
+    assert {k: float(v) for k, v in back._prec_state.items()} == {
+        k: float(v) for k, v in net._prec_state.items()}, policy
+assert "jax" not in sys.modules and "ml_dtypes" not in sys.modules
+print("ok")
+"""
+
+
+def test_bf16_paths_run_without_jax_or_ml_dtypes():
+    """as_servable on a bfloat16 network, numpy conversion both ways and a
+    zip round trip, bit-equal, in an interpreter without jax or
+    ml_dtypes (as_servable asked numpy for a "bfloat16" dtype before
+    the precision slice, which raises there)."""
+    out = subprocess.run([sys.executable, "-c", _NO_ML_DTYPES], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"
 
 
 def test_pretrain_stays_on_the_named_device(no_cuda):

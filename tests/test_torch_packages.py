@@ -126,6 +126,14 @@ def test_package_exports_every_ported_name(package):
                 "BertTrainer", "mlm_loss", "synthetic_mlm_batch",
                 "bert_forward", "bert_init_params"]),
     ("evaluation", ["Evaluation", "RegressionEvaluation", "ROC"]),
+    ("precision", ["DynamicLossScaler", "FixedLossScaler", "NAMED_POLICIES",
+                   "Policy", "PrecisionInstruments", "PrecisionMonitor",
+                   "QuantizedServable", "cast_floating", "dequantize_array",
+                   "monitor_for", "named_policy", "quantize",
+                   "quantize_array", "quantize_params", "resolve_policy"]),
+    ("telemetry", ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+                   "FlightRecorder", "flight", "prometheus", "enabled",
+                   "enable", "disable", "get_registry", "set_registry"]),
 ])
 def test_named_exports(package, names):
     pkg = importlib.import_module(PORT if package == "." else

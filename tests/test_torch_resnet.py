@@ -4,8 +4,11 @@ package.
 - ``ResNet50().conf()`` at its defaults and at other widths gives the
   JAX package's JSON, topological order and parameter count (the JAX
   package's ``_expected_num_params``: shapes only, nothing drawn), with
-  53 conv and 53 BatchNormalization nodes; bfloat16 waits for the
-  precision slice.
+  53 conv and 53 BatchNormalization nodes; ``dataType="bfloat16"``
+  (the uniform bf16 policy) gives the reference's JSON, and a narrow
+  graph in bfloat16 holds its output, score and gradients to the JAX
+  package's by the bf16 rule (its error against float32 at most 4 times
+  the reference's own, never tighter than 4 unit roundoffs of 2^-8).
 - A narrow residual graph (``NarrowResNet``): ResNet-50's stem and two
   bottlenecks, the first projected and the second an identity, at
   filters (8, 8, 32) on 32x32 input, with the port's weights in both
@@ -48,6 +51,7 @@ from deeplearning4j_tpu.utils.serializer import (
 from deeplearning4j_tpu_torch import models as port_models
 from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
 from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.nn import ComputationGraph
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.optimize import updaters as port_updaters
@@ -79,6 +83,8 @@ def _close(got, want, rtol=FN_RTOL, what="", floor=0.0):
 
 
 def _np(tree):
+    """Numpy copies; bfloat16 leaves (either package's) as the float32
+    that holds them."""
     if isinstance(tree, dict):
         return {k: _np(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -86,8 +92,11 @@ def _np(tree):
     if isinstance(tree, torch.Tensor):
         # a copy: a JAX step that donates its buffers could otherwise
         # write into the port's tensors through a numpy view
-        return tree.detach().cpu().numpy().copy()
-    return np.asarray(tree)
+        t = tree.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu() \
+            .numpy().copy()
+    a = np.asarray(tree)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
 def _leaves(tree, prefix=""):
@@ -161,8 +170,48 @@ def test_resnet50_defaults_and_refusals():
     assert conf.nodes["out"][0].param_shapes()["W"] == (2048, 1000)
     assert conf.nodes["s4_0_add"][1] == ["s4_0_b3", "s4_0_projbn"]
     assert conf.nodes["s4_1_add"][1] == ["s4_1_b3", "s4_0_out"]
-    with pytest.raises(NotImplementedError, match="precision"):
-        zoo.ResNet50(dataType="bfloat16")
+    # dataType="bfloat16" (the reference's uniform bf16 policy) at a small
+    # width, against the JAX package from the same bf16 weights: the
+    # output in training mode, the score and the gradients, each array's
+    # error against the float32 graph on the same values at most
+    # BF16_FACTOR times the JAX package's own, never held tighter than
+    # BF16_FACTOR unit roundoffs of its largest element
+    bf = zoo.ResNet50(dataType="bfloat16").conf()
+    assert bf.to_json() == jax_zoo.ResNet50(dataType="bfloat16").conf(
+        ).to_json()
+    port = NarrowResNet(numClasses=5, inputShape=(3, 32, 32),
+                        dataType="bfloat16").init(device="cpu")
+    assert {v.dtype for v in tree_leaves(
+        [port._params, port._states, port._opt_states])} == {torch.bfloat16}
+    jg = _jax_graph(port)
+    g32 = ComputationGraph(NarrowResNet(numClasses=5,
+                                        inputShape=(3, 32, 32)).conf(),
+                           device="cpu").init(
+        {k: {n: v.float() for n, v in p.items()}
+         for k, p in port._params.items()})
+    j32 = _jax_graph(g32)
+    x, y = _images(4, 0)
+    outs = [g.outputSingle(x, train=True).toNumpy() for g in (port, jg, j32)]
+    assert port.outputSingle(x).dataType() == torch.bfloat16
+    _bf16_close(*outs, "output")
+    _bf16_close(*(g.score((x, y)) for g in (port, jg, j32)), "score")
+    grads = [dict(_leaves(_np(g.gradients((x, y))))) for g in (port, jg,
+                                                                j32)]
+    assert sorted(grads[0]) == sorted(grads[1]) == sorted(grads[2])
+    for k in grads[2]:
+        _bf16_close(grads[0][k], grads[1][k], grads[2][k], k)
+
+
+BF16_UNIT = 2.0 ** -8   # bfloat16's unit roundoff
+BF16_FACTOR = 4
+
+
+def _bf16_close(got, ref, f32, what):
+    got, ref, f32 = (np.asarray(a, np.float64) for a in (got, ref, f32))
+    e_port = float(np.abs(got - f32).max())
+    e_ref = float(np.abs(ref - f32).max())
+    assert e_port <= BF16_FACTOR * max(
+        e_ref, BF16_UNIT * float(np.abs(f32).max())), (what, e_port, e_ref)
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +238,14 @@ def _jax_graph(port):
     for name, (node, _) in jconf.nodes.items():
         if isinstance(node, jax_nn.layers.BaseLayer):
             node.init_params = lambda key, dtype, p=params[name]: \
-                jax.tree_util.tree_map(jnp.asarray, p)
+                jax.tree_util.tree_map(
+                    lambda a: jnp.asarray(a).astype(dtype), p)
     jg = jax_nn.ComputationGraph(jconf).init()
     for node, _ in jconf.nodes.values():
         node.__dict__.pop("init_params", None)
-    jg._states = jax.tree_util.tree_map(jnp.asarray, _np(port._states))
+    dtype = jconf.precision_policy.param_jnp
+    jg._states = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a).astype(dtype), _np(port._states))
     return jg
 
 
