@@ -23,6 +23,21 @@ weights from a numpy seed:
   truncated-BPTT step likewise, the kernels' launch counts per step and
   the step time; then the trained net served through InferenceSession,
   its answers against ``net.output`` and the CPU plain forward;
+- the decode engine (``decode_phase``): the trained char-RNN streams 64
+  requests (prompts of 16-100 ids, 64-200 new tokens) through
+  ``InferenceSession.register_decoder`` over 32 slots, each step
+  launching row 2 at (1, 32, 256) once a layer (launches counted against
+  the dispatched steps), per-token and with chunked prefill (bitwise
+  equal), a request alone equal to it wedged, tokens against an offline
+  ``rnnTimeStep`` loop and against the CPU twin, carries card vs CPU;
+  row 2 at (1, 32, 256) against its plain version and cuDNN's one-step
+  LSTM; then BERT-base (768/12/12, weights from a numpy seed) over a
+  paged float32 KV pool (16 slots, 512 pages of 16): plain, chunked,
+  prefix-cached, speculative with a 2-layer draft and with a perfect
+  one, every arm's greedy stream equal to the plain arm's, a teacher-
+  forced request card vs CPU and against a dense causal reference, an
+  oversized pool refused before allocation, tokens/s, TTFT, and a
+  boundary's device time by kernel and idle share;
 - the GRU char-RNN of TensorFlow's text-generation tutorial (Embedding 66
   -> 256, GRU 1024 reset-after, softmax output 66, T=100, batch 64,
   Adam(1e-3)), with token ids as input: the same training checks, exactly
@@ -1334,6 +1349,611 @@ def slice_phase(torch, lstm, net):
     if step_err > SERVE_TOL:
         fail(f"rnnTimeStep vs output {step_err:.3e} > {SERVE_TOL}")
     return launches
+
+
+DECODE_SLOTS = 32          # the char-RNN engine's slots: row 2 at (1, 32, 256)
+DECODE_REQUESTS = 64
+DECODE_PROMPT = (16, 100)  # prompt ids a request, inclusive
+DECODE_NEW = (64, 200)     # max_new_tokens a request, inclusive
+DECODE_CHUNK = 32
+DECODE_ALONE = 4           # requests also decoded alone, each
+DECODE_TOL = 1e-4          # card vs CPU carries and pools, of the largest
+# a token may differ between two devices (or between row 2's plans at N=1
+# and N=32) only where the two best answers of the CPU reference lie
+# within this much of each other, relative to the best: a near-tie, after
+# which the streams legitimately part (the rule of the IMDB phase's ties)
+DECODE_TIE = 1e-5
+BERT_DECODE = dict(max_slots=16, page=16, max_pages_per_slot=32,
+                   n_pages=512)
+BERT_DECODE_CHUNK = 64
+BERT_DECODE_K = 4
+BERT_DECODE_PREFIX = 256   # the shared prefix of the prefix-cache arm
+BERT_TWIN_TOKENS = 64      # the teacher-forced card vs CPU request
+BERT_PROFILED = 20         # boundaries under torch.profiler
+
+
+def _traffic(rng, n, vocab, prompt=DECODE_PROMPT, new=DECODE_NEW):
+    return [([int(t) for t in rng.integers(0, vocab, size=int(
+        rng.integers(prompt[0], prompt[1] + 1)))],
+        int(rng.integers(new[0], new[1] + 1))) for _ in range(n)]
+
+
+def _drive(engine, traffic, timeout=600):
+    """Submit every request at once, wait for all; (token lists, the
+    requests, wall seconds)."""
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, n) for p, n in traffic]
+    outs = [r.result(timeout=timeout) for r in reqs]
+    return outs, reqs, time.perf_counter() - t0
+
+
+def _ttft_ms(reqs):
+    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+    return (statistics.median(ttft),
+            ttft[min(len(ttft) - 1, int(math.ceil(0.99 * len(ttft))) - 1)])
+
+
+def _timed_steps(torch, model):
+    """Wrap ``model.step`` to keep, per call, the host clock of the call
+    and a CUDA-event pair around it."""
+    rec = {"host": [], "events": []}
+    inner = model.step
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(*a, **kw)
+        end.record()
+        rec["host"].append((time.perf_counter() - t0) * 1e3)
+        rec["events"].append((start, end))
+        return out
+
+    model.step = timed
+    return rec
+
+
+def _step_times(torch, rec):
+    torch.cuda.synchronize()
+    dev = [s.elapsed_time(e) for s, e in rec["events"]]
+    return statistics.median(dev), statistics.median(rec["host"])
+
+
+def _tie_or_equal(what, got, want, margin_at):
+    """Token lists equal, or equal up to a first difference where the
+    reference's two best answers are within DECODE_TIE: returns the
+    number of such ties (the streams part after one)."""
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            m = margin_at(k)
+            if m > DECODE_TIE:
+                fail(f"{what}: token {k} is {a} against {b}, relative "
+                     f"margin {m:.3e} > {DECODE_TIE}")
+            print(f"decode: {what}: near-tie at token {k} (relative margin "
+                  f"{m:.3e}): the streams part there", flush=True)
+            return 1
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} tokens against {len(want)}")
+    return 0
+
+
+def _margin(row):
+    top = np.sort(np.asarray(row, np.float64))[-2:]
+    return float((top[1] - top[0]) / max(abs(top[1]), 1e-30))
+
+
+def _rnn_probs(net, prompt, toks):
+    """The char-RNN's output rows along prompt + toks (rnnTimeStep at
+    N=1), one row a generated token."""
+    vocab = net.layers[0].nIn
+    eye = np.eye(vocab, dtype=np.float32)
+    net.rnnClearPreviousState()
+    rows = []
+    seq = list(prompt) + list(toks)
+    for i, t in enumerate(seq[:-1] if toks else seq):
+        y = net.rnnTimeStep(eye[[t]]).toNumpy()[0]
+        if i >= len(prompt) - 1:
+            rows.append(y)
+    net.rnnClearPreviousState()
+    return rows
+
+
+def _offline_rnn(net, prompt, n_new):
+    """Greedy tokens of an offline rnnTimeStep loop at N=1."""
+    vocab = net.layers[0].nIn
+    eye = np.eye(vocab, dtype=np.float32)
+    net.rnnClearPreviousState()
+    for t in prompt:
+        y = net.rnnTimeStep(eye[[t]]).toNumpy()
+    out = [int(np.argmax(y[0]))]
+    while len(out) < n_new:
+        y = net.rnnTimeStep(eye[[out[-1]]]).toNumpy()
+        out.append(int(np.argmax(y[0])))
+    net.rnnClearPreviousState()
+    return out
+
+
+def row2_decode_shape(torch, lstm, t=1, n=DECODE_SLOTS, h=256):
+    """Row 2 at the decode engine's shape against its plain version, with
+    its times beside cuDNN's one-step LSTM layer (torch.nn.LSTM at T=1)."""
+    rng = np.random.default_rng([SEED, t, n, h, 2])
+    x = rng.normal(size=(t, n, h)).astype(np.float32)
+    w = (rng.normal(size=(h, 4 * h)) * 0.08).astype(np.float32)
+    r = (rng.normal(size=(h, 4 * h)) * 0.08).astype(np.float32)
+    b = (rng.normal(size=(4 * h,)) * 0.1).astype(np.float32)
+    h0 = (rng.normal(size=(n, h)) * 0.2).astype(np.float32)
+    c0 = (rng.normal(size=(n, h)) * 0.2).astype(np.float32)
+    dev = lambda a: torch.tensor(a, device="cuda")  # noqa: E731
+    x_d, w_d, r_d, b_d, h0_d, c0_d = map(dev, (x, w, r, b, h0, c0))
+    cudnn = torch.nn.LSTM(h, h).cuda()
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_d.t())
+        cudnn.weight_hh_l0.copy_(r_d.t())
+        cudnn.bias_ih_l0.copy_(b_d)
+        cudnn.bias_hh_l0.zero_()
+    with torch.inference_mode():
+        xw = torch.matmul(x_d, w_d) + b_d
+        before = lstm.lstm_seq_infer.launches
+        got = lstm.lstm_seq_infer(xw, r_d, h0_d, c0_d)
+        torch.cuda.synchronize()
+        if lstm.lstm_seq_infer.launches != before + 1:
+            fail(f"row 2 did not launch at {(t, n, h)}")
+        want = lstm.lstm_seq_infer_reference(xw, r_d, h0_d, c0_d)
+        err = max(float((a - e).abs().max()) for a, e in zip(got, want))
+        if err > KERNEL_TOL:
+            fail(f"row 2 vs plain max|d|={err:.3e} at {(t, n, h)}")
+        hc = (h0_d[None], c0_d[None])
+        ref_hs, _ = cudnn(x_d, hc)
+        cudnn_err = float((ref_hs - got[0]).abs().max())
+        if cudnn_err > KERNEL_TOL:
+            fail(f"row 2 vs cuDNN max|d|={cudnn_err:.3e} at {(t, n, h)}")
+        k_ms = time_ms(lambda: lstm.lstm_seq_infer(xw, r_d, h0_d, c0_d), 50)
+        b2b = time_b2b_ms(lambda: lstm.lstm_seq_infer(xw, r_d, h0_d, c0_d),
+                          100)
+        p_ms = time_ms(lambda: lstm.lstm_seq_infer_reference(
+            xw, r_d, h0_d, c0_d), 30)
+        lib_ms = time_ms(lambda: cudnn(x_d, hc), 50)
+        lib_b2b = time_b2b_ms(lambda: cudnn(x_d, hc), 100)
+    bound_ms, bound_by = lstm_bound(t, n, h)
+    print(f"lstm_seq_infer T={t} N={n} H={h} (the decode step): max|d| "
+          f"{err:.3e} (vs cuDNN {cudnn_err:.3e}); kernel {k_ms:.4f} ms (back "
+          f"to back {b2b:.4f}), plain {p_ms:.4f} ms, cuDNN one-step LSTM "
+          f"{lib_ms:.4f} ms (back to back {lib_b2b:.4f}), bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(ms=k_ms, b2b_ms=b2b, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, err=err,
+                path="decode_charrnn")
+
+
+def _rnn_twin_check(torch, gpu_model, cpu_model, rng):
+    """Teacher-forced: both devices' models fed the same tokens, every
+    slot at its own depth, some masked; carries after every step within
+    DECODE_TOL of the largest, tokens equal but for near-ties."""
+    S = gpu_model.max_slots
+    vocab = gpu_model.vocab
+    g, c = gpu_model.init_state(), cpu_model.init_state()
+    table = np.zeros((S, 1), np.int32)
+    worst, differ = 0.0, 0
+    for i in range(48):
+        tok = rng.integers(0, vocab, size=S).astype(np.int32)
+        pos = np.full((S,), i, np.int32)
+        active = rng.random(S) < 0.75
+        gn, g = gpu_model.step_masked(g, tok, pos, table, active)
+        cn, c = cpu_model.step_masked(c, tok, pos, table, active)
+        gn, cn = gn.cpu().numpy(), cn.numpy()
+        for i_rec in gpu_model._rec:
+            for k in g[i_rec]:
+                worst = max(worst, _rel_err(g[i_rec][k].cpu(), c[i_rec][k]))
+        differ += int((gn != cn).sum())
+    print(f"decode: char-RNN card vs CPU twin, 48 teacher-forced steps at "
+          f"S={S}: carries max|d|/max {worst:.3e}; tokens differing "
+          f"{differ} (the streams above hold tokens)", flush=True)
+    if worst > DECODE_TOL:
+        fail(f"char-RNN carries card vs CPU {worst:.3e} > {DECODE_TOL}")
+
+
+def _charrnn_decode(torch, lstm, net, card):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine, InferenceSession, RnnDecodeModel)
+
+    vocab = net.layers[0].nIn
+    rng = np.random.default_rng(SEED + 25)
+    traffic = _traffic(rng, DECODE_REQUESTS, vocab)
+    session = InferenceSession()
+    model = RnnDecodeModel(net, max_slots=DECODE_SLOTS)
+    t0 = time.perf_counter()
+    engine = session.register_decoder("charrnn", model)
+    warm_s = time.perf_counter() - t0
+    if engine.device.type != "cuda" or \
+            engine._state[0]["h"].device.type != "cuda":
+        fail(f"the decode engine runs on {engine.device}, not cuda")
+    rec = _timed_steps(torch, model)
+    boundaries = []
+    inner = engine._step_boundary
+
+    def timed_boundary(inst, _inner=inner):
+        t = time.perf_counter()
+        _inner(inst)
+        boundaries.append((time.perf_counter() - t) * 1e3)
+
+    engine._step_boundary = timed_boundary
+    # the main path: counts from 0 just before, read just after
+    lstm.lstm_seq_infer.launches = 0
+    steps0 = model.steps
+    outs, reqs, wall = _drive(engine, traffic)
+    launches = lstm.lstm_seq_infer.launches
+    steps = model.steps - steps0
+    n_tok = sum(len(o) for o in outs)
+    p50, p99 = _ttft_ms(reqs)
+    dev_ms, host_ms = _step_times(torch, rec)
+    print(f"decode: char-RNN (77/256, {DECODE_SLOTS} slots) warmup "
+          f"{warm_s:.3f} s; {len(traffic)} requests, {n_tok} tokens in "
+          f"{wall:.3f} s ({n_tok / wall:.1f} tokens/s); TTFT p50 "
+          f"{p50:.2f} ms, p99 {p99:.2f} ms; {len(boundaries)} boundaries, "
+          f"host {statistics.median(boundaries):.4f} ms median (min "
+          f"{min(boundaries):.4f}, max {max(boundaries):.4f}); step: CUDA "
+          f"events {dev_ms:.4f} ms, host {host_ms:.4f} ms (medians); row 2 "
+          f"launches {launches} for {steps} steps", flush=True)
+    if [len(o) for o in outs] != [n for _, n in traffic]:
+        fail("a char-RNN stream ended early")
+    if launches != 2 * steps or not steps:
+        fail(f"row 2 launched {launches} times for {steps} dispatched "
+             f"steps of a 2-LSTM net")
+
+    # alone against wedged, bitwise
+    for k in range(DECODE_ALONE):
+        p, n = traffic[k]
+        alone = engine.decode(p, n, timeout=600)
+        if alone != outs[k]:
+            fail(f"char-RNN request {k} alone differs from it wedged")
+
+    # chunked prefill against per-token, bitwise
+    chunked = session.register_decoder(
+        "charrnn_chunked", RnnDecodeModel(net, max_slots=DECODE_SLOTS),
+        chunk=DECODE_CHUNK)
+    lstm.lstm_seq_infer.launches = 0
+    c_steps0 = chunked.model.steps
+    c_outs, c_reqs, c_wall = _drive(chunked, traffic)
+    c_launches = lstm.lstm_seq_infer.launches
+    c_steps = chunked.model.steps - c_steps0
+    c50, c99 = _ttft_ms(c_reqs)
+    print(f"decode: char-RNN chunk={DECODE_CHUNK}: {c_wall:.3f} s "
+          f"({sum(len(o) for o in c_outs) / c_wall:.1f} tokens/s), TTFT p50 "
+          f"{c50:.2f} ms, p99 {c99:.2f} ms; row 2 launches {c_launches} "
+          f"for {c_steps} steps and masked steps", flush=True)
+    if c_outs != outs:
+        fail("chunked prefill streams differ from the per-token streams")
+    if c_launches != 2 * c_steps:
+        fail(f"row 2 launched {c_launches} times for {c_steps} steps")
+    session.close()
+
+    # tokens against an offline rnnTimeStep loop on the card (N=1: row 2's
+    # plan differs from N=32's, so tokens, not bits)
+    cpu = MultiLayerNetwork(net.conf, device="cpu").init(
+        [{k: v.detach().cpu().clone() for k, v in p.items()}
+         for p in net._params])
+    ties = 0
+    for k in range(DECODE_ALONE):
+        p, n = traffic[k]
+        ref = _offline_rnn(net, p, n)
+        ties += _tie_or_equal(
+            f"char-RNN request {k} vs rnnTimeStep on the card", outs[k], ref,
+            lambda j, p=p, o=outs[k]: _margin(_rnn_probs(cpu, p, o)[j]))
+
+    # the CPU twin: the same traffic, and a teacher-forced carry check
+    twin = DecodeEngine(RnnDecodeModel(cpu, max_slots=DECODE_SLOTS),
+                        name="charrnn_cpu").warmup()
+    t_outs, _, t_wall = _drive(twin, traffic)
+    twin.close()
+    for k, (p, _) in enumerate(traffic):
+        ties += _tie_or_equal(
+            f"char-RNN request {k} card vs CPU", outs[k], t_outs[k],
+            lambda j, p=p, o=t_outs[k]: _margin(_rnn_probs(cpu, p, o)[j]))
+    print(f"decode: char-RNN CPU twin {t_wall:.3f} s; streams equal card "
+          f"vs CPU and vs rnnTimeStep but for {ties} near-ties", flush=True)
+    _rnn_twin_check(torch, RnnDecodeModel(net, DECODE_SLOTS),
+                    RnnDecodeModel(cpu, DECODE_SLOTS),
+                    np.random.default_rng(SEED + 26))
+    prof = _step_profile(torch, "char-RNN", RnnDecodeModel(
+        net, DECODE_SLOTS), np.zeros((DECODE_SLOTS, 1), np.int32), card,
+        1)
+    # what a row-2 launch asks of the host before it launches: the route
+    # query (kernels/rnn_step.py takes_persistent), each call
+    from deeplearning4j_tpu_torch.kernels import rnn_step
+
+    t0 = time.perf_counter()
+    for _ in range(200):
+        rnn_step.takes_persistent("lstm_infer", DECODE_SLOTS, 256,
+                                  net.device)
+    print(f"decode: row 2's route query "
+          f"{(time.perf_counter() - t0) * 5e3:.2f} us a call (host clock)",
+          flush=True)
+    if ties > 2:
+        fail(f"{ties} near-ties between card and CPU: more than rounding")
+    return dict(launches=launches, chunk_launches=c_launches, steps=steps,
+                tokens_per_s=n_tok / wall, ttft_p50_ms=p50,
+                ttft_p99_ms=p99, step_ms=dev_ms,
+                boundary_ms=statistics.median(boundaries), profile=prof)
+
+
+def _bert_dense_logits(params, tokens, heads, eps):
+    """The decode model's function written out densely on the CPU: every
+    position of ``tokens`` at once under a causal mask (no pages), the
+    post-LN block, the tied head: logits [T, V]."""
+    import torch
+    import torch.nn.functional as F
+
+    def ln(x, p):
+        mu = x.mean(-1, keepdim=True)
+        var = x.var(-1, keepdim=True, unbiased=False)
+        return (x - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+
+    t = len(tokens)
+    tok = torch.tensor(tokens)
+    h = ln(params["tok_emb"][tok] + params["pos_emb"][:t], params["emb_ln"])
+    d = h.shape[1] // heads
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    for lp in params["layers"]:
+        q, k, v = (h @ lp["qkv_w"] + lp["qkv_b"]).split(h.shape[1], -1)
+        q, k, v = (a.reshape(t, heads, d).transpose(0, 1) for a in (q, k, v))
+        s = (q @ k.transpose(1, 2)) / math.sqrt(d)
+        s = s.masked_fill(~causal, float("-inf"))
+        att = (torch.softmax(s, -1) @ v).transpose(0, 1).reshape(t, -1)
+        h = ln(h + att @ lp["out_w"] + lp["out_b"], lp["ln1"])
+        f = F.gelu(h @ lp["ffn_in_w"] + lp["ffn_in_b"], approximate="tanh")
+        h = ln(h + f @ lp["ffn_out_w"] + lp["ffn_out_b"], lp["ln2"])
+    return h @ params["tok_emb"].T + params["mlm_bias"]
+
+
+def _bert_twin_check(torch, gpu_model, cpu_model, params_cpu, rng):
+    """One ~64-token request teacher-forced through slot 0 of both
+    devices' models (the other slots idle: masked steps): tokens equal but
+    for near-ties of the dense CPU reference, pools (page 0 aside) within
+    DECODE_TOL of the largest; and the CPU model's tokens equal the dense
+    reference's argmax but for its near-ties."""
+    from deeplearning4j_tpu_torch.serving import PagedKVCache
+
+    S = gpu_model.max_slots
+    seq = [int(t) for t in rng.integers(0, gpu_model.vocab,
+                                        size=BERT_TWIN_TOKENS)]
+    kv = PagedKVCache(gpu_model.n_pages, gpu_model.page,
+                      gpu_model.max_pages_per_slot, S)
+    kv.reserve(0, len(seq))
+    table = kv.table.copy()
+    active = np.zeros((S,), bool)
+    active[0] = True
+    g, c = gpu_model.init_state(), cpu_model.init_state()
+    g_tok, c_tok = [], []
+    for i, t in enumerate(seq):
+        tok = np.zeros((S,), np.int32)
+        pos = np.zeros((S,), np.int32)
+        tok[0], pos[0] = t, i
+        gn, g = gpu_model.step_masked(g, tok, pos, table, active)
+        cn, c = cpu_model.step_masked(c, tok, pos, table, active)
+        g_tok.append(int(gn[0]))
+        c_tok.append(int(cn[0]))
+    worst = max(_rel_err(g[k][:, 1:].cpu(), c[k][:, 1:]) for k in ("k", "v"))
+    with torch.inference_mode():
+        logits = _bert_dense_logits(params_cpu, seq, gpu_model.n_heads,
+                                    gpu_model.eps).numpy()
+    dense = [int(a) for a in logits.argmax(-1)]
+    ties = sum(1 for a, b, row in zip(g_tok, c_tok, logits)
+               if a != b and _margin(row) <= DECODE_TIE)
+    bad = [(k, a, b, _margin(row)) for k, (a, b, row) in enumerate(zip(
+        g_tok, c_tok, logits)) if a != b and _margin(row) > DECODE_TIE]
+    bad_ref = [(k, a, b, _margin(row)) for k, (a, b, row) in enumerate(zip(
+        c_tok, dense, logits)) if a != b and _margin(row) > DECODE_TIE]
+    print(f"decode: BERT-base card vs CPU twin, {len(seq)} teacher-forced "
+          f"tokens: pools max|d|/max {worst:.3e}; tokens differing "
+          f"{sum(a != b for a, b in zip(g_tok, c_tok))} ({ties} near-ties); "
+          f"CPU vs the dense causal reference differing "
+          f"{sum(a != b for a, b in zip(c_tok, dense))}; distinct answers "
+          f"{len(set(c_tok))}, echoes of the fed token "
+          f"{sum(a == b for a, b in zip(c_tok, seq))}", flush=True)
+    if worst > DECODE_TOL:
+        fail(f"BERT-base pools card vs CPU {worst:.3e} > {DECODE_TOL}")
+    if bad or bad_ref:
+        fail(f"BERT-base tokens differ beyond near-ties: card vs CPU {bad}, "
+             f"CPU vs dense reference {bad_ref}")
+
+
+def _step_profile(torch, label, model, table, card, max_pos):
+    """Device time by kernel over BERT_PROFILED full boundaries of
+    ``model`` (every slot active at a random depth below ``max_pos``, each
+    step ending in the host read of the next tokens), beside their host
+    clock: the idle share."""
+    S = model.max_slots
+    state = model.init_state()
+    rng = np.random.default_rng(SEED + 27)
+    tok = rng.integers(0, model.vocab, size=S).astype(np.int32)
+    pos = rng.integers(0, max_pos, size=S).astype(np.int32)
+
+    def boundary():
+        nxt, _ = model.step(state, tok, pos, table)
+        return nxt.cpu()
+
+    rows = _device_by_kernel(torch, boundary, n=BERT_PROFILED)
+    t0 = time.perf_counter()
+    for _ in range(BERT_PROFILED):
+        boundary()
+    host = (time.perf_counter() - t0) * 1e3 / BERT_PROFILED
+    total = sum(ms for ms, _, _ in rows)
+    del state
+    if total <= 0:
+        print(f"decode: {label} profile: no device time in the trace: not "
+              f"measured", flush=True)
+        return None
+    print(f"decode: {label} boundary ({card}), {S} slots: device "
+          f"{total:.4f} ms, host clock {host:.4f} ms, device idle "
+          f"{100 * max(0.0, 1 - total / host):.1f}%; "
+          f"{sum(n for _, n, _ in rows)} kernels; top (ms, calls):",
+          flush=True)
+    for ms, n, name in rows[:12]:
+        print(f"  {ms:9.4f}  {n:5d}  {name[:100]}", flush=True)
+    return dict(device_ms=total, host_ms=host)
+
+
+def _bert_profile(torch, model, card):
+    from deeplearning4j_tpu_torch.serving import PagedKVCache
+
+    S = model.max_slots
+    kv = PagedKVCache(model.n_pages, model.page, model.max_pages_per_slot, S)
+    for s in range(S):
+        kv.reserve(s, model.max_pages_per_slot * model.page)
+    return _step_profile(torch, "BERT-base", model, kv.table.copy(), card,
+                         model.max_len)
+
+
+BERT_DECODE_GAIN = 0.75
+
+
+def bert_decode_params(rng):
+    """BERT-base weights for decoding: ``bert_numpy_params``' draw with
+    every layer matrix rescaled to std BERT_DECODE_GAIN/sqrt(fan_in). At
+    the init's 0.02 (a gain of 0.55 at 768) the post-LN residual keeps
+    each position's own token embedding on top of the tied head, so the
+    next token echoes the fed one whatever the context; at a gain of 1
+    the 12 layers' attention collapses every position to a few answers.
+    At 0.75 the answer depends on the context (the twin check prints how
+    many of its teacher-forced answers are distinct), so the arms'
+    bitwise gates see the attention over the pages."""
+    params = bert_numpy_params(rng)
+    for lp in params["layers"]:
+        for name in ("qkv_w", "out_w", "ffn_in_w", "ffn_out_w"):
+            w = lp[name]
+            lp[name] = w * np.float32(
+                BERT_DECODE_GAIN / (0.02 * math.sqrt(w.shape[0])))
+    return params
+
+
+def _bert_decode(torch, card):
+    from deeplearning4j_tpu_torch.models.bert import BertConfig
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine, InferenceSession, SpeculativeConfig,
+        TransformerDecodeModel)
+    from deeplearning4j_tpu_torch.telemetry import memledger
+    from deeplearning4j_tpu_torch.telemetry.memledger import CapacityError
+    from deeplearning4j_tpu_torch.utils.convert import bert_params_from_numpy
+
+    cfg = BertConfig(**BERT_BASE)
+    arrays = bert_decode_params(np.random.default_rng(SEED + 28))
+    params = bert_params_from_numpy(arrays, "cuda")
+    target = TransformerDecodeModel.from_bert(params, cfg, **BERT_DECODE)
+    pool_est = 2 * cfg.num_layers * (BERT_DECODE["n_pages"] + 1) * \
+        BERT_DECODE["page"] * cfg.hidden * 4
+
+    # an oversized pool is refused before anything is allocated
+    huge = TransformerDecodeModel.from_bert(
+        params, cfg, **dict(BERT_DECODE, n_pages=200_000))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        DecodeEngine(huge, name="bert_huge")
+        fail("a 236 GB KV pool was not refused")
+    except CapacityError as e:
+        if torch.cuda.memory_allocated() != before or \
+                e.site != "decode:bert_huge:kv":
+            fail(f"the refusal came after an allocation or at {e.site}")
+        print(f"decode: BERT-base pool of 200000 pages refused before "
+              f"allocation: needs {e.need_bytes} bytes, headroom "
+              f"{e.headroom_bytes}", flush=True)
+
+    rng = np.random.default_rng(SEED + 29)
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                           size=BERT_DECODE_PREFIX)]
+    traffic = [(shared + [int(t) for t in rng.integers(
+        0, cfg.vocab_size, size=int(rng.integers(4, 40)))],
+        int(rng.integers(16, 48))) for _ in range(8)]
+    traffic += _traffic(rng, 8, cfg.vocab_size, prompt=(8, 160),
+                        new=(16, 64))
+    draft2 = TransformerDecodeModel(
+        {**params, "layers": params["layers"][:2]}, n_heads=cfg.num_heads,
+        eps=cfg.layer_norm_eps, **BERT_DECODE)
+    perfect = TransformerDecodeModel.from_bert(params, cfg, **BERT_DECODE)
+    arms = [("plain", {}), ("chunk", {"chunk": BERT_DECODE_CHUNK}),
+            ("prefix", {"chunk": BERT_DECODE_CHUNK, "prefix_cache": True}),
+            ("speculative", {"speculative": SpeculativeConfig(
+                draft=draft2, k=BERT_DECODE_K)}),
+            ("perfect_draft", {"speculative": SpeculativeConfig(
+                draft=perfect, k=BERT_DECODE_K)})]
+    session = InferenceSession()
+    results = {}
+    for arm, kw in arms:
+        memledger.set_ledger(memledger.MemLedger())
+        engine = session.register_decoder(f"bert_{arm}", target, **kw)
+        ptr = engine._state["k"].data_ptr()
+        if arm == "prefix":
+            # the shared prefix is published by the first request
+            first, _, _ = _drive(engine, traffic[:1])
+        outs, reqs, wall = _drive(engine, traffic)
+        n_tok = sum(len(o) for o in outs)
+        p50, p99 = _ttft_ms(reqs)
+        h = engine.health()
+        extra = ""
+        if "speculative" in h:
+            acc = h["speculative"]["acceptance_ewma"]
+            extra = (f"; acceptance EWMA {acc}, {engine._spec._boundaries} "
+                     f"verify boundaries")
+            results[arm + "_acceptance"] = acc
+        if "prefix_cache" in h:
+            extra = (f"; prefix hits {h['prefix_cache']['hits']}, misses "
+                     f"{h['prefix_cache']['misses']}")
+            if h["prefix_cache"]["hits"] < 7:
+                fail(f"prefix arm: {h['prefix_cache']['hits']} hits for 7 "
+                     f"requests behind a published 256-token prefix")
+        claims = {c.name: c.bytes for c in
+                  memledger.get_memledger().claims("kv_cache")}
+        print(f"decode: BERT-base {arm}: {n_tok} tokens in {wall:.3f} s "
+              f"({n_tok / wall:.1f} tokens/s), TTFT p50 {p50:.2f} ms, p99 "
+              f"{p99:.2f} ms; pool claims {claims}{extra}", flush=True)
+        if claims.get(f"bert_{arm}:target") != pool_est:
+            fail(f"the target pool claims {claims}, not {pool_est} bytes")
+        if engine._state["k"].data_ptr() != ptr:
+            fail(f"{arm}: the pool tensor was reallocated in steady state")
+        results[arm] = (outs, n_tok / wall, p50, p99)
+        session.unregister_decoder(f"bert_{arm}")
+        if not engine._closed or memledger.get_memledger().claims(
+                "kv_cache"):
+            fail(f"unregister_decoder left {arm}'s engine or claims open")
+        del engine
+        torch.cuda.empty_cache()
+    session.close()
+    plain = results["plain"][0]
+    for arm, _ in arms[1:]:
+        if results[arm][0] != plain:
+            fail(f"BERT-base {arm} streams differ from the plain arm's")
+    if results["perfect_draft_acceptance"] != 1.0:
+        fail(f"a perfect draft accepted "
+             f"{results['perfect_draft_acceptance']}, not 1.0")
+    alone = DecodeEngine(target, name="bert_alone").warmup()
+    for k in (0, 9):
+        if alone.decode(*traffic[k], timeout=600) != plain[k]:
+            fail(f"BERT-base request {k} alone differs from it wedged")
+    alone.close()
+    distinct = len({t for o in plain for t in o})
+    print(f"decode: BERT-base every arm's streams equal the plain arm's "
+          f"bitwise ({len(plain)} requests, {distinct} distinct tokens), "
+          f"alone equal wedged", flush=True)
+
+    params_cpu = bert_params_from_numpy(arrays, "cpu")
+    cpu_model = TransformerDecodeModel.from_bert(
+        params_cpu, cfg, device="cpu", **BERT_DECODE)
+    _bert_twin_check(torch, target, cpu_model, params_cpu,
+                     np.random.default_rng(SEED + 30))
+    prof = _bert_profile(torch, target, card)
+    return dict(results=results, profile=prof)
+
+
+def decode_phase(torch, lstm, net, card):
+    """Token streams through the decode engine on the card: the trained
+    char-RNN (row 2 at (1, 32, 256) a layer a step) and BERT-base over a
+    paged KV pool (cuBLAS and PyTorch ops; no kernel row)."""
+    row2 = row2_decode_shape(torch, lstm)
+    rnn = _charrnn_decode(torch, lstm, net, card)
+    bert = _bert_decode(torch, card)
+    return dict(row2, launches=rnn["launches"], rnn=rnn, bert=bert)
 
 
 def gru_char_rnn_conf(vocab=66, embed=256, hidden=1024, seq=100):
@@ -5988,6 +6608,7 @@ def main():
     gru_rows, gru_errs = gru_kernel_phase(torch, gru)
     net, train_launches, _ = training_phase(torch, lstm)
     launches = slice_phase(torch, lstm, net)
+    decode = decode_phase(torch, lstm, net, card)
     gru_net, gru_launches, _ = gru_training_phase(torch, gru)
     gru_launches["gru_seq_infer"] = gru_slice_phase(torch, gru, gru_net)
     del net, gru_net
@@ -6022,6 +6643,10 @@ def main():
          train_errs[name], REPORT_SHAPE, train_rows[name][REPORT_SHAPE])
         for name, source, line in (("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
                                    ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
+    ] + [
+        # row 2 on the decode engine's path: one launch a layer a step
+        ("lstm_seq_infer", "lstm_seq_infer.cu", "kernels/lstm.py:115",
+         decode["launches"], decode["err"], (1, DECODE_SLOTS, 256), decode)
     ] + [
         # rows 1-3 on the bidirectional classifier's path: row 2 launched
         # by evaluate, rows 1 and 3 by fit

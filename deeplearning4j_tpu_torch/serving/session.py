@@ -7,13 +7,20 @@
     y = session.predict("charrnn", x)            # sync, batched, bucketed
     f = session.predict_async("charrnn", x)      # concurrent callers coalesce
 
+    session.register_decoder("stream", RnnDecodeModel(net, max_slots=32))
+    tokens = session.decode("stream", prompt_ids, 64)   # continuous batching
+
 Counterpart of ``deeplearning4j_tpu/serving/session.py``. Every model
 gets its own DynamicBatcher (worker thread) created lazily on first
 predict; `batching=False` (or per-call `batched=False`) runs the caller's
-thread straight through the bucketed servable. The session serves on one
+thread straight through the bucketed servable. Token streams go through
+a continuous-batching `DecodeEngine` per decoder (`register_decoder`,
+`decode`). With an `AdmissionController` (``admission=``), `predict`,
+`predict_async`, the direct path and `decode` are admitted or shed by
+priority class before they take a queue slot. The session serves on one
 device ("cuda" unless the caller names another) and takes only models
-that live there. Replicas, decoders, admission control and telemetry come
-with later slices.
+and decode models that live there. Replicas, tracing spans, the serving
+instruments and ``health_details`` come with later slices.
 """
 
 from __future__ import annotations
@@ -29,20 +36,24 @@ from deeplearning4j_tpu_torch.backend import resolve_device
 from deeplearning4j_tpu_torch.serving.batcher import (
     DynamicBatcher, ServingTimeout, execute_plan)
 from deeplearning4j_tpu_torch.serving.buckets import unpad
-from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+from deeplearning4j_tpu_torch.serving.registry import (
+    ModelNotFound, ModelRegistry)
+from deeplearning4j_tpu_torch.telemetry import flight
 
 
 class InferenceSession:
     def __init__(self, registry: ModelRegistry | None = None,
                  max_latency=0.002, queue_size=256, default_timeout=30.0,
-                 batching=True, device=None):
+                 batching=True, device=None, admission=None):
         self.device = resolve_device(device)
         self.registry = registry or ModelRegistry()
         self.max_latency = max_latency
         self.queue_size = queue_size
         self.default_timeout = default_timeout
         self.batching = batching
+        self.admission = admission   # AdmissionController or None
         self._batchers: dict[tuple, DynamicBatcher] = {}
+        self._decoders: dict = {}      # name -> DecodeEngine
         self._lock = threading.Lock()
         self._closed = False
 
@@ -62,7 +73,91 @@ class InferenceSession:
             dropped = [self._batchers.pop(k) for k in stale]
         for b in dropped:
             b.retire()
+        flight.record("model_registered", model=name,
+                      version=entry.version, warmed=entry.warmed,
+                      replicas=None)
         return entry
+
+    def register_decoder(self, name, model, warmup=True, **kw):
+        """Attach a continuous-batching DecodeEngine under `name`.
+        `model` is a decode model (RnnDecodeModel / TransformerDecodeModel)
+        on the session's device, or an already-built DecodeEngine. Engine
+        kwargs pass through: ``chunk=64`` (chunked prefill),
+        ``prefix_cache=True``, ``speculative=SpeculativeConfig(draft,
+        k)``."""
+        from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+        engine_model = model.model if isinstance(model, DecodeEngine) \
+            else model
+        dev = getattr(engine_model, "device", None)
+        if dev is not None and dev != self.device:
+            raise ValueError(f"decode model {name!r} lives on {dev}; this "
+                             f"session serves on {self.device}")
+        if isinstance(model, DecodeEngine):
+            engine = model
+        else:
+            engine = DecodeEngine(model, name=name, instruments=None, **kw)
+        if warmup and not engine._warmed:
+            engine.warmup()
+        with self._lock:
+            old = self._decoders.get(name)
+            self._decoders[name] = engine
+        if old is not None and old is not engine:
+            old.close()
+        flight.record("decoder_registered", model=name,
+                      slots=engine.model.max_slots)
+        return engine
+
+    def unregister_decoder(self, name):
+        """Detach (and close) the decode engine under `name`. Raises
+        ModelNotFound when no such decoder exists."""
+        with self._lock:
+            engine = self._decoders.pop(name, None)
+        if engine is None:
+            raise ModelNotFound(name)
+        engine.close()
+        flight.record("decoder_unregistered", model=name)
+
+    def decoder(self, name):
+        engine = self._decoders.get(name)
+        if engine is None:
+            raise ModelNotFound(name)
+        return engine
+
+    def decode(self, name, prompt, max_new_tokens, eos_id=None,
+               timeout=None, priority="normal", timing=None):
+        """Generated token ids for one prompt through the continuous
+        batcher (admission-controlled like predict). ``timing`` (a dict)
+        receives the request's ``ttft`` seconds."""
+        if self._closed:
+            raise RuntimeError("session closed")
+        engine = self.decoder(name)
+        ticket = None
+        if self.admission is not None:
+            ticket = self.admission.admit(name, priority)
+        try:
+            req = engine.submit(prompt, max_new_tokens, eos_id=eos_id)
+            if ticket is not None:
+                # bind as a default: the variable is nulled on the next
+                # line, and a late-bound closure would call None.release
+                req.future.add_done_callback(
+                    lambda f, t=ticket: t.release())
+                ticket = None
+            try:
+                tokens = req.result(timeout=timeout)
+            except _FutureTimeout:
+                raise ServingTimeout(
+                    f"decode on {name!r} timed out after {timeout}s"
+                ) from None
+            if timing is not None:
+                # read AFTER the result: t_first is written by the engine
+                # thread at first-token emission
+                timing["ttft"] = ((req.t_first or time.perf_counter())
+                                  - req.t_submit)
+            return tokens
+        finally:
+            if ticket is not None:
+                ticket.release()
 
     def ready(self) -> bool:
         """Every registered model's bucket ladder has been warmed."""
@@ -111,12 +206,25 @@ class InferenceSession:
     def predict_async(self, name, features, timeout=None, version=None,
                       priority="normal") -> Future:
         """Future of the prediction batch. Concurrent callers of the same
-        model (and version) coalesce into shared device dispatches."""
+        model (and version) coalesce into shared device dispatches. With
+        an AdmissionController attached, the request is admitted (or shed
+        with ShedError) BEFORE it takes a queue slot; its ticket releases
+        when the future goes terminal."""
         if self._closed:
             raise RuntimeError("session closed")
         entry, x, single = self._prep(name, features, version)
-        future = self._batcher(name, entry).submit(
-            x, timeout=timeout, priority=priority)
+        ticket = None
+        if self.admission is not None:
+            ticket = self.admission.admit(name, priority)
+        try:
+            future = self._batcher(name, entry).submit(
+                x, timeout=timeout, priority=priority)
+        except Exception:
+            if ticket is not None:
+                ticket.release()
+            raise
+        if ticket is not None:
+            future.add_done_callback(lambda f: ticket.release())
         if not single:
             return future
         out = Future()
@@ -140,7 +248,7 @@ class InferenceSession:
             timeout = self.default_timeout
         use_batcher = self.batching if batched is None else batched
         if not use_batcher:
-            return self._direct(name, features, version)
+            return self._direct(name, features, version, priority=priority)
         t0 = time.perf_counter()
         future = self.predict_async(name, features, timeout=timeout,
                                     version=version, priority=priority)
@@ -152,10 +260,16 @@ class InferenceSession:
             raise ServingTimeout(
                 f"request to {name!r} timed out after {timeout}s") from None
 
-    def _direct(self, name, features, version=None):
+    def _direct(self, name, features, version=None, priority="normal"):
         if self._closed:
             raise RuntimeError("session closed")
         entry, x, single = self._prep(name, features, version)
+        if self.admission is not None:
+            with self.admission.admit(name, priority):
+                return self._direct_run(entry, x, single)
+        return self._direct_run(entry, x, single)
+
+    def _direct_run(self, entry, x, single):
         t = x.shape[-1] if x.ndim >= 3 else None
         y, _, _ = execute_plan(entry, x)
         y = unpad(y, y.shape[0], t)
@@ -164,15 +278,21 @@ class InferenceSession:
     # -- lifecycle -----------------------------------------------------------
     def stats(self) -> dict:
         with self._lock:
-            return {f"{name}:v{version}": {"queue_depth": b.queue_depth()}
-                    for (name, version), b in self._batchers.items()}
+            out = {f"{name}:v{version}": {"queue_depth": b.queue_depth()}
+                   for (name, version), b in self._batchers.items()}
+            if self.admission is not None:
+                out["admission"] = self.admission.describe()
+            return out
 
     def close(self):
         self._closed = True
         with self._lock:
             batchers, self._batchers = list(self._batchers.values()), {}
+            decoders, self._decoders = list(self._decoders.values()), {}
         for b in batchers:
             b.close()
+        for d in decoders:
+            d.close()
 
     def __enter__(self):
         return self

@@ -111,6 +111,12 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/telemetry/registry.py",
                  "deeplearning4j_tpu_torch/telemetry/prometheus.py",
                  "deeplearning4j_tpu_torch/telemetry/flight.py",
+                 "deeplearning4j_tpu_torch/telemetry/memledger.py",
+                 "deeplearning4j_tpu_torch/serving/decode.py",
+                 "deeplearning4j_tpu_torch/serving/prefill.py",
+                 "deeplearning4j_tpu_torch/serving/prefix_cache.py",
+                 "deeplearning4j_tpu_torch/serving/speculative.py",
+                 "deeplearning4j_tpu_torch/serving/admission.py",
                  "tests/samediff_op_cases.py",
                  "chip_smoke.py"):
         assert want in names
@@ -140,6 +146,34 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     net = MultiLayerNetwork(conf, device="cpu").init()
     assert net.device.type == "cpu"
     assert net.output(np.zeros((1, 5, 4), np.float32)).device.type == "cpu"
+
+
+def test_decode_entry_points_raise_without_cuda_unless_cpu_is_named(
+        no_cuda):
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeEngine, RnnDecodeModel, TransformerDecodeModel)
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TransformerDecodeModel.init(vocab=8, hidden=8, n_layers=1,
+                                    n_heads=2, max_len=16)
+    cpu = TransformerDecodeModel.init(vocab=8, hidden=8, n_layers=1,
+                                      n_heads=2, max_len=16, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TransformerDecodeModel(cpu.params, n_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TextGenerationLSTM(vocabSize=5, hidden=8, seqLength=4).init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceSession().register_decoder("d", cpu)
+    # the CPU only when named: the engine runs where its model lives
+    engine = DecodeEngine(cpu, name="iso")
+    assert engine._state["k"].device.type == "cpu"
+    assert len(engine.decode([1, 2], 3, timeout=60)) == 3
+    engine.close()
+    net = TextGenerationLSTM(vocabSize=5, hidden=8, seqLength=4).init("cpu")
+    with InferenceSession(device="cpu") as session:
+        eng = session.register_decoder("r", RnnDecodeModel(net, 2))
+        assert eng._state[0]["h"].device.type == "cpu"
+        assert len(session.decode("r", [1, 2], 3, timeout=60)) == 3
 
 
 def test_restore_without_device_raises_without_cuda(no_cuda, tmp_path):

@@ -134,6 +134,11 @@ def test_package_exports_every_ported_name(package):
     ("telemetry", ["Counter", "Gauge", "Histogram", "MetricsRegistry",
                    "FlightRecorder", "flight", "prometheus", "enabled",
                    "enable", "disable", "get_registry", "set_registry"]),
+    ("telemetry", ["memledger", "CapacityError", "DeviceOomError"]),
+    ("serving", ["DecodeEngine", "PagedKVCache", "RnnDecodeModel",
+                 "TransformerDecodeModel", "ChunkedPrefill", "PrefixCache",
+                 "SpeculativeConfig", "SpeculativeDecoder",
+                 "AdmissionController", "ShedError", "InferenceSession"]),
 ])
 def test_named_exports(package, names):
     pkg = importlib.import_module(PORT if package == "." else
