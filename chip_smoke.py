@@ -84,6 +84,22 @@ weights from a numpy seed:
   encoder served through InferenceSession and FnServable (N = 1..16 at
   T=512, 12 flash inference launches a dispatch) against a direct
   forward;
+- serving through replica sets on CUDA streams (``replica_phase``): the
+  trained char-RNN through 4 replicas (a traced burst of 256 requests of
+  1-32 rows from 8 client threads; every dispatch bitwise equal to the
+  single replica's and to ``net.output`` at its shape, some requests
+  against the CPU twin, row 2's launches = 2 layers x (ladder shapes x
+  (1 + 4) + dispatches), every replica dispatching, steals counted, the
+  four ``serving.*`` spans in every request's trace, the serving
+  histograms counting the burst), rows/s on 1 and 4 replicas, the
+  device's busy share and whether kernels of different streams
+  overlapped (torch.profiler); a ReplicaDeath injected into one replica
+  (its queued batches answered by the survivors, ``health_details``
+  degraded, ``retire()`` drained); the GRU char-RNN through 2 replicas
+  (row 5, cooperative launches on two streams, each future bounded) and
+  BERT-base through 2 (row 7a), bitwise against the single replica; the
+  HTTP handlers on the card (predict and decode with ``timing=``, 404,
+  400, 429 with Retry-After);
 - the tool probes' bf16 tensor-core kernels (csrc/probe_matmul.cu and
   csrc/fused_bottleneck.cu, both on wgmma fed by TMA) against their plain
   versions: matmul_bf16 at the 9 probe shapes where the reference ran
@@ -4192,6 +4208,536 @@ def bert_serving_phase(torch, flash, trainer):
     return launches["flash_attention_infer"]
 
 
+# ---------------------------------------------------------------------------
+# replicas on CUDA streams, serving telemetry and the HTTP handlers
+# ---------------------------------------------------------------------------
+
+REPLICAS = 4               # the char-RNN's replicas; the GRU's and BERT's: 2
+REPLICA_BURST = 256        # char-RNN requests, 1-32 rows each
+REPLICA_CLIENTS = 8        # client threads of a burst
+GRU_REPLICA_BURST = 32
+REPLICA_WAIT = 120         # seconds any one future may take (a hang fails)
+REPLICA_TWINS = 8          # burst requests also held against the CPU twin
+
+
+def _stream_profile(torch, fn, kernel=None):
+    """Run ``fn()`` under torch.profiler: (busy share of the device over
+    the run's kernel span, seconds that kernels of different streams ran
+    at once, streams seen, seconds that kernels named ``kernel`` ran at
+    once on different streams), or None where the trace holds no
+    kernel."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+    kernels = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                (e.get("args") or {}).get("stream"), e.get("name", ""))
+               for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return None
+
+    def sweep(ks):
+        """(seconds any kernel ran, seconds >= 2 streams ran at once)"""
+        edges = sorted([(a, 1, s) for a, _, s, _ in ks] +
+                       [(b, -1, s) for _, b, s, _ in ks],
+                       key=lambda e: (e[0], e[1]))
+        live, busy, overlap, last = {}, 0.0, 0.0, None
+        for t, step, s in edges:
+            if last is not None:
+                if any(live.values()):
+                    busy += t - last
+                if sum(1 for v in live.values() if v) >= 2:
+                    overlap += t - last
+            live[s] = live.get(s, 0) + step
+            last = t
+        return busy, overlap
+
+    busy, overlap = sweep(kernels)
+    same = sweep([k for k in kernels if kernel and kernel in k[3]])[1]
+    span = max(k[1] for k in kernels) - min(k[0] for k in kernels)
+    return (busy / span if span else 0.0, overlap / 1e6,
+            len({k[2] for k in kernels}), same / 1e6)
+
+
+def _profile_text(p, row):
+    if p is None:
+        return "not measured (no kernel in the trace)"
+    return (f"device busy {100 * p[0]:.1f}% of the kernel span, kernels "
+            f"of different streams overlapped {1e3 * p[1]:.3f} ms over "
+            f"{p[2]} streams, {row} with itself {1e3 * p[3]:.3f} ms")
+
+
+def _burst(session, name, requests, traced=False):
+    """``requests`` from REPLICA_CLIENTS client threads (each request a
+    sampled trace root when ``traced``); (answers, seconds, trace ids)."""
+    import threading
+
+    from deeplearning4j_tpu_torch.telemetry import tracing
+
+    answers, traces, errors = [None] * len(requests), {}, []
+
+    def client(k0):
+        try:
+            for k in range(k0, len(requests), REPLICA_CLIENTS):
+                root = tracing.start_trace("client") if traced else None
+                if root is None:
+                    fut = session.predict_async(name, requests[k])
+                else:
+                    with root:
+                        fut = session.predict_async(name, requests[k])
+                    traces[k] = root.trace_id
+                answers[k] = fut.result(timeout=REPLICA_WAIT)
+        except Exception as e:   # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(REPLICA_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(REPLICA_WAIT * len(requests))
+    seconds = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"{name} burst failed: {errors[:1] or 'a client hung'}")
+    return answers, seconds, traces
+
+
+def _record_dispatches(rset):
+    """Wrap every replica's ``infer``: the (replica, chunk, answer) of
+    each dispatch, in order of completion."""
+    seen = []
+
+    def wrap(rep):
+        infer = rep.servable.infer
+
+        def recorded(x):
+            y = infer(x)
+            seen.append((rep.name, np.array(x), y))
+            return y
+
+        rep.servable.infer = recorded
+
+    for rep in rset.replicas:
+        wrap(rep)
+    return seen
+
+
+def _replay_bitwise(what, seen, servable, direct=None):
+    """Every recorded dispatch against the single-replica servable (the
+    default stream) on the same chunk, and ``direct(chunk)`` where given:
+    bit for bit."""
+    for rep, x, y in seen:
+        want = servable.infer(x)
+        if y.shape != want.shape or not np.array_equal(y, want):
+            fail(f"{what}: replica {rep}'s dispatch at {x.shape} differs "
+                 f"from the single replica's by "
+                 f"{float(np.abs(y - want).max()):.3e}")
+        if direct is not None and not np.array_equal(y, direct(x)):
+            fail(f"{what}: replica {rep}'s dispatch at {x.shape} differs "
+                 f"from a direct forward")
+
+
+def _charrnn_replicas(torch, lstm, net, card):
+    """The trained char-RNN through a 4-replica set: a traced burst of 256
+    requests of 1-32 rows from 8 clients, every dispatch bitwise equal to
+    the single replica's and to ``net.output`` at its shape, the twin on
+    the CPU, the launches of row 2, steals, the serving spans and
+    histograms; rows/s for 1 and 4 replicas, the device's busy share and
+    whether streams overlapped. Returns (launches, the 4-replica session,
+    its name, the single replica's servable)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import (
+        DEFAULT_BATCH_BUCKETS, BucketLadder, InferenceSession)
+    from deeplearning4j_tpu_torch import telemetry
+    from deeplearning4j_tpu_torch.telemetry import tracing
+
+    vocab, seq = net.layers[-1].nOut, 100
+    rng = np.random.default_rng(SEED + 21)
+    requests = [one_hot_batch(rng, int(rng.integers(1, 33)), vocab, seq)
+                for _ in range(REPLICA_BURST)]
+    rows = sum(len(x) for x in requests)
+    ladder = BucketLadder(DEFAULT_BATCH_BUCKETS, seq_lengths=(50, seq))
+
+    single = InferenceSession()
+    one = single.register("charrnn", net, example_shape=(vocab, seq),
+                          warmup=True, ladder=ladder)
+    answers1, _, _ = _burst(single, "charrnn", requests)
+    _, s1, _ = _burst(single, "charrnn", requests)   # timed: the second
+
+    reg = telemetry.MetricsRegistry()
+    prev_reg = telemetry.set_registry(reg)
+    tracing.configure(sample_rate=1.0)
+    tracer = tracing.Tracer(capacity=1 << 16)
+    prev_tracer = tracing.set_tracer(tracer)
+    lstm.lstm_seq_infer.launches = 0
+    session = InferenceSession()
+    t0 = time.perf_counter()
+    entry = session.register("charrnn-r4", net, example_shape=(vocab, seq),
+                             warmup=True, ladder=ladder, replicas=REPLICAS)
+    warm_s = time.perf_counter() - t0
+    rset = session._batchers[("charrnn-r4", entry.version)].executor
+    seen = _record_dispatches(rset)
+    try:
+        answers4, _, traces = _burst(session, "charrnn-r4", requests,
+                                     traced=True)
+    finally:
+        launches = lstm.lstm_seq_infer.launches
+        tracing.set_tracer(prev_tracer)
+        tracing.configure(sample_rate=0.01)
+        telemetry.set_registry(prev_reg)
+    n_warm = len(entry.servable.warmed_shapes)
+    per_rep = {r.name: sum(1 for n, _, _ in seen if n == r.name)
+               for r in rset.replicas}
+    snap = reg.snapshot()
+    steals = snap.get('dl4j_serving_steals_total{model="charrnn-r4"}', 0)
+    print(f"replicas: char-RNN x{REPLICAS}: warmup {n_warm} shapes on the "
+          f"servable and each replica {warm_s:.3f} s; {len(requests)} "
+          f"requests ({rows} rows) in {len(seen)} dispatches, per replica "
+          f"{per_rep}, steals {steals:.0f}; row 2 launches {launches}",
+          flush=True)
+    want = 2 * (n_warm * (1 + REPLICAS) + len(seen))
+    if launches != want:
+        fail(f"{launches} lstm_seq_infer launches through the replicas; "
+             f"2 layers x ({n_warm} shapes x (1 + {REPLICAS}) + "
+             f"{len(seen)} dispatches) = {want}")
+    if min(per_rep.values()) < 1:
+        fail(f"a live replica never dispatched: {per_rep}")
+    streams = [r.servable.stream for r in rset.replicas]
+    if None in streams or len({st.cuda_stream for st in streams}) != \
+            REPLICAS or torch.cuda.current_stream().cuda_stream in {
+                st.cuda_stream for st in streams}:
+        fail(f"the replicas do not run on {REPLICAS} streams of their own")
+
+    _replay_bitwise("char-RNN", seen, one.servable,
+                    lambda x: net.output(x).toNumpy())
+    same = sum(np.array_equal(a, b) for a, b in zip(answers1, answers4))
+    worst = max(float(np.abs(a - b).max())
+                for a, b in zip(answers1, answers4))
+    print(f"replicas: every dispatch bitwise equal to the single replica's "
+          f"and to net.output at its shape; per request {same}/"
+          f"{len(requests)} bitwise equal to the 1-replica burst (bucket "
+          f"mixes differ), max|d| {worst:.3e}", flush=True)
+    if worst > SERVE_TOL:
+        fail(f"replica answers differ from one replica's by {worst:.3e}")
+    plain = MultiLayerNetwork(net.conf, device="cpu").init(
+        [{k: v.detach().cpu().clone() for k, v in p.items()}
+         for p in net._params])
+    twin = max(float(np.abs(answers4[k] - plain.output(
+        requests[k]).toNumpy()).max()) for k in range(REPLICA_TWINS))
+    print(f"replicas: {REPLICA_TWINS} requests vs the CPU twin max|d| "
+          f"{twin:.3e}", flush=True)
+    if twin > PLAIN_TOL:
+        fail(f"replica answers vs the CPU twin {twin:.3e} > {PLAIN_TOL}")
+
+    # the serving spans: each sampled request's four phases in its trace
+    want_spans = {"serving.queue_wait", "serving.coalesce",
+                  "serving.replica_queue", "serving.execute"}
+    by_trace = {}
+    for s in tracer.spans():
+        by_trace.setdefault(s["trace_id"], []).append(s["name"])
+    short = [k for k, tid in traces.items()
+             if not want_spans <= set(by_trace.get(tid, ()))]
+    if len(traces) != len(requests) or short:
+        fail(f"{len(short)} of {len(traces)} sampled requests lack a "
+             f"serving span")
+    counts = {k: snap.get(f'{k}{{model="charrnn-r4"}}', 0) for k in (
+        "dl4j_serving_queue_wait_seconds_count",
+        "dl4j_serving_execute_seconds_count",
+        "dl4j_serving_dispatch_total")}
+    ok = snap.get('dl4j_serving_requests_total{model="charrnn-r4",'
+                  'outcome="ok"}', 0)
+    loads = [k for k in snap if k.startswith("dl4j_serving_replica_load")]
+    print(f"replicas: traced: {len(traces)} traces of {len(tracer)} spans; "
+          f"requests ok {ok:.0f}, {counts}, replica-load gauges "
+          f"{len(loads)}", flush=True)
+    if ok != len(requests) or \
+            counts["dl4j_serving_queue_wait_seconds_count"] != \
+            len(requests) or \
+            counts["dl4j_serving_dispatch_total"] != len(seen) or \
+            len(loads) != REPLICAS:
+        fail("the serving instruments do not count the burst")
+
+    # throughput: the untraced burst again on 4 replicas, and one replica
+    for rep in rset.replicas:
+        del rep.servable.infer          # the recording wrappers
+    _, s4, _ = _burst(session, "charrnn-r4", requests)
+    prof = _stream_profile(torch, lambda: _burst(session, "charrnn-r4",
+                                                 requests), "lstm_seq")
+    prof1 = _stream_profile(torch, lambda: _burst(single, "charrnn",
+                                                  requests), "lstm_seq")
+    single.close()
+    print(f"replicas: {card}: char-RNN {rows} rows, 1 replica "
+          f"{s1:.4f} s ({rows / s1:.1f} rows/s), {REPLICAS} replicas "
+          f"{s4:.4f} s ({rows / s4:.1f} rows/s)", flush=True)
+    for label, p in (("1 replica", prof1), (f"{REPLICAS} replicas", prof)):
+        print(f"replicas: {card}: char-RNN {label} under torch.profiler: "
+              + _profile_text(p, "row 2"), flush=True)
+    return launches, session, rset, entry
+
+
+def _replica_death(torch, net, session, rset, entry):
+    """A ReplicaDeath injected into one replica (a stub servable on it
+    only, stealing paused so its queue is its own): its queued batches
+    complete on the survivors, health_details() reports the set degraded,
+    and retire() drains with nothing left."""
+    from deeplearning4j_tpu_torch.serving.batcher import _Request
+    from deeplearning4j_tpu_torch.serving.replica import (
+        ReplicaDeath, _BatchTask)
+    from deeplearning4j_tpu_torch.telemetry import flight
+
+    victim = rset.replicas[1]
+
+    class Dying:
+        def infer(self, x):
+            raise ReplicaDeath(f"injected death on {victim.name}")
+
+        def __getattr__(self, name):
+            return getattr(victim_servable, name)
+
+    victim_servable = victim.servable
+    rec = flight.get_recorder()
+    rec.clear()
+    rng = np.random.default_rng(SEED + 22)
+    xs = [one_hot_batch(rng, int(rng.integers(1, 9)), net.layers[-1].nOut,
+                        100) for _ in range(8)]
+    reqs = [_Request(x, time.perf_counter() + REPLICA_WAIT,
+                     model="charrnn-r4") for x in xs]
+    with rset._lock:
+        rset.steal = False
+        victim.servable = Dying()
+        for r in reqs:
+            victim.queue.append(_BatchTask([r], None))
+        rset._work.notify_all()
+    answers = [r.future.result(timeout=REPLICA_WAIT) for r in reqs]
+    rset.steal = True
+    worst = max(float(np.abs(a - net.output(x).toNumpy()).max())
+                for a, x in zip(answers, xs))
+    health = session.health_details()["replica_sets"][
+        f"charrnn-r4:v{entry.version}"]
+    deaths = rec.events("replica_death")
+    moved = sum(e["batches"] for e in rec.events("replica_requeue"))
+    print(f"replicas: death of {victim.name}: {len(reqs)} queued batches "
+          f"answered (max|d| vs net.output {worst:.3e}), {moved} moved by "
+          f"replica_requeue, health {health['live']}/{health['replicas']} "
+          f"live, dead {health['dead']}, degraded {health['degraded']}",
+          flush=True)
+    if worst > SERVE_TOL or not deaths or not victim.dead or \
+            health["dead"] != [victim.name] or not health["degraded"]:
+        fail("the injected replica death was not contained")
+    fut = [session.predict_async("charrnn-r4", x) for x in xs]
+    # the batcher's retire drains its queue into the set, then the set's
+    session._batchers[("charrnn-r4", entry.version)].retire(
+        timeout=REPLICA_WAIT)
+    left = rset.depth() + sum(r.inflight for r in rset.replicas)
+    alive = [r.name for r in rset.replicas if r.is_alive()]
+    done = sum(f.done() and f.exception() is None for f in fut)
+    print(f"replicas: retire() drained: {left} batches left, workers alive "
+          f"{alive}, {done}/{len(fut)} requests answered", flush=True)
+    if left or alive or done != len(fut):
+        fail("retire() left work or workers behind")
+    session.close()
+
+
+def _gru_replicas(torch, gru, net, card):
+    """The GRU char-RNN through 2 replicas: a burst of 32 token requests,
+    each future bounded; every dispatch bitwise equal to the single
+    replica's; row 5's launches counted; whether its cooperative launches
+    overlapped across streams."""
+    from deeplearning4j_tpu_torch.serving import (
+        DEFAULT_BATCH_BUCKETS, BucketLadder, InferenceSession)
+
+    vocab, seq = net.layers[-1].nOut, 100
+    rng = np.random.default_rng(SEED + 23)
+    requests = [rng.integers(0, vocab, size=(int(rng.integers(1, 33)), 1,
+                                            seq)).astype(np.float32)
+                for _ in range(GRU_REPLICA_BURST)]
+    ladder = BucketLadder(DEFAULT_BATCH_BUCKETS, seq_lengths=(50, seq))
+    single = InferenceSession()
+    one = single.register("gru", net, example_shape=(1, seq), warmup=True,
+                          ladder=ladder)
+    gru.gru_seq_infer.launches = 0
+    session = InferenceSession()
+    entry = session.register("gru-r2", net, example_shape=(1, seq),
+                             warmup=True, ladder=ladder, replicas=2)
+    rset = session._batchers[("gru-r2", entry.version)].executor
+    seen = _record_dispatches(rset)
+    answers, s2, _ = _burst(session, "gru-r2", requests)
+    launches = gru.gru_seq_infer.launches
+    n_warm = len(entry.servable.warmed_shapes)
+    rows = sum(len(x) for x in requests)
+    per_rep = {r.name: sum(1 for n, _, _ in seen if n == r.name)
+               for r in rset.replicas}
+    print(f"replicas: GRU x2: {len(requests)} requests ({rows} rows) in "
+          f"{len(seen)} dispatches {per_rep}, {s2:.4f} s; row 5 launches "
+          f"{launches}", flush=True)
+    if launches != n_warm * 3 + len(seen):
+        fail(f"{launches} gru_seq_infer launches; {n_warm} shapes x 3 + "
+             f"{len(seen)} dispatches = {n_warm * 3 + len(seen)}")
+    _replay_bitwise("GRU", seen, one.servable)
+    for rep in rset.replicas:
+        del rep.servable.infer
+    _burst(single, "gru", requests)
+    _, s1, _ = _burst(single, "gru", requests)
+    _, s2, _ = _burst(session, "gru-r2", requests)
+    p = _stream_profile(torch, lambda: _burst(session, "gru-r2", requests),
+                        "gru_seq")
+    print(f"replicas: {card}: GRU {rows} rows, 1 replica {s1:.4f} s "
+          f"({rows / s1:.1f} rows/s), 2 replicas {s2:.4f} s "
+          f"({rows / s2:.1f} rows/s); 2 replicas under torch.profiler: "
+          + _profile_text(p, "row 5 (cooperative)"), flush=True)
+    session.close()
+    single.close()
+    return launches
+
+
+def _bert_replicas(torch, flash, trainer, card):
+    """The trained BERT-base encoder through 2 replicas: 16 requests of
+    1-16 rows at T = 512, every dispatch bitwise equal to the single
+    replica's, row 7a's launches counted."""
+    from deeplearning4j_tpu_torch.models import bert
+    from deeplearning4j_tpu_torch.serving import (
+        BucketLadder, FnServable, InferenceSession)
+
+    cfg, params = trainer.cfg, trainer.params
+
+    def encode(x):
+        return bert.forward(params, cfg, x.long()).float()
+
+    rng = np.random.default_rng(SEED + 24)
+    requests = [rng.integers(0, cfg.vocab_size, size=(n, BERT_T)).astype(
+        np.float32) for n in range(1, 17)]
+    ladder = BucketLadder((1, 2, 4, 8, 16))
+    single = InferenceSession()
+    one = single.register("bert", FnServable(encode, (BERT_T,)),
+                          warmup=True, ladder=ladder)
+    fns = [getattr(flash, name) for name in FLASH_NAMES]
+    for fn in fns:
+        fn.launches = 0
+    session = InferenceSession()
+    entry = session.register("bert-r2", FnServable(encode, (BERT_T,)),
+                             warmup=True, ladder=ladder, replicas=2)
+    rset = session._batchers[("bert-r2", entry.version)].executor
+    seen = _record_dispatches(rset)
+    answers, s2, _ = _burst(session, "bert-r2", requests)
+    launches = {fn.__name__: fn.launches for fn in fns}
+    n_warm = len(entry.servable.warmed_shapes)
+    rows = sum(len(x) for x in requests)
+    print(f"replicas: BERT-base x2: {len(requests)} requests ({rows} rows) "
+          f"in {len(seen)} dispatches, {s2:.4f} s ({rows / s2:.1f} "
+          f"rows/s); launches {launches}", flush=True)
+    want = 12 * (n_warm * 3 + len(seen))
+    if launches != {"flash_fwd": 0, "flash_attention_infer": want,
+                    "flash_bwd_dkv": 0, "flash_bwd_dq": 0}:
+        fail(f"bert replica launches {launches}; want {want} of row 7a")
+    _replay_bitwise("BERT", seen, one.servable)
+    _burst(single, "bert", requests)
+    _, s1, _ = _burst(single, "bert", requests)
+    for rep in rset.replicas:
+        del rep.servable.infer
+    _, s2, _ = _burst(session, "bert-r2", requests)
+    p = _stream_profile(torch, lambda: _burst(session, "bert-r2",
+                                              requests), "flash")
+    print(f"replicas: {card}: BERT-base {rows} rows, 1 replica {s1:.4f} s "
+          f"({rows / s1:.1f} rows/s), 2 replicas {s2:.4f} s "
+          f"({rows / s2:.1f} rows/s); 2 replicas under torch.profiler: "
+          + _profile_text(p, "row 7a"), flush=True)
+    for x, y in zip(requests, answers):
+        if y.shape != (len(x), BERT_T, cfg.hidden) or \
+                not np.isfinite(y).all():
+            fail(f"bert replica answer {y.shape} for {x.shape}")
+    session.close()
+    single.close()
+    return launches["flash_attention_infer"]
+
+
+def _http_checks(torch, net):
+    """The HTTP handlers on the card against a 2-replica session and a
+    decoder: predict and decode with timing=, 404, 400 and a 429 with
+    Retry-After from an admission budget of 0."""
+    from deeplearning4j_tpu_torch.serving import (
+        AdmissionController, InferenceSession, RnnDecodeModel, http)
+
+    vocab, seq = net.layers[-1].nOut, 100
+    rng = np.random.default_rng(SEED + 25)
+    adm = AdmissionController(default_budget=64)
+    adm.set_budget("shed", 0)
+    with InferenceSession(admission=adm) as session:
+        session.register("charrnn", net, example_shape=(vocab, seq),
+                         ladder=(1, 4), warmup=True, replicas=2)
+        session.register("shed", net, example_shape=(vocab, seq),
+                         ladder=(1,), warmup=True)
+        session.register_decoder("stream", RnnDecodeModel(net, 4))
+        x = one_hot_batch(rng, 3, vocab, seq)
+        timing = {}
+        out = json.loads(http.handle_predict(
+            session, "charrnn", json.dumps({"instances": x.tolist()})
+            .encode(), timing=timing))
+        got = np.asarray(out["predictions"], np.float32)
+        err = float(np.abs(got - net.output(x).toNumpy()).max())
+        dtiming = {}
+        toks = json.loads(http.handle_decode(
+            session, "stream", json.dumps({"prompt": [1, 2, 3],
+                                           "max_new_tokens": 8}).encode(),
+            timing=dtiming))["tokens"]
+        codes = {}
+        held = adm.admit("shed")
+        for case, name, body in (
+                ("unknown", "nope", {"instances": x[:1].tolist()}),
+                ("shape", "charrnn", {"instances": x[:1, :5].tolist()}),
+                ("shed", "shed", {"instances": x[:1].tolist()})):
+            try:
+                http.handle_predict(session, name,
+                                    json.dumps(body).encode())
+            except http.HttpError as e:
+                codes[case] = (e.status, e.headers.get("Retry-After"))
+        held.release()
+    print(f"http: predict {got.shape} max|d| vs net.output {err:.3e}, "
+          f"timing {timing}; decode {len(toks)} tokens, timing "
+          f"{ {k: round(v, 6) for k, v in dtiming.items()} }; errors "
+          f"{codes}", flush=True)
+    if err > SERVE_TOL or set(timing) != {"queue", "execute"} or \
+            len(toks) != 8 or not dtiming.get("ttft", 0) > 0:
+        fail("the HTTP handlers' answers or timings are wrong")
+    if codes.get("unknown", (0,))[0] != 404 or \
+            codes.get("shape", (0,))[0] != 400 or \
+            codes.get("shed", (0,))[0] != 429 or \
+            not codes["shed"][1]:
+        fail(f"the HTTP status map: {codes}")
+
+
+def replica_phase(torch, lstm, gru, flash, net, gru_net, trainer, card):
+    """Replicas on CUDA streams, the serving telemetry and the HTTP
+    handlers: the char-RNN through 4 replicas (traced), an injected
+    replica death and retire(), the GRU char-RNN and BERT-base through 2
+    each, every dispatch bitwise equal to the single replica's; returns
+    the launches of rows 2, 5 and 7a on these paths."""
+    t0 = time.perf_counter()
+    launches, session, rset, entry = _charrnn_replicas(torch, lstm, net,
+                                                       card)
+    _replica_death(torch, net, session, rset, entry)
+    out = {"replica_charrnn": launches,
+           "replica_gru": _gru_replicas(torch, gru, gru_net, card),
+           "replica_bert": _bert_replicas(torch, flash, trainer, card)}
+    _http_checks(torch, net)
+    print(f"replicas: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 PROBE_BATCH = 256          # ResNet-50's stage widths at batch 256
 PROBE_GS = (1, 4)          # images per TPU grid step, in the reference
 PROBE_REPORT = ("s2", 4)   # probe_fused_parts' shape and the sweep's g
@@ -6611,7 +7157,6 @@ def main():
     decode = decode_phase(torch, lstm, net, card)
     gru_net, gru_launches, _ = gru_training_phase(torch, gru)
     gru_launches["gru_seq_infer"] = gru_slice_phase(torch, gru, gru_net)
-    del net, gru_net
     sd_launches = samediff_phase(torch, gru, lstm)
     samediff_ops_phase(torch)
     tf_bert_phase(torch)
@@ -6623,7 +7168,9 @@ def main():
     flash_launches = dict(bert["launches"])
     flash_launches["flash_attention_infer"] = bert_serving_phase(
         torch, flash, bert["trainer"])
-    del bert
+    replicas = replica_phase(torch, lstm, gru, flash, net, gru_net,
+                             bert["trainer"], card)
+    del bert, net, gru_net
     torch.cuda.empty_cache()
     probe_rows, probe_errs = probe_kernel_phase(torch, probe_matmul,
                                                 bottleneck)
@@ -6705,6 +7252,20 @@ def main():
             ("flash_attention_infer", "flash_attn_fwd.cu", 758),
             ("flash_bwd_dkv", "flash_attn_bwd.cu", 1121),
             ("flash_bwd_dq", "flash_attn_bwd.cu", 1456))] + [
+        # rows 2, 5 and 7a through the replica sets, on CUDA streams
+        ("lstm_seq_infer", "lstm_seq_infer.cu", "kernels/lstm.py:115",
+         replicas["replica_charrnn"], max_err, REPORT_SHAPE,
+         dict(rows[REPORT_SHAPE], path="replica_charrnn")),
+        ("gru_seq_infer", "gru_seq.cu", "kernels/gru.py:83",
+         replicas["replica_gru"], gru_errs["gru_seq_infer"],
+         GRU_SERVE_SHAPE, dict(gru_rows["gru_seq_infer"][GRU_SERVE_SHAPE],
+                               path="replica_gru")),
+        ("flash_attention_infer", "flash_attn_fwd.cu", pallas.format(758),
+         replicas["replica_bert"], flash_errs["flash_attention_infer"],
+         FLASH_REPORT,
+         dict(flash_rows["flash_attention_infer"][(FLASH_REPORT,
+                                                   "bfloat16")],
+              path="replica_bert"))] + [
         (name, PROBE_SOURCES.get(name, "fused_bottleneck.cu"),
          PROBE_REPLACES[name], probe_launches[name], probe_errs[name],
          MATMUL_REPORT if name == "matmul_bf16" else

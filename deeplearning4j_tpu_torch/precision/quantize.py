@@ -151,6 +151,8 @@ class QuantizedServable(Servable):
     a float32 or bfloat16 output (numpy has no bfloat16 without
     ml_dtypes)."""
 
+    shape_evaluable = True
+
     def __init__(self, net, example_shape, dtype=None,
                  compute_dtype="bfloat16", skip_layers=(), device=None):
         device = resolve_device(device)

@@ -1,6 +1,8 @@
-"""Inference serving: bucket ladder, registry, dynamic batcher, admission
-control, the continuous-batching decode engine and the InferenceSession
-facade (counterpart of ``deeplearning4j_tpu.serving``)."""
+"""Inference serving: bucket ladder, registry, dynamic batcher, replica
+sets on CUDA streams, admission control, the continuous-batching decode
+engine, the InferenceSession facade and the HTTP handlers (``http``)
+(counterpart of ``deeplearning4j_tpu.serving``; its mesh-sharded
+servables come with the parallel tier)."""
 
 from deeplearning4j_tpu_torch.serving.admission import (
     AdmissionController, ShedError)
@@ -16,6 +18,8 @@ from deeplearning4j_tpu_torch.serving.prefill import ChunkedPrefill
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache
 from deeplearning4j_tpu_torch.serving.registry import (
     ModelNotFound, ModelRegistry)
+from deeplearning4j_tpu_torch.serving.replica import (
+    Replica, ReplicaDeath, ReplicaSet)
 from deeplearning4j_tpu_torch.serving.servable import (
     FnServable, GraphServable, NetworkServable, SameDiffServable, Servable,
     as_servable)
@@ -28,7 +32,8 @@ __all__ = [
     "DEFAULT_BATCH_BUCKETS", "DecodeEngine", "DynamicBatcher",
     "FnServable", "GraphServable", "InferenceSession", "ModelNotFound",
     "ModelRegistry", "NetworkServable", "PagedKVCache", "PrefixCache",
-    "QueueFullError", "RnnDecodeModel", "SameDiffServable", "Servable",
+    "QueueFullError", "Replica", "ReplicaDeath", "ReplicaSet",
+    "RnnDecodeModel", "SameDiffServable", "Servable",
     "ServingShutdown", "ServingTimeout", "ShedError", "SpeculativeConfig",
     "SpeculativeDecoder", "TransformerDecodeModel", "as_servable",
     "execute_plan", "pad_batch", "pad_rows", "pad_time", "run_batch",

@@ -17,10 +17,10 @@ that rejects whoever arrives next:
 
 The controller is intentionally approximate: one lock, integer loads,
 EWMA service rate. Admission is decided BEFORE a request touches a
-batching or decode queue, so a shed costs no queue slot. A shed is
-recorded in the flight recorder (model, class, standing load); the
-request's trace id rides along once tracing is ported, and is None until
-then.
+batching or decode queue, so a shed costs no queue slot. A shed counts
+in the caller's serving instruments (``inst.shed``, ``inst.request(
+"shed")``) and is recorded in the flight recorder (model, class,
+standing load, and the trace id of a sampled request).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from __future__ import annotations
 import threading
 import time
 
-from deeplearning4j_tpu_torch.telemetry import flight
+from deeplearning4j_tpu_torch.telemetry import flight, tracing
 
 PRIORITIES = ("high", "normal", "batch", "train")
 
@@ -156,10 +156,12 @@ class AdmissionController:
             # the model, class, standing load, and (when the request
             # was sampled) its trace id — an incident dump says who
             # was turned away, not just how many
+            ctx = tracing.current()
             flight.record("shed", model=model, priority=priority,
                           standing=standing,
                           retry_after=round(shed.retry_after, 4),
-                          trace_id=None)
+                          trace_id=(ctx.trace_id if ctx is not None
+                                    else None))
             raise shed
         return Ticket(self, model, priority)
 

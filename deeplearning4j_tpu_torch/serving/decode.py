@@ -59,9 +59,12 @@ Where the port differs by design:
   entries exactly zero, to float32 rounding of the reference;
 - no compile ledger and no executable store: PyTorch runs eagerly, so
   there is nothing to compile or to persist;
-- tracing spans, the session's instruments and the sharded-mesh lanes
-  are not ported yet (``instruments=`` is kept and used as in the
-  reference; the session passes None);
+- the sharded-mesh lanes are not ported yet (ROADMAP.md, queue 1 item
+  12). The tracing spans (``decode.queue``, one ``decode.prefill`` /
+  ``decode.token`` / ``decode.prefill_chunk`` / ``decode.speculate``
+  span a boundary a sampled request rides, up to ``boundary_span_cap``,
+  then one aggregate ``decode.tokens``) and the session's instruments are
+  the reference's;
 - a model's device is "cuda" unless the caller names the CPU. The engine
   runs on its model's device, its worker thread under
   ``torch.inference_mode()``; reading a boundary's next tokens back to the
@@ -86,7 +89,7 @@ from deeplearning4j_tpu_torch.backend import resolve_device
 from deeplearning4j_tpu_torch.models.bert import (
     BertConfig, _layer_norm, init_params)
 from deeplearning4j_tpu_torch.nn.conf.layers import take_rows
-from deeplearning4j_tpu_torch.telemetry import flight, memledger
+from deeplearning4j_tpu_torch.telemetry import flight, memledger, tracing
 from deeplearning4j_tpu_torch.tree_util import tree_map
 
 
@@ -513,6 +516,7 @@ class TransformerDecodeModel:
 class _DecodeRequest:
     __slots__ = ("prompt", "max_new", "eos_id", "future", "stream",
                  "slot", "ptr", "generated", "t_submit", "req_id",
+                 "trace", "spans_emitted", "t_suppressed",
                  "ttft_boundaries", "published", "t_first")
     _END = object()
 
@@ -529,6 +533,11 @@ class _DecodeRequest:
         self.generated: list[int] = []
         self.t_submit = time.perf_counter()
         self.req_id = req_id
+        # sampled-trace context captured at submit (None = unsampled):
+        # the engine thread emits per-token-boundary child spans to it
+        self.trace = tracing.current()
+        self.spans_emitted = 0     # per-boundary spans so far
+        self.t_suppressed = None   # first boundary past the span cap
         # engine boundaries this request rode before its first token:
         # the number chunked prefill and prefix adoption exist to shrink
         self.ttft_boundaries = 0
@@ -985,14 +994,28 @@ class DecodeEngine:
             self._state = self.model.reset_slot(self._state, slot)
             self._active[slot] = req
             admitted += 1
+            if req.trace is not None:
+                # submit -> slot join: the decode analog of queue-wait
+                tracing.emit("decode.queue", req.trace, req.t_submit,
+                             time.perf_counter(), slot=slot,
+                             req_id=req.req_id)
             flight.record("decode_join", model=self.name,
                           req_id=req.req_id, slot=slot,
                           prompt=len(req.prompt), max_new=req.max_new,
                           adopted_pages=adopted)
         return admitted
 
+    # per-request ceiling on per-boundary spans; the remainder folds into
+    # one aggregate decode.tokens span at finish
+    boundary_span_cap = 64
+
     def _finish(self, req, error=None):
         slot = req.slot
+        if req.trace is not None and req.t_suppressed is not None:
+            tracing.emit("decode.tokens", req.trace, req.t_suppressed,
+                         time.perf_counter(), slot=slot,
+                         boundaries=(len(req.prompt) + len(req.generated)
+                                     - 1 - req.spans_emitted))
         self._active.pop(slot, None)
         if self._kv is not None:
             self._kv.release(slot)
@@ -1075,6 +1098,7 @@ class DecodeEngine:
             counts[slot] = n
         # a copy: admission mutates the table between boundaries
         table = self._table.copy()
+        t_b0 = time.perf_counter()
         try:
             _, self._state = self._block.run(
                 self._state, blocks, pos0, counts, table)
@@ -1083,11 +1107,18 @@ class DecodeEngine:
         except Exception as e:   # noqa: BLE001
             self._fail_all(e, "prefill", "chunk prefill failed")
             return False
+        t_b1 = time.perf_counter()
         self._last_boundary = time.monotonic()
         for slot, req in todo.items():
             if self._active.get(slot) is not req:
                 continue
             req.ptr += int(counts[slot])
+            if req.trace is not None and \
+                    req.spans_emitted < self.boundary_span_cap:
+                req.spans_emitted += 1
+                tracing.emit("decode.prefill_chunk", req.trace, t_b0,
+                             t_b1, slot=slot,
+                             tokens=int(counts[slot]), pos=req.ptr)
         return True
 
     def _step_boundary(self, inst):
@@ -1106,6 +1137,7 @@ class DecodeEngine:
             pos[slot] = req.ptr
             active[slot] = True
         table = self._table.copy()
+        t_b0 = time.perf_counter()
         try:
             nxt, self._state = self.model.step(self._state, tokens, pos,
                                                table)
@@ -1117,9 +1149,27 @@ class DecodeEngine:
         except Exception as e:   # noqa: BLE001
             self._fail_all(e, "step", "decode step failed")
             return
+        t_b1 = time.perf_counter()
         self._last_boundary = time.monotonic()
         n_decoded = 0
         for slot, req in list(self._active.items()):
+            prefilling = req.ptr + 1 < len(req.prompt)
+            if req.trace is not None:
+                # one child span per token boundary this sequence took
+                # part in: prefill and decode interleave through the same
+                # step, and the span name says which phase this boundary
+                # was. Capped per request, so a long generation cannot
+                # evict every concurrent trace from the bounded ring:
+                # boundaries past the cap fold into one decode.tokens
+                # span at finish
+                if req.spans_emitted < self.boundary_span_cap:
+                    req.spans_emitted += 1
+                    tracing.emit(
+                        "decode.prefill" if prefilling
+                        else "decode.token",
+                        req.trace, t_b0, t_b1, slot=slot, pos=req.ptr)
+                elif req.t_suppressed is None:
+                    req.t_suppressed = t_b0
             req.ptr += 1
             self._publish(req, slot)
             if req.ptr < len(req.prompt):
@@ -1157,6 +1207,7 @@ class DecodeEngine:
             pos[slot] = req.ptr
             active[slot] = True
         table = self._table.copy()
+        t_b0 = time.perf_counter()
         try:
             drafts = self._spec.propose(feed, pos, active)
             blocks = np.zeros((S, V), np.int32)
@@ -1172,6 +1223,7 @@ class DecodeEngine:
         except Exception as e:   # noqa: BLE001
             self._fail_all(e, "verify", "speculative decode failed")
             return
+        t_b1 = time.perf_counter()
         self._last_boundary = time.monotonic()
         n_decoded = 0
         for slot, req in ready.items():
@@ -1192,6 +1244,12 @@ class DecodeEngine:
                 inst.accepted("accepted", m)
                 if c > m:
                     inst.accepted("rejected", c - m)
+            if req.trace is not None and \
+                    req.spans_emitted < self.boundary_span_cap:
+                req.spans_emitted += 1
+                tracing.emit("decode.speculate", req.trace, t_b0, t_b1,
+                             slot=slot, drafted=c - 1, accepted=m,
+                             pos=req.ptr)
             # rejected positions were written past the accepted point in
             # both pools: above the causal mask until the true tokens
             # overwrite those same positions (no rollback)

@@ -1,9 +1,14 @@
 """ModelRegistry: named, versioned servables with bucket-ladder warmup.
 
-Counterpart of ``deeplearning4j_tpu/serving/registry.py`` without the
-capacity planner and telemetry hooks (they come with the telemetry
-slice): a registry row is (name, version) -> Servable + BucketLadder, and
-`warmup()` runs the ladder's shapes once. A servable's
+Counterpart of ``deeplearning4j_tpu/serving/registry.py``: a registry
+row is (name, version) -> Servable + BucketLadder, and `warmup()` runs
+the ladder's shapes once. The reference's entry hooks are kept: before
+the first warm run the ladder's estimated footprint is judged against
+the device's headroom (``memledger.plan_capacity``: a structured
+CapacityError instead of an out-of-memory mid-ladder; skipped where no
+capacity is known or the servable cannot be shape-evaluated), a finished
+warmup is a flight ``model_warmup`` record, and a replaced or
+unregistered servable releases its memory-ledger claims. A servable's
 ``describe_extra()`` (a QuantizedServable's payload and calibration
 error) joins its row.
 """
@@ -14,7 +19,9 @@ import threading
 import time
 
 from deeplearning4j_tpu_torch.serving.buckets import BucketLadder
-from deeplearning4j_tpu_torch.serving.servable import Servable, as_servable
+from deeplearning4j_tpu_torch.serving.servable import (
+    Servable, as_servable, estimate_warmup_bytes)
+from deeplearning4j_tpu_torch.telemetry import flight, memledger
 
 
 class ModelNotFound(KeyError):
@@ -35,10 +42,23 @@ class _Entry:
         self.warmup_seconds = None
 
     def warmup(self):
+        # capacity planning: the ladder's estimated footprint against the
+        # device's headroom BEFORE the first warm run, scoped to the
+        # servable's device, skipped where no capacity is knowable
+        dev = memledger.device_label(self.servable.device)
+        if memledger.capacity_known(device=dev):
+            est = estimate_warmup_bytes(self.servable, self.ladder)
+            if est is not None:
+                memledger.plan_capacity(
+                    f"serving:{self.name}:v{self.version}", est["total"],
+                    detail=est, device=dev)
         t0 = time.perf_counter()
         self.servable.warmup(self.ladder)
         self.warmup_seconds = time.perf_counter() - t0
         self.warmed = True
+        flight.record("model_warmup", model=self.name,
+                      version=self.version,
+                      seconds=round(self.warmup_seconds, 6))
         return self
 
     def describe(self) -> dict:
@@ -84,6 +104,8 @@ class ModelRegistry:
               else as_servable(model, example_shape, dtype,
                                input_name=input_name,
                                output_name=output_name))
+        # names the servable's memory-ledger claims
+        sv.cost_label = f"{name}:v{int(version)}"
         ladder = ladder if ladder is not None else self.default_ladder
         if isinstance(ladder, (list, tuple)):
             ladder = BucketLadder(ladder)
@@ -93,7 +115,10 @@ class ModelRegistry:
             # registry as it was
             entry.warmup()
         with self._lock:
+            replaced = self._models.get(name, {}).get(entry.version)
             self._models.setdefault(name, {})[entry.version] = entry
+        if replaced is not None and replaced.servable is not sv:
+            replaced.servable.release_memory_claims()
         return entry
 
     def unregister(self, name, version=None):
@@ -101,14 +126,18 @@ class ModelRegistry:
             if name not in self._models:
                 raise ModelNotFound(name)
             if version is None:
-                del self._models[name]
-                return
-            try:
-                del self._models[name][int(version)]
-            except KeyError:
-                raise ModelNotFound(f"{name}:{version}") from None
-            if not self._models[name]:
-                del self._models[name]
+                dropped = list(self._models.pop(name).values())
+            else:
+                try:
+                    dropped = [self._models[name].pop(int(version))]
+                except KeyError:
+                    raise ModelNotFound(f"{name}:{version}") from None
+                if not self._models[name]:
+                    del self._models[name]
+        # the dropped versions are no longer served: their memory-ledger
+        # claims go with them
+        for e in dropped:
+            e.servable.release_memory_claims()
 
     def get(self, name, version=None) -> _Entry:
         with self._lock:

@@ -16,9 +16,10 @@ same exposition text.
 - A Timer is also a ``torch.profiler.record_function`` range, the
   counterpart of the reference's ``jax.profiler.TraceAnnotation``.
 
-The loop, ETL, serving and fleet instrument sets, the compile hook and
-the device-memory gauges come with the telemetry slice (ROADMAP.md,
-queue 1 item 13).
+The serving instrument set (``ServingInstruments``,
+``serving_instruments``) is the reference's, family for family. The loop,
+ETL and fleet instrument sets, the compile hook and the device-memory
+gauges come with the telemetry slice (ROADMAP.md, queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -355,6 +356,126 @@ class MetricsRegistry:
                 else:
                     out[base] = float(child.value)
         return out
+
+
+# -- the serving instrument set ----------------------------------------------
+
+SERVING_REQUESTS_HELP = ("Inference requests by terminal outcome "
+                         "(ok|timeout_queued|timeout_execute|rejected|"
+                         "shed|error|shutdown)")
+SERVING_QUEUE_HELP = "Seconds a request waited in the batching queue"
+SERVING_EXECUTE_HELP = ("Seconds per coalesced device dispatch (pad + "
+                        "execute + split, host-visible)")
+SERVING_OCCUPANCY_HELP = ("Real rows / bucket rows of the last coalesced "
+                          "dispatch (1.0 = perfectly filled bucket)")
+SERVING_DISPATCH_HELP = "Coalesced device dispatches executed"
+SERVING_DEPTH_HELP = "Requests currently queued for batching"
+SERVING_STEALS_HELP = ("Batches executed by a replica that stole them "
+                       "from a sibling's run queue")
+SERVING_REPLICA_LOAD_HELP = ("Queued + in-flight batches per replica "
+                             "(-1 = replica dead)")
+SERVING_SHED_HELP = ("Requests shed by admission control, by priority "
+                     "class (HTTP 429 + Retry-After)")
+SERVING_TOKENS_HELP = "Tokens emitted by continuous-batching decode"
+SERVING_SLOTS_HELP = ("Decode slots currently occupied by in-flight "
+                      "sequences")
+SERVING_PREFIX_HITS_HELP = ("Decode admissions that adopted cached "
+                            "prefix KV pages (prefill skipped for the "
+                            "shared prefix)")
+SERVING_PREFIX_MISSES_HELP = ("Decode admissions with no cached "
+                              "prefix pages to adopt")
+DECODE_TTFT_HELP = ("Seconds from decode submit to the request's "
+                    "first emitted token")
+DECODE_ACCEPTED_HELP = ("Speculative-decode tokens by outcome: "
+                        "accepted (emitted via a verify call), "
+                        "rejected (drafted but refuted), fallback "
+                        "(emitted by plain decode while speculation "
+                        "is in acceptance fallback)")
+SERVING_KV_OCCUPANCY_HELP = ("Fraction of the paged decode KV pool "
+                             "currently reserved (0..1)")
+
+
+class ServingInstruments:
+    """Bound per-model serving instruments: obtained once per model,
+    None when telemetry is disabled, so a disabled serving path performs
+    zero registry calls per request."""
+
+    __slots__ = ("model", "_requests", "queue_wait", "execute",
+                 "occupancy", "dispatch", "depth", "steals",
+                 "_replica_load", "_shed", "tokens", "slots",
+                 "prefix_hits", "prefix_misses", "ttft", "_accepted",
+                 "kv_occupancy")
+
+    def __init__(self, registry, model):
+        self.model = model
+        self._requests = registry.counter(
+            "dl4j_serving_requests_total", SERVING_REQUESTS_HELP,
+            ("model", "outcome"))
+        self.queue_wait = registry.histogram(
+            "dl4j_serving_queue_wait_seconds", SERVING_QUEUE_HELP,
+            ("model",)).labels(model=model)
+        self.execute = registry.histogram(
+            "dl4j_serving_execute_seconds", SERVING_EXECUTE_HELP,
+            ("model",)).labels(model=model)
+        self.occupancy = registry.gauge(
+            "dl4j_serving_batch_occupancy", SERVING_OCCUPANCY_HELP,
+            ("model",)).labels(model=model)
+        self.dispatch = registry.counter(
+            "dl4j_serving_dispatch_total", SERVING_DISPATCH_HELP,
+            ("model",)).labels(model=model)
+        self.depth = registry.gauge(
+            "dl4j_serving_queue_depth", SERVING_DEPTH_HELP,
+            ("model",)).labels(model=model)
+        self.steals = registry.counter(
+            "dl4j_serving_steals_total", SERVING_STEALS_HELP,
+            ("model",)).labels(model=model)
+        self._replica_load = registry.gauge(
+            "dl4j_serving_replica_load", SERVING_REPLICA_LOAD_HELP,
+            ("model", "replica"))
+        self._shed = registry.counter(
+            "dl4j_serving_shed_total", SERVING_SHED_HELP,
+            ("model", "priority"))
+        self.tokens = registry.counter(
+            "dl4j_serving_decode_tokens_total", SERVING_TOKENS_HELP,
+            ("model",)).labels(model=model)
+        self.slots = registry.gauge(
+            "dl4j_serving_decode_slots", SERVING_SLOTS_HELP,
+            ("model",)).labels(model=model)
+        self.prefix_hits = registry.counter(
+            "dl4j_serving_prefix_hits_total", SERVING_PREFIX_HITS_HELP,
+            ("model",)).labels(model=model)
+        self.prefix_misses = registry.counter(
+            "dl4j_serving_prefix_misses_total",
+            SERVING_PREFIX_MISSES_HELP, ("model",)).labels(model=model)
+        self.ttft = registry.histogram(
+            "dl4j_decode_ttft_seconds", DECODE_TTFT_HELP,
+            ("model",)).labels(model=model)
+        self._accepted = registry.counter(
+            "dl4j_decode_accepted_tokens_total", DECODE_ACCEPTED_HELP,
+            ("model", "outcome"))
+        self.kv_occupancy = registry.gauge(
+            "dl4j_serving_kv_page_occupancy",
+            SERVING_KV_OCCUPANCY_HELP, ("model",)).labels(model=model)
+
+    def request(self, outcome):
+        self._requests.labels(model=self.model, outcome=outcome).inc()
+
+    def replica_load(self, replica):
+        return self._replica_load.labels(model=self.model,
+                                         replica=replica)
+
+    def shed(self, priority):
+        self._shed.labels(model=self.model, priority=priority).inc()
+
+    def accepted(self, outcome, n=1):
+        self._accepted.labels(model=self.model, outcome=outcome).inc(n)
+
+
+def serving_instruments(model):
+    """Per-model serving instrument bundle, or None when disabled."""
+    if not _state["enabled"]:
+        return None
+    return ServingInstruments(get_registry(), model)
 
 
 def _sample_name(name, labels):

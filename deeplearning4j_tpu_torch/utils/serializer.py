@@ -94,11 +94,21 @@ def _groups(groups):
 
 class ModelSerializer:
     @staticmethod
-    def writeModel(model, path, saveUpdater: bool = True):
+    def writeModel(model, path, saveUpdater: bool = True,
+                   includeFlatCoefficients: bool = False):
         """Write ``model`` (a MultiLayerNetwork or a ComputationGraph) to
         the single-file zip at ``path``, with its updater state and
         training counters unless ``saveUpdater`` is False. A graph's
-        arrays are keyed by node name."""
+        arrays are keyed by node name.
+
+        ``includeFlatCoefficients`` also writes ``coefficients.bin``: the
+        params as one raw little-endian float32 vector in ``params()``
+        order, the reference's bytes where it can write them (on nested
+        groups, Bidirectional's, the reference raises; the port writes
+        its ``tree_leaves`` order). The reference refuses the flag with
+        ``sharded=True``; the port's writeModel takes no ``sharded=``
+        yet (ROADMAP.md, queue 1 item 12), so the flag always goes to the
+        single file."""
         is_graph = isinstance(model, ComputationGraph)
         named = {}
         for kind, groups in (("p", model._params), ("s", model._states)):
@@ -115,6 +125,9 @@ class ModelSerializer:
             zf.writestr("configuration.json", model.conf.to_json())
             zf.writestr("modelType", "ComputationGraph" if is_graph
                         else "MultiLayerNetwork")
+            if includeFlatCoefficients:
+                flat = model.params().toNumpy().astype("<f4")
+                zf.writestr("coefficients.bin", flat.tobytes())
             if dtypes:
                 zf.writestr("paramDtypes.json", json.dumps(dtypes))
             zf.writestr("params.npz", _npz_bytes(arrays))

@@ -117,6 +117,10 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/serving/prefix_cache.py",
                  "deeplearning4j_tpu_torch/serving/speculative.py",
                  "deeplearning4j_tpu_torch/serving/admission.py",
+                 "deeplearning4j_tpu_torch/serving/replica.py",
+                 "deeplearning4j_tpu_torch/serving/http.py",
+                 "deeplearning4j_tpu_torch/serving/batcher.py",
+                 "deeplearning4j_tpu_torch/telemetry/tracing.py",
                  "tests/samediff_op_cases.py",
                  "chip_smoke.py"):
         assert want in names
@@ -174,6 +178,31 @@ def test_decode_entry_points_raise_without_cuda_unless_cpu_is_named(
         eng = session.register_decoder("r", RnnDecodeModel(net, 2))
         assert eng._state[0]["h"].device.type == "cpu"
         assert len(session.decode("r", [1, 2], 3, timeout=60)) == 3
+
+
+def test_replicas_raise_without_cuda_unless_cpu_is_named(no_cuda):
+    """A replica set, its servables and its device helper run on "cuda"
+    unless the CPU is named; with the CPU named, replicas own no stream."""
+    from deeplearning4j_tpu_torch.serving import FnServable
+    from deeplearning4j_tpu_torch.serving.replica import replica_devices
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        replica_devices(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FnServable(lambda x: x, (3,))
+    sv = FnServable(lambda x: x * 2, (3,), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sv.for_device("cuda")
+    net = TextGenerationLSTM(vocabSize=5, hidden=8, seqLength=4).init("cpu")
+    with InferenceSession(device="cpu") as session:
+        session.register("r", net, example_shape=(5, 4), ladder=(1,),
+                         warmup=True, replicas=2)
+        reps = session._batchers[("r", 1)].executor.replicas
+        assert [r.servable.stream for r in reps] == [None, None]
+        y = session.predict("r", np.zeros((5, 4), np.float32))
+        assert y.shape == (5, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceSession().register("r", net, replicas=2)
 
 
 def test_restore_without_device_raises_without_cuda(no_cuda, tmp_path):

@@ -154,3 +154,94 @@ def test_seeded_init_and_dense_output():
     hidden = torch.relu(torch.from_numpy(x) @ p0["W"] + p0["b"])
     want = torch.softmax(hidden @ p1["W"] + p1["b"], dim=-1)
     _close(a.output(x).toNumpy(), want.numpy())
+
+
+# -- writeModel(includeFlatCoefficients=True) ---------------------------------
+
+def _coefficients(path):
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return zf.read("coefficients.bin"), set(zf.namelist())
+
+
+def _flat_case(name):
+    """(JAX net, the port's net on its weights carried by convert)."""
+    if name == "charrnn":
+        jnet = JaxCharRnn(vocabSize=VOCAB, hidden=HIDDEN,
+                          seqLength=SEQ).init()
+    else:
+        from deeplearning4j_tpu.models import zoo as jax_zoo
+
+        jnet = jax_zoo.LeNet().init()
+    return jnet, _port(jnet)
+
+
+@pytest.mark.parametrize("name", ["charrnn", "lenet"])
+def test_flat_coefficients_byte_equal_to_the_reference(name, tmp_path):
+    """``coefficients.bin`` is one raw little-endian float32 vector in
+    ``params()`` order: the two packages' files are byte-equal, and the
+    zip still restores (the flag adds an entry, it moves none)."""
+    jnet, port = _flat_case(name)
+    jpath, ppath = str(tmp_path / "jax.zip"), str(tmp_path / "port.zip")
+    JaxSerializer.writeModel(jnet, jpath, includeFlatCoefficients=True)
+    ModelSerializer.writeModel(port, ppath, includeFlatCoefficients=True)
+    (want, jnames), (got, pnames) = _coefficients(jpath), \
+        _coefficients(ppath)
+    assert got == want
+    assert len(got) == 4 * port.numParams()
+    np.testing.assert_array_equal(np.frombuffer(got, "<f4"),
+                                  port.params().toNumpy())
+    plain = str(tmp_path / "plain.zip")
+    ModelSerializer.writeModel(port, plain)
+    import zipfile
+
+    with zipfile.ZipFile(plain) as zf:
+        assert "coefficients.bin" not in zf.namelist()
+        assert pnames - set(zf.namelist()) == {"coefficients.bin"}
+    back = ModelSerializer.restoreMultiLayerNetwork(ppath, device="cpu")
+    np.testing.assert_array_equal(back.params().toNumpy(),
+                                  port.params().toNumpy())
+
+
+def test_flat_coefficients_of_nested_groups_in_tree_leaves_order(tmp_path):
+    """On Bidirectional's nested groups the reference raises; the port
+    writes its own ``tree_leaves`` order: each layer's leaves by sorted
+    key, a nested group's leaves in its place (``bwd``'s before
+    ``fwd``'s), as ``params()`` gives them."""
+    from deeplearning4j_tpu.nn.conf.layers import (
+        LSTM as JaxLSTM, Bidirectional as JaxBi, RnnOutputLayer as JaxOut)
+    from deeplearning4j_tpu.nn.conf.configuration import (
+        NeuralNetConfiguration as JaxConf)
+    from deeplearning4j_tpu.nn.conf.inputs import InputType as JaxInput
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    jconf = (JaxConf.Builder().seed(3).list()
+             .layer(JaxBi(JaxLSTM(nOut=3), mode="concat"))
+             .layer(JaxOut(nOut=4, activation="softmax",
+                           lossFunction="mcxent"))
+             .setInputType(JaxInput.recurrent(5)).build())
+    jnet = JaxNet(jconf).init()
+    with pytest.raises((TypeError, AttributeError)):
+        JaxSerializer.writeModel(jnet, str(tmp_path / "j.zip"),
+                                 includeFlatCoefficients=True)
+    def nested(tree):
+        return ({k: nested(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else np.asarray(tree))
+
+    conf = MultiLayerConfiguration.from_json(jnet.conf.to_json())
+    arrays = [nested(p) for p in jnet._params]
+    port = MultiLayerNetwork(conf, device="cpu").init(
+        params_from_numpy(conf, arrays, "cpu"))
+    assert set(port._params[0]) == {"fwd", "bwd"}
+    path = str(tmp_path / "p.zip")
+    ModelSerializer.writeModel(port, path, includeFlatCoefficients=True)
+    got = np.frombuffer(_coefficients(path)[0], "<f4")
+    want = np.concatenate([np.asarray(v, np.float32).reshape(-1)
+                           for p in arrays for v in tree_leaves(p)])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, port.params().toNumpy())
+    # the first leaf is the "bwd" group's first name ("bwd" < "fwd")
+    lead = arrays[0]["bwd"][sorted(arrays[0]["bwd"])[0]].reshape(-1)
+    np.testing.assert_array_equal(got[:lead.size], lead)

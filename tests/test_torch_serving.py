@@ -203,3 +203,38 @@ def test_session_needs_models_on_its_device(nets):
     with InferenceSession(device="cpu") as session:
         with pytest.raises(ValueError, match="lives on meta"):
             session.register("m", port_on_meta, example_shape=(VOCAB, SEQ))
+
+
+@pytest.mark.parametrize("batched", [True, False])
+def test_predict_timing_on_both_packages(nets, batched):
+    """``predict(timing=)`` fills ``queue`` and ``execute`` seconds on
+    the batched path (stamped by the batcher before the result, carried
+    onto a single-row future) and the direct one (``queue`` 0.0), with
+    the reference's keys; the answers agree as everywhere here."""
+    from deeplearning4j_tpu.serving import InferenceSession as JaxSession
+
+    jax_net, port = nets
+    x = _one_hot(2, SEQ, seed=50)
+    got = {}
+    for pkg, session, net in (
+            ("jax", JaxSession(max_latency=0.0), jax_net),
+            ("torch", InferenceSession(device="cpu", max_latency=0.0),
+             port)):
+        with session:
+            session.register("charrnn", net, example_shape=(VOCAB, SEQ),
+                             ladder=(1, 2), warmup=True)
+            timing, one = {}, {}
+            y = session.predict("charrnn", x, batched=batched,
+                                timing=timing)
+            session.predict("charrnn", x[0], batched=batched, timing=one)
+            fut = session.predict_async("charrnn", x[1])
+            fut.result(10)
+        got[pkg] = (y, timing, one, getattr(fut, "dl4j_timing", None))
+    (yj, tj, oj, fj), (yp, tp, op, fp) = got["jax"], got["torch"]
+    _close(yp, yj)
+    for j, p in ((tj, tp), (oj, op)):
+        assert set(p) == set(j) == {"queue", "execute"}
+        assert all(v >= 0 for v in p.values())
+    assert set(fp) == set(fj) == {"queue", "execute"}
+    if not batched:
+        assert tp["queue"] == tj["queue"] == 0.0
