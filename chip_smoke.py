@@ -84,6 +84,20 @@ weights from a numpy seed:
   encoder served through InferenceSession and FnServable (N = 1..16 at
   T=512, 12 flash inference launches a dispatch) against a direct
   forward;
+- Mixture-of-Experts and GPipe pipelines on the one card
+  (``moe_pipeline_phase``): MoE BERT-base (8 experts, top-2, capacity
+  1.5, aux weight 1e-2; bf16, flash; batch 16, T=512) trained 3 steps by
+  BertTrainer, each from the same state and routing as the dense-
+  attention trainer (losses, and the moments against a float32 step by
+  the precision rule), 12 launches of each of rows 7a-c a step; the
+  loss's aux part; layer 0's moe_apply against float64 on the CPU; a
+  MoELayer network's fit step against its CPU twin; BERT-base through
+  BertPipelineTrainer (4 stages of 3 layers on the one card, 4
+  microbatches) against BertTrainer in float32 (48 launches of each of
+  rows 7a-c a step at (4, 12, 512, 64)), both timed in bf16; a char-RNN
+  LSTM trunk (TextGenerationLSTM's widths, the trunk 4 layers deep)
+  through PipelineParallelTrainer (2 stages, 2 microbatches) against
+  ``fit``, rows 1 and 3 launched 9 times a step, then ``sync_to_net``;
 - serving through replica sets on CUDA streams (``replica_phase``): the
   trained char-RNN through 4 replicas (a traced burst of 256 requests of
   1-32 rows from 8 client threads; every dispatch bitwise equal to the
@@ -202,7 +216,8 @@ KERNEL_SHAPES = [(100, 1, 256), (100, 8, 256), (100, 32, 256),
                  (100, 1024, 256), (1, 8, 256), (13, 3, 200), IMDB_SHAPE]
 # the training kernels: the training batch (100, 32, 256) and the others
 TRAIN_SHAPES = [(100, 32, 256), (100, 1, 256), (100, 1024, 256),
-                (1, 8, 256), (13, 3, 200), IMDB_SHAPE]
+                (1, 8, 256), (13, 3, 200), IMDB_SHAPE,
+                (100, 16, 256)]   # a pipeline stage's (moe_pipeline_phase)
 REPORT_SHAPE = (100, 32, 256)   # the ladder's largest bucket, the batch
 # (T, N, H) at the top of the domains that the kernels before their
 # cluster redesign took: the forward to H = 431 at N <= 18, the backward
@@ -3620,7 +3635,8 @@ def wide_rnn_phase(torch, lstm, gru, rnn_step):
 # (B, H, T, D): the BERT-base path (16, 12, 512, 64), one request, a long
 # sequence, a ragged T and the other head size
 FLASH_SHAPES = [(16, 12, 512, 64), (1, 12, 512, 64), (2, 4, 2048, 64),
-                (2, 2, 200, 64), (1, 2, 256, 128)]
+                (2, 2, 200, 64), (1, 2, 256, 128),
+                (4, 12, 512, 64)]   # a pipeline microbatch's (PIPE_MICRO 4)
 FLASH_REPORT = (16, 12, 512, 64)
 FLASH_NAMES = ("flash_fwd", "flash_attention_infer", "flash_bwd_dkv",
                "flash_bwd_dq")
@@ -4206,6 +4222,781 @@ def bert_serving_phase(torch, flash, trainer):
     if worst > BERT_SERVE_TOL:
         fail(f"bert served rows differ from a direct forward by {worst:.3e}")
     return launches["flash_attention_infer"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts and GPipe pipelines on the one card
+# ---------------------------------------------------------------------------
+
+# BERT-base with every FFN a MoE block: Switch-Base-8's expert count, the
+# reference's defaults for k, capacity and the aux weight
+MOE_BERT = dict(n_experts=8, moe_k=2, moe_capacity=1.5, moe_aux_weight=1e-2)
+MOE_STEPS = 3
+# one layer's moe_apply on the card against a float64 evaluation of the
+# same function on the CPU (the same bf16-valued inputs): float32 on the
+# card to MOE_F32_TOL of the largest output element (other summation
+# orders over 768 and 3072 terms); bfloat16, the main path's dtype, to
+# MOE_BF16_TOL (hmid, the expert outputs and comb are rounded to bf16,
+# 2^-8 relative each, as FLASH_TOL's bf16 backward allows). The top-k
+# choice must agree for every token whose k-th and (k+1)-th probabilities
+# are more than MOE_MARGIN apart (float32 gating against float64).
+MOE_F32_TOL = 1e-5
+MOE_BF16_TOL = 2e-2
+MOE_MARGIN = 1e-5
+# flash vs dense in bf16, each step from the same state and routing: the
+# losses to BERT_BF16_LOSS_TOL; Adam's moments, as max|d|/max of each
+# leaf, against the dense trainer's distance from a float32 step (the
+# yardstick): the flash trainer's distance from that float32 step, and its
+# distance from the dense trainer, each at most MOE_YARDSTICK_RATIO times
+# the yardstick, never tighter than BERT_BF16_MOMENT_TOL.
+# The fused QKV weight and bias count as their Q, K and V projections
+# (the K bias left out: its gradient is 0).
+# (scripts/moe_grad_probe.py: in bf16 each gradient is 0.7-4% of its
+# largest from float32, v twice that, while the float32 flash and dense
+# gradients agree to 6e-6. On the H100 the flash and dense distances from
+# float32 read 6.19e-2 and 7.92e-2, flash vs dense 5.50e-2.)
+# MOE_CONTROLS are planted faults in one layer's dQ: a step with each is
+# measured against float32 like the flash trainer's, and each must read
+# above the bound, or the gate is blind and the run fails (they read
+# 0.86 and 0.40 against 0.158; with the fused leaves whole, 4.4e-2 and
+# 2.5e-2).
+MOE_YARDSTICK_RATIO = 2
+MOE_CONTROL_LAYER = 5
+MOE_CONTROLS = ("dQ zeroed", "dQ's first 64 query rows zeroed")
+# the loss minus its MLM part against moe_aux_weight * sum(aux): both
+# come from one forward, so they differ by the rounding of one float32
+# addition to the loss, a few units of its last place
+MOE_AUX_ULPS = 8
+# BERT-base (dense) through BertPipelineTrainer: 4 stages of 3 layers on
+# the one card, 4 microbatches of 4 sequences
+PIPE_BERT_MESH = dict(data=1, pipe=4)
+PIPE_MICRO = 4
+PIPE_STEPS = 3
+# float32 weights where m is above MOMENT_FLOOR: within BERT_F32_PARAM_TOL
+# of lr*steps, or PIPE_YARDSTICK_RATIO times a BertTrainer's on the same
+# batch with its rows reversed from BertTrainer's, the larger. (The
+# microbatches sum the gradients in another order, which Adam amplifies
+# where v is small: with losses bitwise equal to BertTrainer's and
+# moments 1.5e-5 apart, the weights read 4.10% of lr*steps and the
+# yardstick 2.52%, a ratio of 1.62, in two runs alike. A fault in a
+# gradient moves the moments first, and they are held to MOMENT_TOL.)
+PIPE_YARDSTICK_RATIO = 2
+PIPE_FLASH_SHAPE = (BERT_BATCH // PIPE_MICRO, BERT_BASE["num_heads"], BERT_T,
+                    BERT_BASE["hidden"] // BERT_BASE["num_heads"])
+# a char-RNN LSTM trunk through PipelineParallelTrainer: TextGeneration-
+# LSTM's widths (vocab 77, hidden 256, T=100, batch 32, Adam(2e-3)); its
+# published two layers differ in shape (77->256, 256->256) and cannot be
+# stacked, so the net is LSTM 77->256, a run of PIPE_LSTM_TRUNK identical
+# LSTM 256->256 and the RnnOutputLayer (the depth is the change)
+PIPE_LSTM_TRUNK = 4
+PIPE_LSTM_MESH = dict(data=1, pipe=2)
+PIPE_LSTM_MICRO = 2
+PIPE_LSTM_STEPS = 5
+PIPE_LSTM_SHAPE = (100, 32 // PIPE_LSTM_MICRO, 256)   # rows 1, 3 in a stage
+# rows net.output, its twin's and the fit-trained net's take after
+# sync_to_net (row 2 at (100, 8, 256), a KERNEL_SHAPES entry)
+PIPE_LSTM_OUT_ROWS = 8
+
+
+def moe_bert_numpy_params(rng):
+    """MoE BERT-base parameters in the JAX package's layout from a numpy
+    generator, drawn as its init_params and moe_init draw them (normal *
+    0.02; the gate and w1 normal / sqrt(hidden), w2 normal / sqrt(ffn);
+    zero biases, unit LayerNorm gains)."""
+    c = BERT_BASE
+    h, f, v, e = c["hidden"], c["ffn"], c["vocab_size"], \
+        MOE_BERT["n_experts"]
+
+    def norm(*shape, scale=0.02):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
+
+    def ln():
+        return {"g": np.ones(h, np.float32), "b": np.zeros(h, np.float32)}
+
+    return {"tok_emb": norm(v, h), "pos_emb": norm(c["max_len"], h),
+            "type_emb": norm(2, h), "emb_ln": ln(),
+            "mlm_bias": np.zeros(v, np.float32),
+            "layers": [{"qkv_w": norm(h, 3 * h),
+                        "qkv_b": np.zeros(3 * h, np.float32),
+                        "out_w": norm(h, h), "out_b": np.zeros(h, np.float32),
+                        "ln1": ln(), "ln2": ln(),
+                        "moe": {"gate_w": norm(h, e, scale=h ** -0.5),
+                                "w1": norm(e, h, f, scale=h ** -0.5),
+                                "b1": np.zeros((e, f), np.float32),
+                                "w2": norm(e, f, h, scale=f ** -0.5),
+                                "b2": np.zeros((e, h), np.float32)}}
+                       for _ in range(c["num_layers"])]}
+
+
+def _moe_layer_check(torch, tree, cfg, device):
+    """Layer 0's moe_apply at the main path's shape (N = 16 * 512 tokens,
+    H = 768, bf16 inputs) on ``device`` (the card), in float32 and
+    bfloat16, against float64 on the CPU; returns the dropped (token,
+    choice) pairs."""
+    from deeplearning4j_tpu_torch.parallel import moe
+
+    rng = np.random.default_rng(SEED + 41)
+    n = BERT_BATCH * BERT_T
+    x16 = torch.tensor(rng.standard_normal((n, cfg.hidden),
+                                           dtype=np.float32)).bfloat16()
+    raw = tree["layers"][0]["moe"]
+    # the values the main path computes with: gate_w float32, the rest
+    # rounded to bf16 as encoder_layer casts them
+    vals = {k: torch.tensor(a) if k == "gate_w" else
+            torch.tensor(a).bfloat16() for k, a in raw.items()}
+    k_, cf = cfg.moe_k, cfg.moe_capacity
+    d64 = torch.float64
+    p64 = {k: v.to(d64) for k, v in vals.items()}
+    x64 = x16.to(d64)
+    t0 = time.perf_counter()
+    r64 = moe.moe_route(p64["gate_w"], x64, k_, cf)
+    y64 = moe.moe_experts(p64, *moe.moe_dispatch(r64, cfg.n_experts, d64),
+                          x64)
+    cpu_s = time.perf_counter() - t0
+    srt = torch.sort(r64.probs, dim=-1, descending=True).values
+    margin = srt[:, k_ - 1] - srt[:, k_]
+    sure = margin > MOE_MARGIN
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        p = {k: v.to(device) if k == "gate_w" else v.to(device, dt)
+             for k, v in vals.items()}
+        x = x16.to(device, dt)
+        with torch.no_grad():
+            y, aux = moe.moe_apply(p, x, k=k_, capacity_factor=cf)
+            route = moe.moe_route(p["gate_w"], x, k_, cf)
+        torch.cuda.synchronize()
+        ti, keep = route.topk_i.cpu(), route.keep.cpu()
+        same_set = (ti.sort(dim=-1).values ==
+                    r64.topk_i.sort(dim=-1).values).all(dim=-1)
+        if not bool(same_set[sure].all()):
+            fail(f"moe {dname}: {int((~same_set & sure).sum())} tokens with "
+                 f"a top-k margin above {MOE_MARGIN} routed apart from the "
+                 f"float64 evaluation")
+        rows = same_set & (keep == r64.keep).all(dim=-1)
+        y_c = y.float().cpu().to(d64)
+        err = _rel_err(y_c[rows], y64[rows])
+        aux_err = abs(float(aux) - float(r64.aux)) / float(r64.aux)
+        tol = MOE_F32_TOL if dname == "float32" else MOE_BF16_TOL
+        print(f"moe layer 0 at N={n} H={cfg.hidden} E={cfg.n_experts} "
+              f"k={k_} C={route.capacity} {dname}: card vs float64 (CPU, "
+              f"{cpu_s:.1f} s) max|d|/max {err:.3e} over {int(rows.sum())} "
+              f"of {n} tokens (routing apart: {int((~same_set).sum())}, "
+              f"margins <= {MOE_MARGIN}: {int((~sure).sum())}), aux "
+              f"{float(aux):.6f} vs {float(r64.aux):.6f} (rel "
+              f"{aux_err:.3e}); dropped (token, choice) pairs "
+              f"{int(route.dropped)} of {n * k_} (float64: "
+              f"{int(r64.dropped)})", flush=True)
+        if not bool(torch.isfinite(y).all()) or err > tol or aux_err > \
+                MOE_F32_TOL or int(rows.sum()) < n // 2:
+            fail(f"moe layer {dname}: outputs {err:.3e} > {tol} or aux "
+                 f"{aux_err:.3e} apart from float64")
+        out[dname] = int(route.dropped)
+    return out
+
+
+def _moe_net_check(torch):
+    """A MoELayer in a small MultiLayerNetwork: one Sgd fit step on the
+    card against its CPU twin from the same weights (loss, the aux state,
+    the weights the step leaves)."""
+    from deeplearning4j_tpu_torch import nn
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+
+    conf = (nn.NeuralNetConfiguration.Builder().seed(3).updater(Sgd(0.1))
+            .list()
+            .layer(nn.DenseLayer.Builder(nOut=64, activation="relu").build())
+            .layer(nn.MoELayer.Builder().nOut(48).ffnSize(128).nExperts(4)
+                   .topK(2).auxWeight(0.5).build())
+            .layer(nn.OutputLayer.Builder().nOut(5).activation("softmax")
+                   .build())
+            .setInputType(nn.InputType.feedForward(32)).build())
+    rng = np.random.default_rng(SEED + 42)
+    arrays = [{k: (rng.normal(size=s) * 0.2).astype(np.float32)
+               for k, s in lr_.param_shapes().items()} for lr_ in conf.layers]
+    gpu, cpu = _net_pair(conf.to_json(), arrays)
+    x = rng.normal(size=(256, 32)).astype(np.float32)
+    y = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 256)]
+    gpu.fit(x, y)
+    cpu.fit(x, y)
+    rel = abs(gpu.score() - cpu.score()) / abs(cpu.score())
+    aux = (float(gpu._states[1]["_aux_loss"]),
+           float(cpu._states[1]["_aux_loss"]))
+    worst = max(_rel_err(pg.cpu(), pc) for g, c in zip(gpu._params,
+                                                       cpu._params)
+                for pg, pc in zip(g.values(), c.values()))
+    print(f"moe net: one Sgd step card vs CPU: loss {gpu.score():.6f} vs "
+          f"{cpu.score():.6f} (rel {rel:.3e}), aux state {aux[0]:.6f} vs "
+          f"{aux[1]:.6f}, weights max|d|/max {worst:.3e}", flush=True)
+    if rel > TRAIN_LOSS_TOL or abs(aux[0] - aux[1]) > TRAIN_LOSS_TOL * \
+            abs(aux[1]) or aux[1] <= 0 or worst > KERNEL_TOL:
+        fail("the MoELayer network's fit step on the card differs from the "
+             "CPU's")
+
+
+class RoutingReplay:
+    """Stands in for models.bert.moe_apply while a flash and a dense MoE
+    BERT trainer take the same step. Routing is discrete: bf16 hidden
+    states one rounding apart send some tokens to other experts, and
+    through the capacity other tokens are kept or dropped, which moves
+    the gate's, the experts' and the attention's gradients by 8-47% of
+    their largest (scripts/moe_grad_probe.py at BERT-base). So ``record``
+    runs moe_apply as it is and
+    keeps each layer's decisions (the top-k experts, their slots, the
+    kept pairs, the top-1); ``replay`` computes the same function with
+    those decisions, its probabilities, weights and aux loss from its own
+    inputs, and counts the tokens its own gating would route apart."""
+
+    def __init__(self, bert):
+        from deeplearning4j_tpu_torch.parallel import moe
+
+        self.bert, self.moe = bert, moe
+        self.exact = bert.moe_apply
+        self.routes, self.apart, self.mode = [], [], None
+
+    def __enter__(self):
+        self.bert.moe_apply = self
+        return self
+
+    def __exit__(self, *exc):
+        self.bert.moe_apply = self.exact
+
+    def record(self):
+        self.mode, self.routes = "record", []
+
+    def replay(self):
+        self.mode, self.apart = "replay", []
+
+    def __call__(self, mp, x, k, capacity_factor):
+        import torch
+        import torch.nn.functional as F
+
+        moe = self.moe
+        if self.mode == "record":
+            with torch.no_grad():
+                r = moe.moe_route(mp["gate_w"], x, k, capacity_factor)
+            self.routes.append((r.topk_i, r.pos, r.keep, r.capacity,
+                                r.probs.argmax(dim=-1)))
+            return self.exact(mp, x, k=k, capacity_factor=capacity_factor)
+        topk_i, pos, keep, cap, top1 = self.routes[len(self.apart)]
+        own = moe.moe_route(mp["gate_w"], x, k, capacity_factor)
+        same = (own.topk_i.sort(dim=-1).values ==
+                topk_i.sort(dim=-1).values).all(dim=-1)
+        self.apart.append(int((~same).sum()))
+        e = own.probs.shape[-1]
+        topk_p = own.probs.gather(-1, topk_i)
+        topk_p = topk_p / torch.clamp(topk_p.sum(dim=-1, keepdim=True),
+                                      min=1e-9)
+        frac = F.one_hot(top1, e).to(own.probs.dtype).mean(dim=0)
+        aux = e * (frac * own.probs.mean(dim=0)).sum()
+        route = moe.Routing(own.probs, aux, topk_p, topk_i, pos, keep, cap)
+        return moe.moe_experts(mp, *moe.moe_dispatch(route, e, x.dtype),
+                               x), aux
+
+
+def _bert_grads(torch, bert, trainer, cfg, tokens, labels):
+    """The gradient of the masked-LM loss under ``cfg`` at ``trainer``'s
+    params (deterministic), in its leaf order."""
+    positions, mlm_labels, weights = bert.mlm_gather(
+        labels, max_preds=bert.mlm_max_preds(np.asarray(tokens).shape[1]))
+    dev = trainer.device
+    args = [torch.as_tensor(np.asarray(a), device=dev) for a in
+            (tokens, positions, mlm_labels)]
+    args = [a.long() for a in args] + [torch.as_tensor(weights, device=dev)]
+    for p in trainer._leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss = bert.mlm_loss_masked(trainer.params, cfg, *args,
+                                        deterministic=True)
+            return torch.autograd.grad(loss, trainer._leaves,
+                                       materialize_grads=True)
+    finally:
+        for p in trainer._leaves:
+            p.requires_grad_(False)
+
+
+class PlantedDq:
+    """Stands in for ``flash.flash_bwd_dq`` during one training step and
+    plants ``fault`` (one of MOE_CONTROLS) in layer ``layer``'s dQ: the
+    backward reaches the layers last first, so that layer's is call
+    ``n_layers - 1 - layer``."""
+
+    def __init__(self, flash, fault, layer, n_layers):
+        self.flash, self.fault = flash, fault
+        self.call = n_layers - 1 - layer
+        self.exact, self.calls = flash.flash_bwd_dq, 0
+        # the wrapper counts its launches under its module name, which is
+        # this object while it stands in: the control's launches land here
+        self.launches = 0
+
+    def __enter__(self):
+        self.flash.flash_bwd_dq = self
+        return self
+
+    def __exit__(self, *exc):
+        self.flash.flash_bwd_dq = self.exact
+
+    def __call__(self, *args):
+        dq = self.exact(*args)
+        if self.calls == self.call:
+            dq = dq.clone()
+            if self.fault == MOE_CONTROLS[0]:
+                dq.zero_()
+            else:
+                dq[:, :, :64].zero_()     # [B, H, T, D]
+        self.calls += 1
+        return dq
+
+
+def _moe_bert(torch, flash, card):
+    """Path A: MoE BERT-base (bf16, flash) through BertTrainer, each of
+    MOE_STEPS steps against the dense-attention trainer from the same
+    state and the same routing (``RoutingReplay``); the loss's aux part; layer 0's moe_apply against float64; a
+    MoELayer network; step time and peak memory."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import bert
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+    from deeplearning4j_tpu_torch.utils.convert import bert_params_from_numpy
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = moe_bert_numpy_params(np.random.default_rng(SEED + 40))
+    cfg = bert.BertConfig(**BERT_BASE, **MOE_BERT, dropout=0.0,
+                          compute_dtype="bfloat16", attention_impl="flash")
+    n_params = sum(a.size for a in tree_leaves(tree))
+    print(f"moe bert: {n_params} parameters drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    batches = [bert.synthetic_mlm_batch(cfg, BERT_BATCH, BERT_T, seed=40 + s)
+               for s in range(MOE_STEPS)]
+    tr_f = bert.BertTrainer(cfg, lr=BERT_LR,
+                            params=bert_params_from_numpy(tree, "cuda"))
+    tr_d = bert.BertTrainer(dataclasses.replace(cfg, attention_impl="dense"),
+                            lr=BERT_LR,
+                            params=bert_params_from_numpy(tree, "cuda"))
+    if tr_f.device.type != "cuda":
+        fail(f"the MoE BertTrainer defaulted to {tr_f.device}")
+    fns = [getattr(flash, name) for name in FLASH_NAMES]
+    for fn in fns:
+        fn.launches = 0
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                attention_impl="dense")
+    names = _bert_leaf_names(tr_f.params)
+    losses, worst_loss, launches, apart = [], 0.0, {}, []
+    worst = {"flash": {}, "dense": {}, "flash vs dense": {}}
+
+    def moments32(replay, tok, lab):
+        """Adam's moments after a float32 step at the state both trainers
+        start the step at (the dense trainer's, not yet stepped) on the
+        recorded routing, with dense attention, so no flash kernel runs."""
+        replay.replay()
+        g32 = _bert_grads(torch, bert, tr_d, cfg32, tok, lab)
+        with torch.no_grad():
+            return {"m": [0.9 * m + 0.1 * g
+                          for m, g in zip(tr_d.opt["m"], g32)],
+                    "v": [0.999 * v + 0.001 * g * g
+                          for v, g in zip(tr_d.opt["v"], g32)]}
+
+    def parts(name, t):
+        """A leaf as the parameters it holds: the fused QKV weight and
+        bias as their Q, K and V projections, whose gradients differ in
+        scale (so a fault in dQ cannot hide under dV's largest element).
+        The K bias is left out: softmax over the keys ignores the shift
+        q.b_k it adds to a query's logits, so its gradient is 0 and its
+        moments are rounding noise (they read 1e8 of their largest)."""
+        if name.endswith("qkv_w"):
+            return zip(("q", "k", "v"), t.chunk(3, dim=-1))
+        if name.endswith("qkv_b"):
+            q, _, v = t.chunk(3, dim=-1)
+            return [("q", q), ("v", v)]
+        return [("", t)]
+
+    def distance(a, b, split=True):
+        """{parameter.m or .v: max|d|/max} (the fused leaves whole when
+        not ``split``)."""
+        return {f"{name}{'.' + p if p else ''}.{key}": _rel_err(x, y)
+                for i, name in enumerate(names) for key in ("m", "v")
+                for (p, x), (_, y) in (
+                    zip(parts(name, a[key][i]), parts(name, b[key][i]))
+                    if split else [(("", a[key][i]), ("", b[key][i]))])}
+
+    def top(d, n=3):
+        """The ``n`` largest of a distance, largest first."""
+        return sorted(((v, k) for k, v in d.items()), reverse=True)[:n]
+
+    def shown(d):
+        return ", ".join(f"{v:.3e} ({k})" for v, k in top(d))
+
+    def resync():
+        """The dense trainer set to the flash trainer's state."""
+        with torch.no_grad():
+            for a, b in zip(tr_f._leaves, tr_d._leaves):
+                b.copy_(a)
+            for key in ("m", "v"):
+                for a, b in zip(tr_f.opt[key], tr_d.opt[key]):
+                    b.copy_(a)
+
+    controls = {}
+    with RoutingReplay(bert) as replay:
+        for step, (tok, lab) in enumerate(batches):
+            # the flash trainer (the main path) records the routing; only
+            # its steps are counted
+            before = {fn.__name__: fn.launches for fn in fns}
+            replay.record()
+            lf = float(tr_f.train_step(tok, lab))
+            for fn in fns:
+                launches[fn.__name__] = launches.get(fn.__name__, 0) + \
+                    fn.launches - before[fn.__name__]
+            want = moments32(replay, tok, lab)
+            replay.replay()
+            ld = float(tr_d.train_step(tok, lab))
+            apart.append(replay.apart)
+            losses.append((lf, ld))
+            worst_loss = max(worst_loss, abs(lf - ld) / abs(ld))
+            for what, a, b in (("flash", tr_f.opt, want),
+                               ("dense", tr_d.opt, want),
+                               ("flash vs dense", tr_f.opt, tr_d.opt)):
+                for k, v in distance(a, b).items():
+                    worst[what][k] = max(worst[what].get(k, 0.0), v)
+            del want
+            # the next step starts both from the flash trainer's state
+            resync()
+        # the planted controls: a flash step with a fault in one layer's
+        # dQ, from the same state as the float32 step it is held against
+        tok, lab = batches[0]
+        for fault in MOE_CONTROLS:
+            replay.record()
+            with PlantedDq(flash, fault, MOE_CONTROL_LAYER, cfg.num_layers):
+                tr_f.train_step(tok, lab)
+            want = moments32(replay, tok, lab)
+            controls[fault] = (distance(tr_f.opt, want),
+                               distance(tr_f.opt, want, split=False))
+            del want
+            resync()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"moe bert: tokens whose own top-k the dense trainer would route "
+          f"apart from the flash trainer's, by step and layer: {apart}",
+          flush=True)
+    print(f"moe bert: {MOE_STEPS} steps (batch {BERT_BATCH}, T={BERT_T}, "
+          f"E={cfg.n_experts}, k={cfg.moe_k}, capacity {cfg.moe_capacity}), "
+          f"flash vs dense from the same state and routing each step: "
+          f"losses {losses} (max rel {worst_loss:.3e}); Adam m/v max|d|/max "
+          f"against a float32 step, the largest three: flash "
+          f"{shown(worst['flash'])}; dense {shown(worst['dense'])}; flash "
+          f"vs dense {shown(worst['flash vs dense'])}; flash launches "
+          f"{launches}; peak memory {peak / 2**30:.2f} GiB ({card})",
+          flush=True)
+    got = {what: top(d, 1)[0][0] for what, d in worst.items()}
+    bound = max(MOE_YARDSTICK_RATIO * got["dense"], BERT_BF16_MOMENT_TOL)
+    print(f"moe bert: planted controls in layer {MOE_CONTROL_LAYER}'s dQ, "
+          f"Adam m/v max|d|/max against a float32 step (bound "
+          f"{bound:.3e}): " + "; ".join(
+              f"{fault} {shown(split)} (the fused QKV leaves whole "
+              f"{shown(whole)})" for fault, (split, whole)
+              in controls.items()), flush=True)
+    if worst_loss > BERT_BF16_LOSS_TOL or got["flash"] > bound or \
+            got["flash vs dense"] > bound:
+        fail(f"moe bert flash vs dense: losses {worst_loss:.3e}, the flash "
+             f"moments {got['flash']:.3e} from float32 and "
+             f"{got['flash vs dense']:.3e} from the dense trainer's "
+             f"(bound {bound:.3e})")
+    for fault, (split, _) in controls.items():
+        if not top(split, 1)[0][0] > bound:
+            fail(f"moe bert: the moment gate ({bound:.3e}) passes a step "
+                 f"with {fault} in layer {MOE_CONTROL_LAYER}")
+    if not all(np.isfinite(losses).ravel()):
+        fail(f"moe bert: non-finite losses {losses}")
+    g0 = torch.tensor(tree["layers"][0]["moe"]["gate_w"])
+    if not float((tr_f.params["layers"][0]["moe"]["gate_w"].cpu() - g0)
+                 .abs().max()) > 0:
+        fail("moe bert: the gate did not train")
+    n_fl = cfg.num_layers * MOE_STEPS
+    want = {"flash_fwd": n_fl, "flash_attention_infer": 0,
+            "flash_bwd_dkv": n_fl, "flash_bwd_dq": n_fl}
+    if launches != want:
+        fail(f"moe bert launches {launches}, predicted {want}")
+    del tr_d
+    torch.cuda.empty_cache()
+
+    # the loss minus its MLM part is moe_aux_weight * the layers' aux
+    tok, lab = batches[0]
+    pos, mlab, w = (torch.as_tensor(a, device=tr_f.device) for a in
+                    bert.mlm_gather(lab, bert.mlm_max_preds(BERT_T)))
+    tokens = torch.as_tensor(tok, device=tr_f.device).long()
+    drops = []
+    exact = bert.moe_apply
+
+    def counting(mp, x, k, capacity_factor):
+        from deeplearning4j_tpu_torch.parallel.moe import moe_route
+
+        drops.append(int(moe_route(mp["gate_w"], x, k,
+                                   capacity_factor).dropped))
+        return exact(mp, x, k=k, capacity_factor=capacity_factor)
+
+    with torch.no_grad():
+        bert.moe_apply = counting
+        try:
+            _, aux = bert.forward_with_aux(tr_f.params, cfg, tokens)
+        finally:
+            bert.moe_apply = exact
+        loss = float(bert.mlm_loss_masked(tr_f.params, cfg, tokens, pos,
+                                          mlab, w, deterministic=True))
+        mlm = float(bert.mlm_loss_masked(
+            tr_f.params, dataclasses.replace(cfg, moe_aux_weight=0.0),
+            tokens, pos, mlab, w, deterministic=True))
+    gap = abs((loss - mlm) - cfg.moe_aux_weight * float(aux))
+    print(f"moe bert: loss {loss:.6f} = MLM {mlm:.6f} + "
+          f"{cfg.moe_aux_weight} * aux {float(aux):.6f} (|d| {gap:.3e}); "
+          f"dropped (token, choice) pairs by layer {drops} of "
+          f"{BERT_BATCH * BERT_T * cfg.moe_k} each", flush=True)
+    if gap > MOE_AUX_ULPS * np.spacing(np.float32(loss)) or \
+            len(drops) != cfg.num_layers:
+        fail(f"moe bert: the loss's aux part is {loss - mlm}, "
+             f"{cfg.moe_aux_weight} * aux is "
+             f"{cfg.moe_aux_weight * float(aux)}")
+    med, lo, hi = _bert_step_ms(torch, tr_f, tok, lab, n=3)
+    print(f"moe bert train bf16 flash: step median {med:.3f} ms (min "
+          f"{lo:.3f}, max {hi:.3f}) at batch {BERT_BATCH}, T={BERT_T} "
+          f"({card})", flush=True)
+    device = tr_f.device
+    del tr_f
+    torch.cuda.empty_cache()
+    _moe_layer_check(torch, tree, cfg, device)
+    _moe_net_check(torch)
+    return launches
+
+
+def _pipeline_bert(torch, flash, card):
+    """Path B: BERT-base (dense FFN) through BertPipelineTrainer over
+    PIPE_BERT_MESH on the one card, in float32 against BertTrainer from
+    the same weights (losses, weights and moments to bert_training_phase's
+    float32 rules); then both trainers' bf16 step times."""
+    from types import SimpleNamespace
+
+    from deeplearning4j_tpu_torch.models import bert, bert_pipeline
+    from deeplearning4j_tpu_torch.parallel import MeshConfig
+    from deeplearning4j_tpu_torch.parallel.pipeline import join_stages
+    from deeplearning4j_tpu_torch.tree_util import tree_fill
+    from deeplearning4j_tpu_torch.utils.convert import bert_params_from_numpy
+
+    tree = bert_numpy_params(np.random.default_rng(SEED + 5))
+    tok, lab = bert.synthetic_mlm_batch(bert.BertConfig(**BERT_BASE),
+                                        BERT_BATCH, BERT_T, seed=0)
+    mesh = MeshConfig(**PIPE_BERT_MESH,
+                      devices=[torch.device("cuda")] * 4).build()
+    fns = [getattr(flash, name) for name in FLASH_NAMES]
+
+    def trainers(dtype):
+        cfg = bert.BertConfig(**BERT_BASE, dropout=0.0, compute_dtype=dtype,
+                              attention_impl="flash")
+        pp = bert_pipeline.BertPipelineTrainer(
+            cfg, mesh, microbatches=PIPE_MICRO, lr=BERT_LR,
+            params=bert_params_from_numpy(tree, "cuda"))
+        one = bert.BertTrainer(cfg, lr=BERT_LR,
+                               params=bert_params_from_numpy(tree, "cuda"))
+        return pp, one
+
+    pp, one = trainers("float32")
+    if pp.device.type != "cuda":
+        fail(f"BertPipelineTrainer sits on {pp.device}")
+    for fn in fns:
+        fn.launches = 0
+    l_pp = [float(pp.train_step(tok, lab)) for _ in range(PIPE_STEPS)]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in fns}
+    l_one = [float(one.train_step(tok, lab)) for _ in range(PIPE_STEPS)]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(l_pp, l_one))
+    print(f"pipeline bert f32: mesh {mesh.shape}, {PIPE_MICRO} microbatches,"
+          f" {PIPE_STEPS} steps: losses {l_pp} vs BertTrainer {l_one} (max "
+          f"rel {worst:.3e}); flash launches {launches}", flush=True)
+
+    # the pipeline trainer's state in BertTrainer's layout and leaf order
+    stacked = SimpleNamespace(params=pp.stacked_params(), opt={},
+                              _step=pp._step)
+    for key in ("m", "v"):
+        t = tree_fill(pp.params, iter(pp.opt[key]))
+        t = {**t["emb"], "layers": bert_pipeline.unstack_layer_params(
+            join_stages(t["stages"]))}
+        stacked.opt[key] = bert.param_leaves(t)
+    above, below, moments = _compare_bert(stacked, one,
+                                          "f32 pipeline vs BertTrainer")
+    # the yardstick: BertTrainer on the same batch with its rows reversed
+    # (the same loss, other summation orders in every gradient product)
+    rev = bert.BertTrainer(one.cfg, lr=BERT_LR,
+                           params=bert_params_from_numpy(tree, "cuda"))
+    for _ in range(PIPE_STEPS):
+        rev.train_step(tok[::-1].copy(), lab[::-1].copy())
+    above_y, _, _ = _compare_bert(rev, one, "f32 BertTrainer on the "
+                                  "reversed batch vs BertTrainer (yardstick)")
+    del rev
+    lr_steps = BERT_LR * PIPE_STEPS
+    limits = ((worst, TRAIN_LOSS_TOL, "losses"),
+              (above, max(BERT_F32_PARAM_TOL * lr_steps,
+                          PIPE_YARDSTICK_RATIO * above_y), "params"),
+              (moments, MOMENT_TOL, "Adam moments"),
+              (below, 2 * lr_steps * (1 + 1e-3), "params below the floor"))
+    bad = [f"{name} differ by {got:.3e} > {tol:.3e}"
+           for got, tol, name in limits if got > tol]
+    if bad:
+        fail(f"pipeline bert f32 vs BertTrainer: {'; '.join(bad)}")
+    n_mb = PIPE_MICRO * BERT_BASE["num_layers"] * PIPE_STEPS
+    want = {"flash_fwd": n_mb, "flash_attention_infer": 0,
+            "flash_bwd_dkv": n_mb, "flash_bwd_dq": n_mb}
+    if launches != want:
+        fail(f"pipeline bert launches {launches}, predicted {want}")
+    del pp, one, stacked
+    torch.cuda.empty_cache()
+    pp, one = trainers("bfloat16")
+    times = {}
+    for name, tr in (("pipeline", pp), ("BertTrainer", one)):
+        times[name] = _bert_step_ms(torch, tr, tok, lab, n=3)
+    print(f"pipeline bert bf16 step median {times['pipeline'][0]:.3f} ms "
+          f"(min {times['pipeline'][1]:.3f}, max {times['pipeline'][2]:.3f})"
+          f" vs BertTrainer {times['BertTrainer'][0]:.3f} ms (min "
+          f"{times['BertTrainer'][1]:.3f}, max {times['BertTrainer'][2]:.3f})"
+          f" at batch {BERT_BATCH}, T={BERT_T} ({card})", flush=True)
+    del pp, one
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipeline_lstm_conf(vocab=77, hidden=256, seq=100):
+    """LSTM vocab->hidden, PIPE_LSTM_TRUNK x LSTM hidden->hidden, softmax
+    RnnOutputLayer (mcxent), Adam(2e-3), as TextGenerationLSTM's layers."""
+    from deeplearning4j_tpu_torch import nn
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    b = (nn.NeuralNetConfiguration.Builder().seed(123).updater(Adam(2e-3))
+         .weightInit(nn.WeightInit.XAVIER).list())
+    for _ in range(1 + PIPE_LSTM_TRUNK):
+        b.layer(nn.LSTM.Builder().nOut(hidden).activation("tanh").build())
+    b.layer(nn.RnnOutputLayer.Builder().nOut(vocab).activation("softmax")
+            .lossFunction("mcxent").build())
+    return b.setInputType(nn.InputType.recurrent(vocab, seq)).build()
+
+
+def _pipeline_lstm(torch, lstm, card):
+    """Path C: the LSTM trunk through PipelineParallelTrainer over
+    PIPE_LSTM_MESH, against MultiLayerNetwork.fit on the card from the
+    same weights, step for step (rows 1 and 3 counted); sync_to_net, then
+    net.output against a net built from the trainer's weights (row 2
+    counted over the three outputs)."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshConfig, PipelineParallelTrainer)
+    from deeplearning4j_tpu_torch.parallel.pipeline import join_stages
+    from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
+        unstack_run_params)
+
+    vocab, hidden, seq, batch = 77, 256, 100, 32
+    conf = pipeline_lstm_conf(vocab, hidden, seq)
+    rng = np.random.default_rng(SEED + 43)
+    arrays = [{k: (rng.normal(size=s) * 0.08).astype(np.float32)
+               for k, s in lr_.param_shapes().items()} for lr_ in conf.layers]
+    f, l = next_char_batch(rng, batch, vocab, seq)
+    ref, _ = _net_pair(conf.to_json(), arrays)
+    net, _ = _net_pair(conf.to_json(), arrays)
+    mesh = MeshConfig(**PIPE_LSTM_MESH,
+                      devices=[torch.device("cuda")] * 2).build()
+    tr = PipelineParallelTrainer(net, mesh, microbatches=PIPE_LSTM_MICRO)
+    if (tr.lo, tr.hi) != (1, 1 + PIPE_LSTM_TRUNK):
+        fail(f"the pipelined run is layers {tr.lo}..{tr.hi}")
+    kernels = (lstm.lstm_seq_infer, lstm.lstm_seq_fwd, lstm.lstm_seq_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    times_pp = []
+    for _ in range(PIPE_LSTM_STEPS):
+        t0 = time.perf_counter()
+        tr.train_step(f, l)
+        times_pp.append((time.perf_counter() - t0) * 1e3)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    times_fit, losses = [], []
+    for _ in range(PIPE_LSTM_STEPS):
+        t0 = time.perf_counter()
+        ref.fit(f, l)
+        losses.append(ref.score())
+        torch.cuda.synchronize()
+        times_fit.append((time.perf_counter() - t0) * 1e3)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(tr.lossCurve, losses))
+    per = 1 + PIPE_LSTM_TRUNK * PIPE_LSTM_MICRO
+    want = {"lstm_seq_infer": 0, "lstm_seq_fwd": per * PIPE_LSTM_STEPS,
+            "lstm_seq_bwd": per * PIPE_LSTM_STEPS}
+    print(f"pipeline lstm: mesh {mesh.shape}, run layers {tr.lo}..{tr.hi}, "
+          f"{PIPE_LSTM_MICRO} microbatches, {PIPE_LSTM_STEPS} Adam steps: "
+          f"losses {tr.lossCurve} vs fit {losses} (max rel {worst:.3e}); "
+          f"launches {launches}; step ms pipeline {times_pp} vs fit "
+          f"{times_fit} ({card})", flush=True)
+    if worst > TRAIN_LOSS_TOL or not tr.lossCurve[-1] < tr.lossCurve[0]:
+        fail(f"pipeline lstm vs fit: losses differ by {worst:.3e}")
+    if launches != want:
+        fail(f"pipeline lstm launches {launches}, predicted {want}")
+    # sync_to_net, then the net's own output against a net built from the
+    # trainer's weights (unstacked), and against the fit-trained net
+    run = unstack_run_params(join_stages(tr.params["run"]))
+    weights = [tr.params["outer"][0], *run, tr.params["outer"][1]]
+    twin = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        conf.to_json())).init([{k: v.clone() for k, v in p.items()}
+                               for p in weights])
+    tr.sync_to_net()
+    x = f[:PIPE_LSTM_OUT_ROWS]
+    for fn in kernels:
+        fn.launches = 0
+    got, want_out = net.output(x).toNumpy(), twin.output(x).toNumpy()
+    vs_fit = _rel_err(torch.tensor(got), torch.tensor(ref.output(x)
+                                                      .toNumpy()))
+    out_launches = {fn.__name__: fn.launches for fn in kernels}
+    # row 2: each of the three nets' 1 + PIPE_LSTM_TRUNK LSTM layers once
+    want = {"lstm_seq_infer": 3 * (1 + PIPE_LSTM_TRUNK), "lstm_seq_fwd": 0,
+            "lstm_seq_bwd": 0}
+    print(f"pipeline lstm: after sync_to_net, net.output equal to the "
+          f"trainer's weights' output: {np.array_equal(got, want_out)}; vs "
+          f"the fit-trained net max|d|/max {vs_fit:.3e}; launches of the "
+          f"three outputs at N={PIPE_LSTM_OUT_ROWS} {out_launches}",
+          flush=True)
+    if not np.array_equal(got, want_out) or not np.isfinite(got).all():
+        fail("pipeline lstm: sync_to_net's output differs from the "
+             "trainer's weights' output")
+    if out_launches != want:
+        fail(f"pipeline lstm output launches {out_launches}, predicted "
+             f"{want}")
+    return dict(launches, lstm_seq_infer=out_launches["lstm_seq_infer"])
+
+
+def moe_pipeline_phase(torch, flash, lstm, card):
+    """Mixture-of-Experts and GPipe pipelines on the one card, at full
+    width, each from one numpy draw of weights:
+
+    A. MoE BERT-base (768/12/12, ffn 3072, vocab 30522, T=512, batch 16,
+       8 experts, k=2, capacity 1.5, aux weight 1e-2; bf16, flash) through
+       BertTrainer: each step against the dense-attention trainer from the
+       same state, the loss's aux part, layer 0's moe_apply against
+       float64 on the CPU, dropped pairs, a MoELayer network against its
+       CPU twin, step time and peak memory (rows 7a-c, 12 a step each);
+    B. BERT-base through BertPipelineTrainer over data=1 x pipe=4 (3
+       layers a stage, 4 microbatches) against BertTrainer in float32, and
+       both trainers' bf16 step times (rows 7a-c at (4, 12, 512, 64), 48 a
+       step each);
+    C. a char-RNN LSTM trunk (TextGenerationLSTM's widths, the depth
+       changed: LSTM 77->256, 4 x LSTM 256->256, RnnOutputLayer 77)
+       through PipelineParallelTrainer over pipe=2 (2 layers a stage, 2
+       microbatches, batch 32) against MultiLayerNetwork.fit on the card,
+       and sync_to_net (rows 1 and 3: 1 at (100, 32, 256) and 8 at
+       (100, 16, 256) a step each; row 2 at (100, 8, 256), 5 for each of
+       the three nets' outputs after sync_to_net).
+
+    Returns each path's launches."""
+    t0 = time.perf_counter()
+    out = {"moe_bert": _moe_bert(torch, flash, card)}
+    out["pipeline_bert"] = _pipeline_bert(torch, flash, card)
+    out["pipeline_lstm"] = _pipeline_lstm(torch, lstm, card)
+    print(f"moe_pipeline_phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7168,6 +7959,7 @@ def main():
     flash_launches = dict(bert["launches"])
     flash_launches["flash_attention_infer"] = bert_serving_phase(
         torch, flash, bert["trainer"])
+    moe_pipe = moe_pipeline_phase(torch, flash, lstm, card)
     replicas = replica_phase(torch, lstm, gru, flash, net, gru_net,
                              bert["trainer"], card)
     del bert, net, gru_net
@@ -7252,6 +8044,32 @@ def main():
             ("flash_attention_infer", "flash_attn_fwd.cu", 758),
             ("flash_bwd_dkv", "flash_attn_bwd.cu", 1121),
             ("flash_bwd_dq", "flash_attn_bwd.cu", 1456))] + [
+        # rows 7a-c on the MoE BERT path and the pipelined BERT path
+        (name, source, pallas.format(line), moe_pipe[path][name],
+         flash_errs[name], shape,
+         dict(flash_rows[name][(shape, dtype)], path=path))
+        for path, shape, dtype in (
+            ("moe_bert", FLASH_REPORT, "bfloat16"),
+            ("pipeline_bert", PIPE_FLASH_SHAPE, "float32"))
+        for name, source, line in (
+            ("flash_fwd", "flash_attn_fwd.cu", 758),
+            ("flash_bwd_dkv", "flash_attn_bwd.cu", 1121),
+            ("flash_bwd_dq", "flash_attn_bwd.cu", 1456))] + [
+        # rows 1 and 3 on the pipelined LSTM trunk
+        (name, source, f"kernels/lstm.py:{line}",
+         moe_pipe["pipeline_lstm"][name],
+         train_rows[name][PIPE_LSTM_SHAPE]["err"], PIPE_LSTM_SHAPE,
+         dict(train_rows[name][PIPE_LSTM_SHAPE], path="pipeline_lstm"))
+        for name, source, line in (("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
+                                   ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
+    ] + [
+        # row 2 on the same path: the outputs after sync_to_net
+        ("lstm_seq_infer", "lstm_seq_infer.cu", "kernels/lstm.py:115",
+         moe_pipe["pipeline_lstm"]["lstm_seq_infer"],
+         rows[(100, PIPE_LSTM_OUT_ROWS, 256)]["err"],
+         (100, PIPE_LSTM_OUT_ROWS, 256),
+         dict(rows[(100, PIPE_LSTM_OUT_ROWS, 256)], path="pipeline_lstm"))
+    ] + [
         # rows 2, 5 and 7a through the replica sets, on CUDA streams
         ("lstm_seq_infer", "lstm_seq_infer.cu", "kernels/lstm.py:115",
          replicas["replica_charrnn"], max_err, REPORT_SHAPE,

@@ -6,4 +6,5 @@ from deeplearning4j_tpu_torch.models.zoo import (  # noqa: F401
     TinyYOLO, UNet, VGG16, VGG19, Xception, YOLO2, ZooModel)
 from deeplearning4j_tpu_torch.models.bert import (  # noqa: F401
     BertConfig, BertTrainer, forward as bert_forward,
-    init_params as bert_init_params, mlm_loss, synthetic_mlm_batch)
+    init_params as bert_init_params, mlm_loss, param_specs as
+    bert_param_specs, synthetic_mlm_batch)

@@ -17,9 +17,17 @@ Where the reference differs by design:
   CUDA, where the reference says TPU; ``"dpa"`` is PyTorch's
   ``scaled_dot_product_attention``, as the reference's is
   ``jax.nn.dot_product_attention`` (a library call in both);
-- no mesh: ring attention, sequence parallel and the tp/dp shardings
-  (ROADMAP queue 1, the parallel tier) and the MoE layers (``n_experts > 0``) are not
-  ported and raise.
+- ``n_experts > 0`` replaces every layer's dense FFN with a top-k MoE
+  block (``parallel/moe.py``), its ``gate_w`` kept float32 whatever the
+  compute dtype; the layers' aux losses, times ``moe_aux_weight``, join
+  both MLM losses;
+- ``BertTrainer`` takes a ``mesh`` (``parallel/mesh.py``) under the
+  one-process semantics of ``parallel/__init__.py``: ``data``, ``expert``
+  and ``pipe`` place nothing and change no number, and everything sits on
+  the mesh's first device. Ring attention (``seq``) and the tensor-parallel
+  shardings (``model``) come with the parallel tier (ROADMAP queue 1, item
+  12) and raise; ``param_specs`` gives the reference's layout as tuples of
+  axis names.
 """
 
 from __future__ import annotations
@@ -34,9 +42,10 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.backend import resolve_device, torch_dtype
 from deeplearning4j_tpu_torch.kernels import flash
 from deeplearning4j_tpu_torch.nn.conf.layers import take_rows
-
-_MOE = ("MoE BERT (n_experts > 0) is not ported yet: ROADMAP queue 1, "
-        "the parallel tier")
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    MODEL_AXIS, SEQ_AXIS, Mesh)
+from deeplearning4j_tpu_torch.parallel.moe import (
+    moe_apply, moe_init, moe_param_specs)
 
 
 @dataclass
@@ -68,9 +77,8 @@ def init_params(cfg: BertConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random parameters (normal * 0.02, zero biases, unit LayerNorm
     gains), drawn on the CPU from ``generator`` and moved to ``device``
-    (CUDA unless the CPU is named; without CUDA that raises)."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE)
+    (CUDA unless the CPU is named; without CUDA that raises). A MoE
+    config's layers hold ``moe`` (``moe_init``) instead of the dense FFN."""
     device = resolve_device(device)
     h, f, v = cfg.hidden, cfg.ffn, cfg.vocab_size
 
@@ -92,14 +100,48 @@ def init_params(cfg: BertConfig, generator: torch.Generator,
         "mlm_bias": zeros(v),
     }
     for _ in range(cfg.num_layers):
-        params["layers"].append({
+        layer = {
             "qkv_w": norm(h, 3 * h), "qkv_b": zeros(3 * h),
             "out_w": norm(h, h), "out_b": zeros(h),
             "ln1": ln(), "ln2": ln(),
-            "ffn_in_w": norm(h, f), "ffn_in_b": zeros(f),
-            "ffn_out_w": norm(f, h), "ffn_out_b": zeros(h),
-        })
+        }
+        if cfg.n_experts > 0:
+            layer["moe"] = moe_init(generator, h, f, cfg.n_experts,
+                                    device=device)
+        else:
+            layer.update({
+                "ffn_in_w": norm(h, f), "ffn_in_b": zeros(f),
+                "ffn_out_w": norm(f, h), "ffn_out_b": zeros(h),
+            })
+        params["layers"].append(layer)
     return params
+
+
+def param_specs(cfg: BertConfig) -> dict:
+    """The reference's Megatron-style layout of ``init_params``' tree, each
+    spec a tuple of axis names or None (one process places nothing by
+    it)."""
+    layer = {
+        "qkv_w": (None, MODEL_AXIS), "qkv_b": (MODEL_AXIS,),
+        "out_w": (MODEL_AXIS, None), "out_b": (),
+        "ln1": {"g": (), "b": ()},
+        "ln2": {"g": (), "b": ()},
+    }
+    if cfg.n_experts > 0:
+        layer["moe"] = moe_param_specs()
+    else:
+        layer.update({
+            "ffn_in_w": (None, MODEL_AXIS), "ffn_in_b": (MODEL_AXIS,),
+            "ffn_out_w": (MODEL_AXIS, None), "ffn_out_b": (),
+        })
+    return {
+        "tok_emb": (None, MODEL_AXIS),
+        "pos_emb": (),
+        "type_emb": (),
+        "emb_ln": {"g": (), "b": ()},
+        "layers": [dict(layer) for _ in range(cfg.num_layers)],
+        "mlm_bias": (),
+    }
 
 
 def param_leaves(params) -> list:
@@ -173,10 +215,9 @@ def _attention(q, k, v, cfg: BertConfig):
 def encoder_layer(lp, x, cfg: BertConfig, li=0, deterministic=True,
                   generator=None):
     """One post-LN encoder block. x [B, T, H] in the compute dtype ->
-    ([B, T, H], aux loss 0.0). Residual adds happen in the compute dtype,
-    then the sum goes to float32 for the LayerNorm."""
-    if "moe" in lp:
-        raise NotImplementedError(_MOE)
+    ([B, T, H], aux loss: the MoE load-balancing loss, float32, or 0.0 for
+    a dense FFN). Residual adds happen in the compute dtype, then the sum
+    goes to float32 for the LayerNorm."""
     dtype = x.dtype
     b, t = x.shape[0], x.shape[1]
     nh, hd = cfg.num_heads, cfg.head_dim
@@ -194,14 +235,25 @@ def encoder_layer(lp, x, cfg: BertConfig, li=0, deterministic=True,
         att = _dropout(att, cfg.dropout, generator)
     x = _layer_norm((x + att).float(), lp["ln1"]["g"], lp["ln1"]["b"],
                     cfg.layer_norm_eps).to(dtype)
-    hdn = F.gelu(x @ lp["ffn_in_w"].to(dtype) + lp["ffn_in_b"].to(dtype),
-                 approximate="tanh")   # jax.nn.gelu's default
-    hdn = hdn @ lp["ffn_out_w"].to(dtype) + lp["ffn_out_b"].to(dtype)
+    if "moe" in lp:
+        # gate_w stays float32: the gating runs in float32, and rounding
+        # the gate weights to bf16 would move routing decisions near ties
+        mp = {k: (v if k == "gate_w" else v.to(dtype))
+              for k, v in lp["moe"].items()}
+        hdn, aux = moe_apply(mp, x.reshape(b * t, -1), k=cfg.moe_k,
+                             capacity_factor=cfg.moe_capacity)
+        hdn = hdn.reshape(b, t, -1)
+    else:
+        aux = torch.zeros((), device=x.device)
+        hdn = F.gelu(x @ lp["ffn_in_w"].to(dtype)
+                     + lp["ffn_in_b"].to(dtype),
+                     approximate="tanh")   # jax.nn.gelu's default
+        hdn = hdn @ lp["ffn_out_w"].to(dtype) + lp["ffn_out_b"].to(dtype)
     if drop:
         hdn = _dropout(hdn, cfg.dropout, generator)
     x = _layer_norm((x + hdn).float(), lp["ln2"]["g"], lp["ln2"]["b"],
                     cfg.layer_norm_eps).to(dtype)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
 
 
 def embed(params, cfg: BertConfig, tokens, type_ids=None):
@@ -220,7 +272,8 @@ def embed(params, cfg: BertConfig, tokens, type_ids=None):
 
 def forward_with_aux(params, cfg: BertConfig, tokens, type_ids=None,
                      deterministic=True, generator=None):
-    """tokens [B, T] -> (hidden states [B, T, H], aux loss 0.0)."""
+    """tokens [B, T] -> (hidden states [B, T, H], the layers' MoE aux
+    losses summed, float32; 0.0 without MoE)."""
     x = embed(params, cfg, tokens, type_ids)
     aux_total = torch.zeros((), device=x.device)
     for li, lp in enumerate(params["layers"]):
@@ -266,14 +319,22 @@ def mlm_loss_masked(params, cfg: BertConfig, tokens, positions, mlm_labels,
     hs, aux = forward_with_aux(params, cfg, tokens,
                                deterministic=deterministic,
                                generator=generator)
+    loss = masked_lm_head_loss(params, hs, positions, mlm_labels, weights)
+    return loss + cfg.moe_aux_weight * aux
+
+
+def masked_lm_head_loss(params, hs, positions, mlm_labels, weights):
+    """The masked-LM head and loss over hidden states hs [B, T, H]:
+    gather the masked positions, logits against tok_emb (rounded to hs's
+    dtype, then float32, TF32 off) plus mlm_bias, the weighted mean
+    negative log-likelihood. ``BertPipelineTrainer`` shares it."""
     gathered = torch.take_along_dim(hs, positions[..., None].long(), dim=1)
     emb = params["tok_emb"].to(gathered.dtype).float()
     logits = gathered.float() @ emb.T + params["mlm_bias"]
     logp = torch.log_softmax(logits, dim=-1)
     tok_lp = torch.gather(logp, -1, mlm_labels[..., None].long())[..., 0]
     n = torch.clamp(weights.sum(), min=1.0)
-    loss = -(tok_lp * weights).sum() / n
-    return loss + cfg.moe_aux_weight * aux
+    return -(tok_lp * weights).sum() / n
 
 
 def mlm_max_preds(seq_len):
@@ -313,23 +374,62 @@ def synthetic_mlm_batch(cfg: BertConfig, batch, seq_len, seed=0,
     return tokens.astype(np.int32), labels.astype(np.int64)
 
 
+def adam_update(leaves, grads, opt, step, lr):
+    """The reference's Adam over parallel lists of params (updated in
+    place), gradients and moments ``opt`` {"m": [...], "v": [...]} (replaced
+    by the new moments): eps outside sqrt(v-hat), bias correction with
+    step + 1 in float32. ``BertTrainer`` and ``BertPipelineTrainer`` share
+    it."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    tt = torch.tensor(step + 1, dtype=torch.float32)
+    bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** tt
+    bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** tt
+    on = {}   # the corrections on each device the params sit on
+    with torch.no_grad():
+        for i, (p, g) in enumerate(zip(leaves, grads)):
+            if p.device not in on:
+                on[p.device] = (bc1.to(p.device), bc2.to(p.device))
+            c1, c2 = on[p.device]
+            m = b1 * opt["m"][i] + (1 - b1) * g
+            v = b2 * opt["v"][i] + (1 - b2) * g * g
+            opt["m"][i], opt["v"][i] = m, v
+            p -= lr * (m / c1) / (torch.sqrt(v / c2) + eps)
+
+
+def mesh_device(mesh, device):
+    """The device a trainer given ``mesh`` and ``device`` runs on: the
+    named device, else the mesh's first, else CUDA. A mesh with a ``seq``
+    or ``model`` axis (ring attention, tensor parallel) raises."""
+    if mesh is not None:
+        for axis, what in ((SEQ_AXIS, "ring attention"),
+                           (MODEL_AXIS, "tensor-parallel shardings")):
+            if mesh.shape.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"a mesh with a {axis!r} axis ({what}) is not ported "
+                    f"yet: ROADMAP queue 1 item 12")
+        if device is None:
+            device = mesh.device
+    return resolve_device(device)
+
+
 class BertTrainer:
     """Masked-LM training on one device: forward, autograd backward and
-    the reference's Adam (``_step_math``: eps outside sqrt(v-hat), bias
-    correction with t+1), not ``torch.optim.Adam``, whose arithmetic order
-    differs.
+    the reference's Adam (``adam_update``), not ``torch.optim.Adam``, whose
+    arithmetic order differs.
 
     ``params`` (a tree from ``init_params`` or ``bert_params_from_numpy``)
     replaces the random draw from ``seed``; dropout draws from a generator
-    seeded with ``seed`` on the trainer's device."""
+    seeded with ``seed`` on the trainer's device. ``mesh`` (optional,
+    keyword) lays the reference's shardings out in name only: ``data``,
+    ``expert`` and ``pipe`` change no number, and the trainer runs on the
+    mesh's first device unless ``device`` names another."""
 
     def __init__(self, cfg: BertConfig, lr=1e-4, seed=0, device=None,
-                 params=None):
-        if cfg.n_experts > 0:
-            raise NotImplementedError(_MOE)
+                 params=None, *, mesh: Mesh | None = None):
         self.cfg = cfg
         self.lr = lr
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         if params is None:
             params = init_params(cfg, torch.Generator().manual_seed(seed),
                                  self.device)
@@ -359,17 +459,7 @@ class BertTrainer:
         finally:
             for p in self._leaves:
                 p.requires_grad_(False)
-        b1, b2, eps, lr = 0.9, 0.999, 1e-8, self.lr
-        tt = torch.tensor(self._step + 1, dtype=torch.float32)
-        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** tt
-        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** tt
-        bc1, bc2 = bc1.to(self.device), bc2.to(self.device)
-        with torch.no_grad():
-            for i, (p, g) in enumerate(zip(self._leaves, grads)):
-                m = b1 * self.opt["m"][i] + (1 - b1) * g
-                v = b2 * self.opt["v"][i] + (1 - b2) * g * g
-                self.opt["m"][i], self.opt["v"][i] = m, v
-                p -= lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        adam_update(self._leaves, grads, self.opt, self._step, self.lr)
         return loss.detach()
 
     def train_step(self, tokens, labels):

@@ -30,7 +30,7 @@ from deeplearning4j_tpu_torch.nn.conf.capsnet import (  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers_extra import (  # noqa: F401
     CenterLossOutputLayer, Convolution3D, Cropping1D, Cropping2D,
     Cropping3D, ElementWiseMultiplicationLayer, FrozenLayer,
-    LocallyConnected1D, LocallyConnected2D, MaskZeroLayer,
+    LocallyConnected1D, LocallyConnected2D, MaskZeroLayer, MoELayer,
     OCNNOutputLayer, PReLULayer, RepeatVector, Subsampling3DLayer,
     Upsampling1D, Upsampling3D)
 from deeplearning4j_tpu_torch.nn.objdetect import (  # noqa: F401

@@ -1,7 +1,7 @@
 """Structural and specialty layers.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers_extra.py``, every
-layer but ``MoELayer`` (which needs ``parallel/moe.py``): Cropping1D/2D/3D,
+layer: Cropping1D/2D/3D,
 Upsampling1D/3D, Convolution3D and Subsampling3DLayer (the registry's
 ``conv3d``, ``maxPooling3d`` and ``avgPooling3d``: cuDNN's 3-D convolution
 in float32 on the GPU), LocallyConnected2D/1D (patches by ``F.unfold``,
@@ -9,8 +9,9 @@ in the order of ``lax.conv_general_dilated_patches``: channel-major, then
 the window's rows and columns), PReLULayer, RepeatVector,
 ElementWiseMultiplicationLayer, the wrappers MaskZeroLayer and
 FrozenLayer, and the output layers CenterLossOutputLayer and
-OCNNOutputLayer. Same config fields, JSON and param names as the JAX
-package.
+OCNNOutputLayer, and MoELayer (``parallel/moe.py``'s block; its aux loss
+rides the layer-state channel). Same config fields, JSON and param names
+as the JAX package.
 
 A wrapper's params and state are its inner layer's (the inner layer sits
 in the JSON as ``{"__layer__": {...}}``). Around an ``LSTM``, both
@@ -664,3 +665,67 @@ class OCNNOutputLayer(LossLayer):
 
     def compute_loss(self, params, x, labels, mask=None):
         return self.compute_loss_with_state(params, x, labels, mask)[0]
+
+
+# ---------------------------------------------------------------------------
+# mixture-of-experts
+# ---------------------------------------------------------------------------
+
+@_register
+class MoELayer(BaseLayer):
+    """Mixture-of-Experts FFN block usable anywhere in a
+    MultiLayerNetwork: top-k gating over nExperts expert FFNs [nIn ->
+    ffnSize -> nOut], capacity-bounded with overflow dropped
+    (``parallel/moe.py`` ``moe_apply``).
+
+    The load-balancing aux loss, times auxWeight, rides the layer-state
+    channel: ``apply`` stores it under "_aux_loss" (a 0-d float32), and
+    ``MultiLayerNetwork`` adds every layer's ``_aux_loss`` to the training
+    objective (not to ``score``)."""
+
+    def __init__(self, nIn=None, nOut=None, ffnSize=None, nExperts=4,
+                 topK=2, capacityFactor=1.5, auxWeight=1e-2, **kw):
+        super().__init__(**kw)
+        self.nIn = nIn
+        self.nOut = nOut
+        self.ffnSize = ffnSize
+        self.nExperts = int(nExperts)
+        self.topK = int(topK)
+        self.capacityFactor = float(capacityFactor)
+        self.auxWeight = float(auxWeight)
+
+    def infer(self, input_type):
+        self.nIn = self.nIn or input_type.size
+        self.nOut = self.nOut or self.nIn
+        self.ffnSize = self.ffnSize or 4 * self.nIn
+        return InputType.feedForward(self.nOut)
+
+    def param_shapes(self):
+        e, h, f, o = self.nExperts, self.nIn, self.ffnSize, self.nOut
+        return {"gate_w": (h, e), "w1": (e, h, f), "b1": (e, f),
+                "w2": (e, f, o), "b2": (e, o)}
+
+    def init_params(self, generator, dtype=torch.float32, device="cpu"):
+        e, h, f, o = self.nExperts, self.nIn, self.ffnSize, self.nOut
+        wi = self.weightInit
+        return {
+            "gate_w": init_weight(wi, generator, (h, e), h, e, dtype,
+                                  device),
+            "w1": init_weight(wi, generator, (e, h, f), h, f, dtype,
+                              device),
+            "b1": torch.zeros((e, f), dtype=dtype, device=device),
+            "w2": init_weight(wi, generator, (e, f, o), f, o, dtype,
+                              device),
+            "b2": torch.zeros((e, o), dtype=dtype, device=device),
+        }
+
+    def init_state(self, dtype=torch.float32, device="cpu"):
+        return {"_aux_loss": torch.zeros((), dtype=torch.float32,
+                                         device=device)}
+
+    def apply(self, params, state, x, training=False, generator=None):
+        from deeplearning4j_tpu_torch.parallel.moe import moe_apply
+
+        y, aux = moe_apply(params, x, k=self.topK,
+                           capacity_factor=self.capacityFactor)
+        return self._act(y), {"_aux_loss": self.auxWeight * aux.float()}

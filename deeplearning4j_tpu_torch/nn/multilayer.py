@@ -38,7 +38,9 @@ A training step is eager PyTorch: the forward with the fused loss,
 GPU), per-layer gradient normalization, the updater, and ``p -= u`` in
 place. An output layer with ``LOSS_UPDATES_STATE`` (OCNN's threshold
 ``r``) returns its new state with the loss in training (the loss-state
-channel of ``_loss_from``). ``pretrainLayer`` and ``pretrain`` minimize
+channel of ``_loss_from``); in training every layer state's ``_aux_loss``
+(MoELayer's load-balancing loss) joins the loss after the output layer's
+and before L1/L2 (the aux-loss channel). ``pretrainLayer`` and ``pretrain`` minimize
 an AutoEncoder's or a VAE's ``pretrain_loss`` with the layer's own
 updater, the layers below frozen, the noise drawn from a generator seeded
 by ``conf.seed + 2 + layer`` and the iteration.
@@ -62,9 +64,8 @@ scaler; ``fit`` publishes the scaler state one step behind through
 ``precision.monitor_for("fit", ...)``. Nothing on the step reads a device
 value on the host.
 
-Left for later slices, as in ROADMAP.md: the aux-loss channel (with
-MoELayer), training health, telemetry beyond the precision monitor,
-listeners, prefetch and fitMultiBatch.
+Left for later slices, as in ROADMAP.md: training health, telemetry
+beyond the precision monitor, listeners, prefetch and fitMultiBatch.
 """
 
 from __future__ import annotations
@@ -415,6 +416,12 @@ class MultiLayerNetwork:
                 params[out_idx], h, l, mask, states[out_idx])
         else:
             loss = out_layer.compute_loss(params[out_idx], h, l, mask)
+        if training:
+            # the aux-loss channel: a layer may leave a scalar under
+            # "_aux_loss" in its state, which joins the objective
+            for st in new_states:
+                if isinstance(st, dict) and "_aux_loss" in st:
+                    loss = loss + st["_aux_loss"]
         reg = 0.0
         for lr, p in zip(self.layers, params):
             leaves = tree_leaves(p)

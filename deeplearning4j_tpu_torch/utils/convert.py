@@ -160,23 +160,27 @@ _BERT_TOP = {"tok_emb", "pos_emb", "type_emb", "emb_ln", "layers",
              "mlm_bias"}
 _BERT_LAYER = {"qkv_w", "qkv_b", "out_w", "out_b", "ln1", "ln2",
                "ffn_in_w", "ffn_in_b", "ffn_out_w", "ffn_out_b"}
+_BERT_MOE_LAYER = {"qkv_w", "qkv_b", "out_w", "out_b", "ln1", "ln2", "moe"}
+_BERT_MOE = {"gate_w", "w1", "b1", "w2", "b2"}
 
 
 def bert_params_from_numpy(tree, device):
     """A BERT parameter tree in the JAX package's layout (nested dicts,
     ``layers`` a list of dicts, numpy leaves) as float32 tensors on
-    ``device`` (copies), for ``deeplearning4j_tpu_torch.models.bert``."""
+    ``device`` (copies), for ``deeplearning4j_tpu_torch.models.bert``. A
+    MoE layer carries its ``moe`` subtree (gate_w, w1, b1, w2, b2) in
+    place of the dense FFN."""
     if set(tree) != _BERT_TOP:
         raise ValueError(f"BERT params have {sorted(_BERT_TOP)}, got "
                          f"{sorted(tree)}")
     for i, layer in enumerate(tree["layers"]):
-        if "moe" in layer:
-            raise NotImplementedError(
-                "MoE BERT layers are not ported yet (ROADMAP queue 1, "
-                "the parallel tier)")
-        if set(layer) != _BERT_LAYER:
-            raise ValueError(f"BERT layer {i} has {sorted(_BERT_LAYER)}, "
+        want = _BERT_MOE_LAYER if "moe" in layer else _BERT_LAYER
+        if set(layer) != want:
+            raise ValueError(f"BERT layer {i} has {sorted(want)}, "
                              f"got {sorted(layer)}")
+        if "moe" in layer and set(layer["moe"]) != _BERT_MOE:
+            raise ValueError(f"BERT layer {i} moe has {sorted(_BERT_MOE)}, "
+                             f"got {sorted(layer['moe'])}")
     return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
                                             device=device), tree)
 

@@ -338,6 +338,6 @@ def test_entry_points_need_cuda_or_the_cpu_named():
         tbert.init_params(tcfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FnServable(lambda x: x, (16,))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         tbert.init_params(tbert.BertConfig(n_experts=2),
                           torch.Generator())

@@ -1,9 +1,10 @@
 """The structural and specialty layers in the port, against the JAX
 package.
 
-- Each layer of ``nn/conf/layers_extra.py`` but MoELayer: JSON both
-  ways, ``infer``, and the output with its param and input gradients to
-  1e-5 of each array's largest element, on transferred weights
+- Each layer of ``nn/conf/layers_extra.py`` (MoELayer's cases are in
+  ``tests/test_torch_moe.py``): JSON both ways, ``infer``, and the
+  output with its param and input gradients to 1e-5 of each array's
+  largest element, on transferred weights
   (Cropping1D/2D/3D, Upsampling1D/3D, Convolution3D truncate and SAME
   with stride, padding and dilation, Subsampling3DLayer MAX, AVG and SAME,
   LocallyConnected2D/1D with stride and padding, PReLULayer on conv and

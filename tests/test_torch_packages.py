@@ -111,7 +111,11 @@ def test_package_exports_every_ported_name(package):
             "SelfAttentionLayer", "CapsuleLayer", "PrimaryCapsules",
             "FrozenLayer", "MaskZeroLayer", "OCNNOutputLayer",
             "CenterLossOutputLayer", "Convolution3D", "AutoEncoder",
-            "VariationalAutoencoder"]),
+            "VariationalAutoencoder", "MoELayer"]),
+    ("parallel", ["MeshConfig", "Mesh", "spec_for", "shard_batch",
+                  "replicated", "DATA_AXIS", "EXPERT_AXIS", "PIPE_AXIS",
+                  "moe_apply", "MoELayerTrainer", "pipeline_apply",
+                  "PipelineMlp", "PipelineParallelTrainer"]),
     ("nn.conf", ["variational", "objdetect", "layers_extra", "attention",
                  "capsnet"]),
     ("nn.conf", ["InputType", "MultiLayerConfiguration",
