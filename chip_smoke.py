@@ -177,6 +177,29 @@ weights from a numpy seed:
   card against the CPU. The phase alone: ``import chip_smoke`` and call
   ``detection_phase(torch, card, lstm)`` after building the LSTM
   sources.
+- the host data tier (``data_phase``, last): the native ETL library built
+  from this checkout's ``etl.cpp`` and loaded (``native.load()``: a
+  failed build fails the run instead of going to the numpy twins); A,
+  ResNet-50 (float32, batch 64) fed from a tree of 1024 lossless 224x224
+  PNGs in 1000 class folders (written from a numpy seed) by
+  ParallelImageDataSetIterator over the shared-memory ring (uint8, the
+  pool forked after CUDA started, shuffled) and a DevicePrefetcher whose
+  deviceTransform scales by 1/255 on its side stream: every staged batch
+  of an epoch bitwise the same batch cast on the host, the serial and
+  shm transports' bytes equal, 3 fit steps through the prefetcher each
+  from the card's state against the CPU (the gate of ResNet-50's steps),
+  the fit step with and without the prefetcher, the pool's images/s,
+  which of the side stream's HtoD copies overlap a kernel of another
+  stream in a profiler trace, the idle share, the pool and its segments
+  gone after close; B, LeNet from 320 CSV rows (``synthesize_mnist``)
+  through CSVRecordReader (the native ``csv_parse``), a TransformProcess,
+  RecordReaderDataSetIterator and a fitted NormalizerStandardize, 5
+  steps of ``fit``, which wraps the iterator in the prefetcher itself,
+  against the same steps on the blocking path, then the zip with the
+  normalizer restored (output bitwise); C, the IMDB classifier's 2 fit
+  steps over a ListDataSetIterator under the prefetcher (rows 1 and 3
+  counted) against the blocking path. The phase alone: call
+  ``data_phase(torch, card, lstm)`` after building the LSTM sources.
 
 Each main path sets its kernels' launch counters to 0 just before it runs
 and reads them just after.
@@ -6266,6 +6289,66 @@ def _resnet_fit_timing(torch, card, gpu, batch, what="float32",
     return med, mem, device
 
 
+def _resnet_steps(torch, name, gpu, cpu, feeds, bns, yardstick=True):
+    """One fit step a (card DataSet, CPU DataSet) pair of ``feeds`` on the
+    card and the CPU, each from the card's state (max pooling's argmax and
+    ReLU's kink flip on near-ties between devices): the loss
+    (TRAIN_LOSS_TOL relative), the running statistics of the
+    BatchNormalization nodes ``bns`` (CNN_TOL) and each param array's
+    update (``_update_gap``: RESNET_UPDATE_TOL of its norm, PARAM_TOL**2 lr
+    where the gradient is 0) gated; with ``yardstick``, step 0 also on the
+    CPU at one thread against its own."""
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    worst = worst_bn = 0.0
+    yard = _graph_cpu_twin(gpu) if yardstick else None
+    for step, (card_ds, cpu_ds) in enumerate(feeds):
+        for twin in (cpu, yard) if step == 0 and yard is not None \
+                else (cpu,):
+            _copy_state(torch, gpu, twin)
+        before = [p.clone() for p in tree_leaves(cpu._params)]
+        t0 = time.perf_counter()
+        gpu.fit(card_ds)
+        g_loss = gpu.score()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu.fit(cpu_ds)
+        t_cpu = time.perf_counter() - t0
+        rel = abs(g_loss - cpu.score()) / abs(cpu.score())
+        bn = max(_rel_err(gpu._states[n][k].cpu(), cpu._states[n][k])
+                 for n in bns for k in ("mean", "var"))
+        upd, noise = _update_gap(before, gpu, cpu)
+        worst, worst_bn = max(worst, rel), max(worst_bn, bn)
+        print(f"{name} step {step} (batch {cpu_ds.numExamples()}, from the "
+              f"same state): loss card {g_loss:.6f}, CPU {cpu.score():.6f} "
+              f"(rel {rel:.3e}); running mean/var of {len(bns)} "
+              f"BatchNormalization nodes max|d|/max {bn:.3e}; each param "
+              f"array's update apart by up to {upd:.3e} of its norm (the "
+              f"arrays without gradient: {noise / RESNET_LR:.3e} lr); card "
+              f"{t_card:.3f} s, CPU {t_cpu:.3f} s", flush=True)
+        if upd > RESNET_UPDATE_TOL or noise > PARAM_TOL ** 2 * RESNET_LR:
+            fail(f"{name}: step {step} updates apart by {upd:.3e} of "
+                 f"their norm (limit {RESNET_UPDATE_TOL}), {noise:.3e} "
+                 f"where the gradient is 0")
+        if step == 0 and yard is not None:
+            # the yardstick: the CPU against itself at another thread count
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                yard.fit(cpu_ds)
+            finally:
+                torch.set_num_threads(threads)
+            print(f"{name} step 0 on the CPU at 1 thread against "
+                  f"{threads}: updates apart by up to "
+                  f"{_update_gap(before, yard, cpu)[0]:.3e} of their norm",
+                  flush=True)
+    if worst > TRAIN_LOSS_TOL:
+        fail(f"{name}: losses differ by {worst:.3e} > {TRAIN_LOSS_TOL}")
+    if worst_bn > CNN_TOL:
+        fail(f"{name}: running statistics differ by {worst_bn:.3e} > "
+             f"{CNN_TOL}")
+
+
 def resnet50_phase(torch, card):
     """ResNet-50 (BASELINE config 1) at its published widths through the
     port's entry points: ``ResNet50().init()`` on the card (224x224x3,
@@ -6336,56 +6419,9 @@ def resnet50_phase(torch, card):
 
     output_check("fresh graph, training mode, batch statistics", True)
 
-    worst = worst_bn = 0.0
-    yard = _graph_cpu_twin(gpu)
-    for step in range(RESNET_STEPS):
-        # each step from the card's state: max pooling's argmax and
-        # ReLU's kink flip on near-ties between devices
-        for twin in (cpu, yard) if step == 0 else (cpu,):
-            _copy_state(torch, gpu, twin)
-        before = [p.clone() for p in tree_leaves(cpu._params)]
-        ds = DataSet(*batch(RESNET_STEP_BATCH))
-        t0 = time.perf_counter()
-        gpu.fit(ds)
-        g_loss = gpu.score()
-        t_card = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cpu.fit(ds)
-        t_cpu = time.perf_counter() - t0
-        rel = abs(g_loss - cpu.score()) / abs(cpu.score())
-        bn = max(_rel_err(gpu._states[n][k].cpu(), cpu._states[n][k])
-                 for n in bns for k in ("mean", "var"))
-        upd, noise = _update_gap(before, gpu, cpu)
-        worst, worst_bn = max(worst, rel), max(worst_bn, bn)
-        print(f"resnet50 step {step} (batch {RESNET_STEP_BATCH}, from the "
-              f"same state): loss card {g_loss:.6f}, CPU {cpu.score():.6f} "
-              f"(rel {rel:.3e}); running mean/var of {len(bns)} "
-              f"BatchNormalization nodes max|d|/max {bn:.3e}; each param "
-              f"array's update apart by up to {upd:.3e} of its norm (the "
-              f"arrays without gradient: {noise / RESNET_LR:.3e} lr); card "
-              f"{t_card:.3f} s, CPU {t_cpu:.3f} s", flush=True)
-        if upd > RESNET_UPDATE_TOL or noise > PARAM_TOL ** 2 * RESNET_LR:
-            fail(f"resnet50: step {step} updates apart by {upd:.3e} of "
-                 f"their norm (limit {RESNET_UPDATE_TOL}), {noise:.3e} "
-                 f"where the gradient is 0")
-        if step == 0:
-            # the yardstick: the CPU against itself at another thread count
-            threads = torch.get_num_threads()
-            torch.set_num_threads(1)
-            try:
-                yard.fit(ds)
-            finally:
-                torch.set_num_threads(threads)
-            print(f"resnet50 step 0 on the CPU at 1 thread against "
-                  f"{threads}: updates apart by up to "
-                  f"{_update_gap(before, yard, cpu)[0]:.3e} of their norm",
-                  flush=True)
-    if worst > TRAIN_LOSS_TOL:
-        fail(f"resnet50: losses differ by {worst:.3e} > {TRAIN_LOSS_TOL}")
-    if worst_bn > CNN_TOL:
-        fail(f"resnet50: running statistics differ by {worst_bn:.3e} > "
-             f"{CNN_TOL}")
-    del yard
+    _resnet_steps(torch, "resnet50", gpu, cpu,
+                  ((ds, ds) for ds in (DataSet(*batch(RESNET_STEP_BATCH))
+                                       for _ in range(RESNET_STEPS))), bns)
     if any(float(gpu._states[n]["mean"].abs().max()) == 0 for n in bns):
         fail("resnet50: a BatchNormalization node kept no running mean")
     _calibrate_bn(torch, gpu, gpu._input(batch(32)[0]))
@@ -7908,6 +7944,528 @@ def precision_phase(torch, card, f32=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the host data tier: the ETL pool, the CUDA-stream prefetcher, CSV records
+# ---------------------------------------------------------------------------
+
+DATA_CLASSES = 1000      # ResNet-50's head: one class folder each
+DATA_IMAGES = 1024       # 16 batches of 64, every class at least once
+DATA_BATCH = 64
+DATA_STEPS = 3           # ResNet-50 fit steps through the prefetcher, gated
+DATA_QUEUE = 2           # ring slots a worker (the ring holds >= 1 a worker)
+DATA_STALL = 300.0       # seconds a pool may take to deliver a batch
+LENET_CSV_STEPS = 5      # LeNet fit steps from the CSV rows
+BILSTM_PREFETCH_STEPS = 2
+
+
+def _write_png_tree(root, n_images, classes, shape, seed, threads):
+    """``n_images`` lossless PNGs of random pixels (``shape`` HWC uint8,
+    made from ``seed``) under ``root/n<class>/``, every class at least
+    once; written by ``threads`` threads (zlib releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    labels = np.concatenate([np.arange(classes), rng.integers(
+        0, classes, n_images - classes)])
+    for c in range(classes):
+        (root / f"n{c:04d}").mkdir(parents=True)
+
+    def write(i):
+        img = np.random.default_rng((seed, i)).integers(0, 256, shape,
+                                                        np.uint8)
+        Image.fromarray(img).save(root / f"n{labels[i]:04d}" / f"{i:05d}.png",
+                                  compress_level=1)
+
+    with ThreadPoolExecutor(threads) as ex:
+        list(ex.map(write, range(n_images)))
+
+
+def _host_epoch(it):
+    """One epoch of ``it`` as host arrays [(features, labels)], and its
+    seconds."""
+    t0 = time.perf_counter()
+    out = []
+    while it.hasNext():
+        ds = it.next()
+        out.append((np.asarray(ds.getFeatures()),
+                    np.asarray(ds.getLabels())))
+    return out, time.perf_counter() - t0
+
+
+def _scale_u8(torch):
+    """The deviceTransform of path A: uint8 pixels to float32 times 1/255
+    (on the prefetcher's side stream), and its host twin."""
+    def on_device(f):
+        return f.to(torch.float32).mul_(1 / 255)
+
+    def on_host(f):
+        return f.astype(np.float32) * np.float32(1 / 255)
+
+    return on_device, on_host
+
+
+def _copy_overlap_profile(torch, fn):
+    """``fn()`` under torch.profiler (CUDA activity): (HtoD copies on
+    streams where no model kernel ran, how many of them overlap a kernel
+    of another stream, the ms they overlap, the device's busy ms (kernels
+    and copies, their union), the streams of the copies, the stream most
+    kernels ran on), or None where the trace holds no kernel."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+
+    def span(e):
+        t = float(e["ts"])
+        return t, t + float(e.get("dur", 0)), (e.get("args") or {}).get(
+            "stream")
+
+    kernels = [span(e) for e in events if e.get("cat") == "kernel"]
+    copies = [span(e) for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    if not kernels or not copies:
+        cats = {}
+        for e in events:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        print(f"data: the trace's event categories {cats}", flush=True)
+    if not kernels:
+        return None
+    counts = {}
+    for _, _, s in kernels:
+        counts[s] = counts.get(s, 0) + 1
+    compute = max(counts, key=counts.get)
+    side = [c for c in copies if c[2] != compute]
+    overlapping, overlap_us = 0, 0.0
+    for a, b, s in side:
+        cut = sum(max(0.0, min(b, kb) - max(a, ka))
+                  for ka, kb, ks in kernels if ks != s)
+        overlapping += cut > 0
+        overlap_us += cut
+    busy, last = 0.0, None
+    for a, b, _ in sorted(kernels + copies):
+        if last is None or a > last:
+            busy += b - a
+            last = b
+        elif b > last:
+            busy += b - last
+            last = b
+    return (len(side), overlapping, overlap_us / 1e3, busy / 1e3,
+            sorted({s for _, _, s in side}, key=str), compute)
+
+
+def _fit_epoch_ms(torch, net, data, steps):
+    """Host-clock ms a step of one ``net.fit(data)`` call of ``steps``
+    steps (a sync before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(data)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _shm_segments():
+    import glob
+    import os
+
+    from deeplearning4j_tpu_torch.datasets.parallel_etl import SHM_PREFIX
+
+    return glob.glob(f"/dev/shm/{SHM_PREFIX}{os.getpid()}_*")
+
+
+def _resnet_from_images(torch, card, root):
+    """Path A: ResNet-50 (float32) fed from the PNG tree at ``root`` by
+    ParallelImageDataSetIterator (shm, shuffled, uint8 over the ring) and
+    a DevicePrefetcher whose deviceTransform scales on the side stream."""
+    import os
+    import shutil
+
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, DevicePrefetcher, FileSplit, ImagePreProcessingScaler,
+        ParallelImageDataSetIterator)
+    from deeplearning4j_tpu_torch.models import ResNet50
+
+    workers = os.cpu_count() or 1
+    scale, scale_host = _scale_u8(torch)
+
+    def iterator(transport, epoch):
+        return ParallelImageDataSetIterator(
+            FileSplit(str(root)), IMAGENET[1], IMAGENET[2], IMAGENET[0],
+            batchSize=DATA_BATCH, numWorkers=workers, seed=SEED,
+            queueSize=DATA_QUEUE, shuffle=True, transport=transport,
+            stallTimeout=DATA_STALL, floatOutput=False, startEpoch=epoch)
+
+    pit = iterator("shm", 0)
+    ring = max(pit._qsize, workers) * pit._slot_bytes()
+    free = shutil.disk_usage("/dev/shm").free
+    print(f"data: /dev/shm free {free / 2**30:.2f} GiB; the ring of "
+          f"{max(pit._qsize, workers)} slots of {pit._slot_bytes() / 2**20:.1f}"
+          f" MiB ({ring / 2**20:.1f} MiB) for {workers} workers, "
+          f"{len(pit)} batches of {DATA_BATCH} an epoch, "
+          f"{pit.totalOutcomes()} classes", flush=True)
+    if ring > free:
+        fail(f"data: the ring ({ring} bytes) does not fit /dev/shm "
+             f"({free} bytes free)")
+    if pit.totalOutcomes() != DATA_CLASSES or len(pit) * DATA_BATCH != \
+            DATA_IMAGES:
+        fail(f"data: {pit.totalOutcomes()} classes, {len(pit)} batches")
+    try:
+        # the pool forks here, after CUDA was initialised: its workers
+        # run numpy, PIL and the native library only
+        _, first_s = _host_epoch(pit)
+        pit.reset()
+        host, steady_s = _host_epoch(pit)      # epoch 1
+        procs = list(pit._pool._procs)
+        print(f"data ({card}): the pool of {workers} workers (nproc "
+              f"{os.cpu_count()}) decoded {DATA_IMAGES} PNGs of "
+              f"{IMAGENET[1]}x{IMAGENET[2]}x{IMAGENET[0]}: epoch 0 "
+              f"{first_s:.3f} s with the fork ({DATA_IMAGES / first_s:.1f} "
+              f"images/s), epoch 1 {steady_s:.3f} s "
+              f"({DATA_IMAGES / steady_s:.1f} images/s, host side only); "
+              f"segments {len(_shm_segments())}", flush=True)
+        if host[0][0].dtype != np.uint8 or host[0][0].shape != (
+                DATA_BATCH,) + IMAGENET:
+            fail(f"data: the ring gave {host[0][0].dtype} "
+                 f"{host[0][0].shape}")
+        serial = iterator("serial", 1)
+        ser, serial_s = _host_epoch(serial)
+        serial.close()
+        same = all(a.tobytes() == b.tobytes() and la.tobytes() ==
+                   lb.tobytes() for (a, la), (b, lb) in zip(ser, host))
+        print(f"data: serial transport epoch 1 ({serial_s:.3f} s, "
+              f"{DATA_IMAGES / serial_s:.1f} images/s in one process) "
+              f"bytes equal to the shm ring's: {same and len(ser) == len(host)}",
+              flush=True)
+        if not same or len(ser) != len(host):
+            fail("data: the serial and shm transports gave other bytes")
+
+        # check 1: every staged batch of epoch 1 against the host cast
+        pit.set_epoch(1)
+        pf = DevicePrefetcher(pit, deviceTransform=scale)
+        n, bad = 0, []
+        while pf.hasNext():
+            ds = pf.next()
+            f, l = ds.getFeatures(), ds.getLabels()
+            if f.device.type != "cuda" or f.dtype != torch.float32:
+                fail(f"data: a staged batch is {f.dtype} on {f.device}")
+            want = scale_host(host[n][0])
+            if f.cpu().numpy().tobytes() != want.tobytes() or \
+                    l.cpu().numpy().tobytes() != host[n][1].tobytes():
+                bad.append(n)
+            n += 1
+        side = getattr(pf._stream, "cuda_stream", None)
+        consumer = torch.cuda.current_stream().cuda_stream
+        pf.close()
+        print(f"data: {n} batches staged on the side stream {side} (the "
+              f"consumer's {consumer}) equal bitwise to the iterator's "
+              f"batches cast on the host: {not bad}", flush=True)
+        if bad or n != len(host):
+            fail(f"data: staged batches {bad} differ from the host cast")
+        if side is None or side == consumer:
+            fail("data: the prefetcher staged on no side stream")
+
+        # check 3: DATA_STEPS fit steps through the prefetcher, each from
+        # the card's state against the CPU on the host batches
+        gpu = ResNet50(numClasses=DATA_CLASSES, inputShape=IMAGENET).init()
+        cpu = _graph_cpu_twin(gpu)
+        bns = [k for k, (node, _) in gpu.conf.nodes.items()
+               if type(node).__name__ == "BatchNormalization"]
+        pit.set_epoch(1)
+        tail = pit[len(pit) - DATA_STEPS:]
+        pf = DevicePrefetcher(tail, deviceTransform=scale)
+        cpu_feeds = [DataSet(scale_host(f), l)
+                     for f, l in host[len(host) - DATA_STEPS:]]
+        _resnet_steps(torch, "data resnet50", gpu, cpu, zip(pf, cpu_feeds),
+                      bns, yardstick=False)
+        pf.close()
+        del cpu
+
+        # the step with and without the prefetcher: one fit call an epoch
+        # (16 steps), the host path's batches scaled on the host and
+        # copied in the step; in turns
+        times = {"prefetch": [], "blocking": []}
+        for k, mode in enumerate(("blocking", "prefetch", "prefetch",
+                                  "blocking")):
+            pit.set_epoch(2 + k)
+            if mode == "prefetch":
+                pit.setPreProcessor(None)
+                data = DevicePrefetcher(pit, deviceTransform=scale)
+            else:
+                pit.setPreProcessor(ImagePreProcessingScaler())
+                data = pit
+            times[mode].append(_fit_epoch_ms(torch, gpu, data, len(pit)))
+            if mode == "prefetch":
+                data.close()
+        pit.setPreProcessor(None)
+        step_pf = statistics.median(times["prefetch"])
+        step_bl = statistics.median(times["blocking"])
+        print(f"data resnet50 ({card}): fit step at batch {DATA_BATCH} from "
+              f"the PNG tree, host clock over a fit call of {len(pit)} "
+              f"steps: with the prefetcher {step_pf:.3f} ms "
+              f"({[round(v, 3) for v in times['prefetch']]}), without "
+              f"(the batch scaled on the host, copied in the step) "
+              f"{step_bl:.3f} ms ({[round(v, 3) for v in times['blocking']]}"
+              f"); {DATA_BATCH / step_pf * 1e3:.1f} images/s with it",
+              flush=True)
+
+        # which stream the copies ran on, and whether they overlap compute
+        pit.set_epoch(6)
+        data = DevicePrefetcher(pit, deviceTransform=scale)
+        prof = _copy_overlap_profile(torch, lambda: gpu.fit(data))
+        data.close()
+        if prof is None:
+            fail("data: the profiler saw no kernel")
+        side, overlapping, overlap_ms, busy_ms, streams, compute = prof
+        idle = 1 - busy_ms / len(pit) / step_pf
+        print(f"data resnet50 profile ({card}): {side} HtoD copies on "
+              f"stream(s) {streams}, the model's kernels on stream "
+              f"{compute}; {overlapping} of the copies overlap a kernel of "
+              f"another stream ({overlap_ms:.3f} ms in all); device busy "
+              f"{busy_ms / len(pit):.3f} ms a step, idle "
+              f"{100 * idle:.1f}% of the {step_pf:.3f} ms step", flush=True)
+        if side < len(pit) or overlapping == 0:
+            fail(f"data: {side} HtoD copies off the compute stream, "
+                 f"{overlapping} overlapping kernels: the copies did not "
+                 f"run beside the steps")
+        del gpu
+    finally:
+        pit.close()
+    left = [p for p in procs if p.is_alive()]
+    print(f"data: pool closed, {len(left)} workers alive, shm segments "
+          f"left {_shm_segments()}", flush=True)
+    if left or _shm_segments():
+        fail("data: the pool or its ring outlived close()")
+    return dict(step_pf=step_pf, step_bl=step_bl,
+                images_s=DATA_IMAGES / steady_s, idle=idle)
+
+
+def _prefetch_vs_blocking(torch, name, start, fit, lr):
+    """Fit a copy of ``start`` with the prefetcher (the default depth) and
+    two with ``set_default_depth(0)``: the prefetched params must equal the
+    blocking ones bitwise where the blocking path repeats bitwise; where it
+    does not, the gate of lenet_phase holds (the weights at most Adam's
+    reach of 2 lr apart, at most LENET_APART of them more than PARAM_TOL
+    lr). Returns (the prefetched net, which rule held)."""
+    from deeplearning4j_tpu_torch.datasets import prefetch
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    def leaves(net):
+        return [v.detach().cpu() for v in tree_leaves(net._params)]
+
+    depth = prefetch.default_depth()
+    pf = fit(_twin(start, start.device))
+    prefetch.set_default_depth(0)
+    try:
+        blocking = [fit(_twin(start, start.device)) for _ in range(2)]
+    finally:
+        prefetch.set_default_depth(depth)
+    got, want, again = (leaves(n) for n in (pf, *blocking))
+    if all(bool((a == b).all()) for a, b in zip(got, want)):
+        print(f"{name}: prefetched fit bitwise equal to the blocking path",
+              flush=True)
+        return pf, "bitwise"
+    repeats = all(bool((a == b).all()) for a, b in zip(want, again))
+    d = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(got, want)])
+    reach, apart = float(d.max()) / lr, int((d > PARAM_TOL * lr).sum())
+    print(f"{name}: prefetched fit vs the blocking path: weights apart by "
+          f"up to {reach:.4f} lr, {apart} of {d.numel()} by more than "
+          f"{PARAM_TOL} lr; the blocking path repeats bitwise: {repeats}",
+          flush=True)
+    if repeats:
+        fail(f"{name}: the blocking path repeats bitwise and the "
+             f"prefetched one differs from it")
+    if reach > 2 * (1 + 1e-3) or apart > LENET_APART * d.numel():
+        fail(f"{name}: prefetched and blocking fits {reach:.4f} lr apart, "
+             f"{apart} weights beyond {PARAM_TOL} lr")
+    return pf, "lenet_phase's gate"
+
+
+def _wrapped(net):
+    """Records the prefetchers ``net.fit`` wraps its iterators in."""
+    made = []
+    wrap = net._wrap_prefetch
+
+    def spy(data):
+        out = wrap(data)
+        if out[1] is not None:
+            made.append(out[1])
+        return out
+
+    net._wrap_prefetch = spy
+    return made
+
+
+def _lenet_from_csv(torch, card, root):
+    """Path B: LeNet-MNIST fed from CSV rows through CSVRecordReader (the
+    native csv_parse), a TransformProcess, RecordReaderDataSetIterator and
+    a fitted NormalizerStandardize; fit wraps the iterator itself; the
+    normalizer rides in the zip."""
+    from deeplearning4j_tpu_torch.datasets import (
+        CSVRecordReader, ConditionOp, DoubleColumnCondition, FileSplit,
+        NormalizerStandardize, RecordReaderDataSetIterator, Schema,
+        TransformProcess, TransformProcessRecordReader)
+    from deeplearning4j_tpu_torch.datasets.mnist import synthesize_mnist
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+
+    rows = LENET_BATCH * LENET_CSV_STEPS
+    x, labels = synthesize_mnist(rows, seed=SEED + 70)
+    pixels = np.rint(x * 255).astype(np.int64)
+    path = root / "mnist.csv"
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        for row, label in zip(pixels, labels):
+            f.write(",".join(map(str, row)) + f",{label}\n")
+    schema = (Schema.Builder()
+              .addColumnsDouble(*(f"p{i}" for i in range(784)))
+              .addColumnInteger("label", 0, 9).build())
+    tp = (TransformProcess.Builder(schema)
+          .filter(DoubleColumnCondition("label", ConditionOp.GreaterThan, 9))
+          .build())
+
+    def iterator():
+        reader = TransformProcessRecordReader(CSVRecordReader(), tp)
+        reader.initialize(FileSplit(str(path)))
+        return RecordReaderDataSetIterator(reader, batchSize=LENET_BATCH,
+                                           labelIndex=784,
+                                           numPossibleLabels=10)
+
+    it = iterator()
+    norm = NormalizerStandardize().fit(it)
+    it.setPreProcessor(norm)
+    first = it.next()
+    it.reset()
+    print(f"data lenet: {rows} CSV rows of 784 pixels and a label, read and "
+          f"normalised in {time.perf_counter() - t0:.3f} s; a batch "
+          f"{first.getFeatures().shape} mean {first.getFeatures().mean():.4f}"
+          f", labels {first.getLabels().shape}", flush=True)
+    if first.getFeatures().shape != (LENET_BATCH, 784) or abs(
+            float(first.getFeatures().mean())) > 0.5:
+        fail("data lenet: the CSV batches are not normalised digits")
+
+    start = LeNet().init()
+    made = []   # the prefetchers each fit wrapped its iterator in
+
+    def fit(net):
+        made.append(_wrapped(net))
+        net.fit(it)
+        return net
+
+    gpu, rule = _prefetch_vs_blocking(torch, "data lenet", start, fit,
+                                      LENET_LR)
+    staged = [[p._stream is not None for p in ps] for ps in made]
+    print(f"data lenet ({card}): {gpu._iteration} steps from the CSV, "
+          f"score {gpu.score():.5f}; the prefetchers fit wrapped the "
+          f"iterator in (a side stream each?), the prefetched fit then the "
+          f"two blocking ones: {staged}", flush=True)
+    if gpu._iteration != LENET_CSV_STEPS or staged != [[True], [], []] or \
+            not made[0][0]._closed:
+        fail(f"data lenet: {gpu._iteration} steps, prefetchers {staged}")
+
+    zpath = str(root / "lenet.zip")
+    ModelSerializer.writeModel(gpu, zpath, normalizer=norm)
+    net = ModelSerializer.restoreMultiLayerNetwork(zpath)
+    back = ModelSerializer.restoreNormalizerFromFile(zpath)
+    raw = pixels[:LENET_BATCH].astype(np.float32)
+    same_norm = back.transform(raw).tobytes() == norm.transform(raw).tobytes()
+    got = net.output(back.transform(raw)).toNumpy()
+    want = gpu.output(norm.transform(raw)).toNumpy()
+    print(f"data lenet: zip with {type(back).__name__}: normalizer output "
+          f"bit-equal {same_norm}; restored net on it vs the saved net's "
+          f"output bit-equal {got.tobytes() == want.tobytes()}", flush=True)
+    if not same_norm or got.tobytes() != want.tobytes():
+        fail("data lenet: the zip's net and normalizer do not give the "
+             "saved net's output")
+    return rule
+
+
+def _bilstm_prefetched(torch, lstm):
+    """Path C: the IMDB classifier fits BILSTM_PREFETCH_STEPS steps over a
+    ListDataSetIterator, which fit wraps in the prefetcher; rows 1 and 3
+    counted over that fit; params against the blocking path."""
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, ListDataSetIterator)
+
+    conf = bilstm_imdb_conf()
+    lr = conf.defaults["updater"].learningRate
+    rng = np.random.default_rng(SEED + 80)
+    arrays = [_random_group(lr_.param_shapes(), rng) for lr_ in conf.layers]
+    start, _ = _net_pair(conf.to_json(), arrays)
+    data = ListDataSetIterator([DataSet(*review_batch(rng, IMDB_SHAPE[1]))
+                                for _ in range(BILSTM_PREFETCH_STEPS)])
+    kernels = (lstm.lstm_seq_infer, lstm.lstm_seq_fwd, lstm.lstm_seq_bwd)
+    counts = []
+
+    def fit(net):
+        made = _wrapped(net)
+        for fn in kernels:
+            fn.launches = 0
+        net.fit(data)
+        counts.append(({fn.__name__: fn.launches for fn in kernels},
+                       [p._stream is not None for p in made]))
+        return net
+
+    _, rule = _prefetch_vs_blocking(torch, "data bilstm", start, fit, lr)
+    (launches, streams), blocking = counts[0], counts[1:]
+    print(f"data bilstm: {BILSTM_PREFETCH_STEPS} fit steps over a "
+          f"ListDataSetIterator under the prefetcher {streams}: launches "
+          f"{launches}; the blocking fits {blocking}", flush=True)
+    want = {"lstm_seq_infer": 0, "lstm_seq_fwd": 4 * BILSTM_PREFETCH_STEPS,
+            "lstm_seq_bwd": 4 * BILSTM_PREFETCH_STEPS}
+    if launches != want or streams != [True] or any(
+            b != (want, []) for b in blocking):
+        fail(f"data bilstm: launches {launches} (want {want}), "
+             f"prefetchers {streams}, blocking {blocking}")
+    return launches, rule
+
+
+def data_phase(torch, card, lstm):
+    """The host data tier on its three paths (see the module docstring):
+    the native ETL library built from this checkout and loaded; A,
+    ResNet-50 from a PNG tree through the shm ETL pool and the CUDA-stream
+    prefetcher; B, LeNet from CSV with the normalizer through the zip; C,
+    rows 1 and 3 under the prefetcher. Returns C's launches and figures."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.load()   # raises with the build's error: no numpy twin
+    print(f"data: native ETL library {lib._name} loaded "
+          f"({time.perf_counter() - t0:.2f} s with the build)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="dl4j_data_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        _write_png_tree(root / "images", DATA_IMAGES, DATA_CLASSES,
+                        IMAGENET[1:] + IMAGENET[:1], SEED + 60,
+                        os.cpu_count() or 1)
+        print(f"data: {DATA_IMAGES} PNGs in {DATA_CLASSES} class folders "
+              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+        resnet = _resnet_from_images(torch, card, root / "images")
+        torch.cuda.empty_cache()
+        lenet_rule = _lenet_from_csv(torch, card, root)
+    bilstm, bilstm_rule = _bilstm_prefetched(torch, lstm)
+    print(f"data_phase: {json.dumps(dict(resnet, lenet=lenet_rule, bilstm=bilstm_rule))}",
+          flush=True)
+    return {"bilstm_prefetch": bilstm}
+
+
 def main():
     import torch
 
@@ -7972,6 +8530,7 @@ def main():
     resnet_f32 = resnet50_phase(torch, card)
     wrapped = detection_phase(torch, card, lstm)
     precision_phase(torch, card, resnet_f32)
+    data = data_phase(torch, card, lstm)
 
     pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(via deeplearning4j_tpu/models/bert.py:197)")
@@ -7998,6 +8557,14 @@ def main():
         for name, source, line in (("lstm_seq_infer", "lstm_seq_infer.cu",
                                     115),
                                    ("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
+                                   ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
+    ] + [
+        # rows 1 and 3 on the classifier's fit under the prefetcher
+        (name, source, f"kernels/lstm.py:{line}",
+         data["bilstm_prefetch"][name], train_rows[name][IMDB_SHAPE]["err"],
+         IMDB_SHAPE, dict(train_rows[name][IMDB_SHAPE],
+                          path="bilstm_prefetch"))
+        for name, source, line in (("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
                                    ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
     ] + [
         # rows 1-3 through MaskZeroLayer(LSTM) and FrozenLayer(LSTM): row 2

@@ -1420,22 +1420,30 @@ def _ones_mask(labels):
 
 
 def _pad_to_bucket(arrs, mask, bucket):
-    """Pad batch axis of every array (and the mask) up to `bucket` rows by
-    repeating the last row; padding rows get mask 0 so they cannot bias the
-    loss. A ragged final minibatch then runs at the bucket's shape, as in
-    the JAX package, where that keeps one compiled step."""
+    """Pad batch axis of every array (numpy, or a tensor on its device)
+    and the mask up to `bucket` rows by repeating the last row; padding
+    rows get mask 0 so they cannot bias the loss. A ragged final
+    minibatch then runs at the bucket's shape, as in the JAX package,
+    where that keeps one compiled step."""
     n = arrs[0].shape[0]
     if n == bucket:
         return arrs, mask, n
     pad = bucket - n
     out = []
     for a in arrs:
+        if isinstance(a, torch.Tensor):   # a batch staged on its device
+            out.append(torch.cat([a, a[-1:].expand(pad, *a.shape[1:])]))
+            continue
         a = np.asarray(a)
         out.append(np.concatenate([a, np.repeat(a[-1:], pad, axis=0)],
                                   axis=0))
-    mask = np.concatenate(
-        [np.asarray(mask),
-         np.zeros((pad,) + np.asarray(mask).shape[1:], np.float32)], axis=0)
+    if isinstance(mask, torch.Tensor):
+        mask = torch.cat([mask, mask.new_zeros((pad, *mask.shape[1:]))])
+    else:
+        mask = np.concatenate(
+            [np.asarray(mask),
+             np.zeros((pad,) + np.asarray(mask).shape[1:], np.float32)],
+            axis=0)
     return out, mask, n
 
 

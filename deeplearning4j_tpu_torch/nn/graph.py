@@ -20,7 +20,9 @@ output layer's fused loss summed over the outputs, L1/L2,
 ``p -= u`` in place; the step's layer states (BatchNormalization's
 running statistics, by node name) are kept. ``fit`` takes a
 ``DataSet``, a ``MultiDataSet``, an ``(inputs, labels)`` pair or an
-iterator of them, and pads a ragged last batch to the largest batch seen
+iterator of them (a ``DevicePrefetcher`` among them: its batches, staged
+on this graph's device, reach the step as they are, with no copy; ``fit``
+wraps nothing itself, as in the JAX package), and pads a ragged last batch to the largest batch seen
 by repeating its last row, with label mask 0 on the padding rows; the
 padding rows enter the batch statistics, as in the JAX package.
 
@@ -327,15 +329,24 @@ class ComputationGraph:
         return loss, new_states
 
     # -- training ------------------------------------------------------------
+    def _feed(self, x, dtype=None):
+        """A batch array as it enters ``_device_feeds``: a tensor already on
+        this graph's device (a batch a DevicePrefetcher staged) as it is,
+        anything else as host numpy."""
+        if isinstance(x, torch.Tensor) and x.device == self.device:
+            return x if dtype is None else x.to(torch.float32)
+        return _host_array(x, dtype)
+
     def _feeds(self, ds, with_ones_masks=False):
-        """Host-side (inputs, labels, label masks) dicts by name."""
+        """(inputs, labels, label masks) dicts by name: host numpy, or
+        tensors already on this graph's device."""
         feats, labels, _, lmasks = _split_dataset_full(ds)
-        inputs = {n: _host_array(f) for n, f in zip(self.conf.inputs, feats)}
-        lab = {n: _host_array(l) for n, l in zip(self.conf.outputs, labels)}
+        inputs = {n: self._feed(f) for n, f in zip(self.conf.inputs, feats)}
+        lab = {n: self._feed(l) for n, l in zip(self.conf.outputs, labels)}
         masks = {}
         for n, m in zip(self.conf.outputs, lmasks):
             if m is not None:
-                masks[n] = _host_array(m, np.float32)
+                masks[n] = self._feed(m, np.float32)
             elif with_ones_masks:
                 masks[n] = _ones_mask(lab[n])
         return inputs, lab, masks
@@ -452,6 +463,8 @@ class ComputationGraph:
         def pad_time(v, pad, axis):
             width = list(v.shape)
             width[axis] = pad
+            if isinstance(v, torch.Tensor):   # staged on this device
+                return torch.cat([v, v.new_zeros(width)], dim=axis)
             return np.concatenate([v, np.zeros(width, v.dtype)], axis=axis)
 
         loss = None

@@ -64,8 +64,17 @@ scaler; ``fit`` publishes the scaler state one step behind through
 ``precision.monitor_for("fit", ...)``. Nothing on the step reads a device
 value on the host.
 
+``fit`` over a plain ``DataSetIterator`` wraps it in a
+``DevicePrefetcher`` (``datasets/prefetch.py``), as the JAX package does,
+when the iterator ``asyncSupported()``, ``default_depth() > 0`` and the
+network is not TBPTT: the producer thread pads, builds the mask, casts a
+float batch to the network's input dtype and copies it to the device on a
+CUDA side stream (``_prefetch_prepare``), so the step takes device tensors
+(a ``DeviceBatch``) and copies nothing. The values are those of the
+blocking path, which ``set_default_depth(0)`` restores.
+
 Left for later slices, as in ROADMAP.md: training health, telemetry
-beyond the precision monitor, listeners, prefetch and fitMultiBatch.
+beyond the precision monitor, listeners and fitMultiBatch.
 """
 
 from __future__ import annotations
@@ -77,6 +86,9 @@ from deeplearning4j_tpu_torch.autodiff.samediff import (
     _as_batches, _host_array, _ones_mask, _pad_to_bucket, _prepare_batches,
     _split_dataset_full)
 from deeplearning4j_tpu_torch.backend import resolve_device
+from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
+from deeplearning4j_tpu_torch.datasets.prefetch import (
+    DeviceBatch, DevicePrefetcher, default_depth)
 from deeplearning4j_tpu_torch.evaluation import (
     Evaluation, RegressionEvaluation)
 from deeplearning4j_tpu_torch.ndarray import INDArray
@@ -504,6 +516,48 @@ class MultiLayerNetwork:
         return (self._input(f), self._input(l),
                 torch.as_tensor(lmask, device=self.device))
 
+    def _prefetch_prepare(self):
+        """The host-side half of the input pipeline, run in the
+        DevicePrefetcher's producer thread before its copy: split,
+        pad-to-bucket, mask, and a float batch cast to the input dtype (as
+        ``_input`` would on the device), so the fit loop's per-batch host
+        work collapses to a queue pop. Returns the raw DataSet (the host
+        path) for shapes it does not understand."""
+        io = np.dtype(str(_io_dtype(self.conf)).replace("torch.", ""))
+
+        def prepare(ds):
+            feats, labels, _, lmasks = _split_dataset_full(ds)
+            if len(feats) != 1 or len(labels) != 1:
+                return ds
+            f = _host_array(feats[0])
+            l = _host_array(labels[0])
+            lmask = (_host_array(lmasks[0], np.float32)
+                     if lmasks[0] is not None else _ones_mask(l))
+            real = f.shape[0]
+            bucket = max(real, self._bucket or 0)
+            if real < bucket:
+                (f, l), lmask, _ = _pad_to_bucket([f, l], lmask, bucket)
+            f, l = (a.astype(io) if a.dtype.kind == "f" and a.dtype != io
+                    else a for a in (f, l))
+            return DeviceBatch(f, l, lmask, bucket=bucket, real=real)
+
+        return prepare
+
+    def _wrap_prefetch(self, data):
+        """Wrap a plain DataSetIterator in a DevicePrefetcher on this
+        network's device (the copy overlaps the steps). Returns (data,
+        prefetcher-or-None); the caller closes it."""
+        if (isinstance(data, DataSetIterator)
+                and not isinstance(data, DevicePrefetcher)
+                and data.asyncSupported()
+                and default_depth() > 0
+                and self.conf.backpropType != BackpropType.TruncatedBPTT):
+            wrapped = DevicePrefetcher(
+                data, prepare=self._prefetch_prepare(), loop="fit",
+                device=self.device)
+            return wrapped, wrapped
+        return data, None
+
     def fit(self, data, epochs: int | None = None):
         """fit(iterator) / fit(iterator, nEpochs) / fit(features, labels) /
         fit(DataSet). Every batch trains with an explicit label mask; a
@@ -520,19 +574,50 @@ class MultiLayerNetwork:
         pm = monitor_for("fit", self._policy)
         if pm is not None:
             pm.baseline_from(self._prec_state)
+        data, prefetcher = self._wrap_prefetch(data)
+        try:
+            last_loss = self._fit_epochs(data, epochs, pm)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        if pm is not None:
+            pm.flush()
+        if last_loss is not None:
+            self._score = float(last_loss)
+        return self
+
+    def _fit_epochs(self, data, epochs, pm):
+        """fit's epochs over ``data``; returns the last step's loss."""
+        last_loss = None
         for epoch_i in range(epochs):
             batches, data = _prepare_batches(data, epoch_i, epochs)
             for ds in batches:
-                feats, labels, _, lmasks = _split_dataset_full(ds)
-                f = _host_array(feats[0])
-                l = _host_array(labels[0])
-                lmask = (_host_array(lmasks[0], np.float32)
-                         if lmasks[0] is not None else _ones_mask(l))
-                if self._bucket is None or f.shape[0] > self._bucket:
-                    self._bucket = f.shape[0]
-                if f.shape[0] < self._bucket:
+                if isinstance(ds, DeviceBatch) and (
+                        self._bucket is None or ds.bucket >= self._bucket):
+                    # staged by the prefetcher: padded, masked and on the
+                    # device already
+                    f, l, lmask = ds.features, ds.labels, ds.mask
+                    self._bucket = ds.bucket
+                elif isinstance(ds, DeviceBatch):
+                    # staged against a smaller bucket than this network's
+                    # (the bucket grew while the producer ran ahead): the
+                    # host pad path, keeping the staged mask so rows
+                    # already padded stay out of the loss
+                    f, l, lmask = (_host_array(a) for a in (
+                        ds.features, ds.labels, ds.mask))
                     (f, l), lmask, _ = _pad_to_bucket([f, l], lmask,
                                                       self._bucket)
+                else:
+                    feats, labels, _, lmasks = _split_dataset_full(ds)
+                    f = _host_array(feats[0])
+                    l = _host_array(labels[0])
+                    lmask = (_host_array(lmasks[0], np.float32)
+                             if lmasks[0] is not None else _ones_mask(l))
+                    if self._bucket is None or f.shape[0] > self._bucket:
+                        self._bucket = f.shape[0]
+                    if f.shape[0] < self._bucket:
+                        (f, l), lmask, _ = _pad_to_bucket([f, l], lmask,
+                                                          self._bucket)
                 tbptt = (self.conf.backpropType == BackpropType.TruncatedBPTT
                          and self.conf.tbpttLength and f.ndim == 3
                          and f.shape[2] > self.conf.tbpttLength)
@@ -546,11 +631,7 @@ class MultiLayerNetwork:
                     if pm is not None:
                         pm.on_step(it_used, self._prec_state)
             self._epoch += 1
-        if pm is not None:
-            pm.flush()
-        if last_loss is not None:
-            self._score = float(last_loss)
-        return self
+        return last_loss
 
     def _strip_rnn_states(self, states):
         out = list(states)

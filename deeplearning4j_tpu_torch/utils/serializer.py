@@ -23,8 +23,12 @@ writing nor reading imports ml_dtypes (``Tensor.view(torch.int16)`` and
 back). A zip written by either package restores in the other, bit-equal.
 A layer state's leaf keeps the dtype of the layer's ``init_state``
 (OCNN's int32 ``seen``); a wrapper's (FrozenLayer, MaskZeroLayer) params
-and state are its inner layer's. Sharded checkpoints (with the scaler
-state's ``prec`` tree) and normalizers come with later slices.
+and state are its inner layer's. A normalizer (``writeModel(...,
+normalizer=)``, ``addNormalizerToModel``) rides in ``normalizer.npz``: its
+class name under ``__class__`` and its ``_state()`` arrays, as the JAX
+package writes it, so ``restoreNormalizerFromFile`` reads a zip of either
+package. Sharded checkpoints (with the scaler state's ``prec`` tree) come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.backend import resolve_device
+from deeplearning4j_tpu_torch.datasets.normalizers import (
+    ImagePreProcessingScaler, NormalizerMinMaxScaler, NormalizerStandardize)
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
     MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
@@ -86,6 +92,12 @@ def _npz_bytes(named) -> bytes:
     return buf.getvalue()
 
 
+def _normalizer_bytes(normalizer) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, __class__=type(normalizer).__name__, **normalizer._state())
+    return buf.getvalue()
+
+
 def _groups(groups):
     """(key, group) pairs: a network's layers by index, a graph's nodes by
     name."""
@@ -94,12 +106,13 @@ def _groups(groups):
 
 class ModelSerializer:
     @staticmethod
-    def writeModel(model, path, saveUpdater: bool = True,
+    def writeModel(model, path, saveUpdater: bool = True, normalizer=None,
                    includeFlatCoefficients: bool = False):
         """Write ``model`` (a MultiLayerNetwork or a ComputationGraph) to
         the single-file zip at ``path``, with its updater state and
-        training counters unless ``saveUpdater`` is False. A graph's
-        arrays are keyed by node name.
+        training counters unless ``saveUpdater`` is False, and
+        ``normalizer`` (a fitted ``datasets.normalizers`` instance) where
+        given. A graph's arrays are keyed by node name.
 
         ``includeFlatCoefficients`` also writes ``coefficients.bin``: the
         params as one raw little-endian float32 vector in ``params()``
@@ -145,6 +158,34 @@ class ModelSerializer:
                     ts["lossScale"] = {k: float(v) for k, v in
                                        model._prec_state.items()}
                 zf.writestr("trainingState.json", json.dumps(ts))
+            if normalizer is not None:
+                zf.writestr("normalizer.npz", _normalizer_bytes(normalizer))
+
+    @staticmethod
+    def addNormalizerToModel(path, normalizer):
+        """Rewrite the zip at ``path`` with ``normalizer`` in it (in place of
+        any it held)."""
+        with zipfile.ZipFile(path) as zf:
+            entries = {n: zf.read(n) for n in zf.namelist()
+                       if n != "normalizer.npz"}
+        entries["normalizer.npz"] = _normalizer_bytes(normalizer)
+        with zipfile.ZipFile(path, "w") as zf:
+            for n, data in entries.items():
+                zf.writestr(n, data)
+
+    @staticmethod
+    def restoreNormalizerFromFile(path):
+        """The normalizer the zip at ``path`` holds, or None."""
+        with zipfile.ZipFile(path) as zf:
+            if "normalizer.npz" not in zf.namelist():
+                return None
+            z = np.load(io.BytesIO(zf.read("normalizer.npz")))
+            cls = {c.__name__: c for c in (
+                NormalizerStandardize, NormalizerMinMaxScaler,
+                ImagePreProcessingScaler)}[str(z["__class__"])]
+            obj = cls.__new__(cls)
+            obj._load_state(z)
+            return obj
 
     @staticmethod
     def _restore(path, expect, loadUpdater, device):

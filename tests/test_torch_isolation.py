@@ -121,12 +121,58 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/serving/http.py",
                  "deeplearning4j_tpu_torch/serving/batcher.py",
                  "deeplearning4j_tpu_torch/telemetry/tracing.py",
+                 "deeplearning4j_tpu_torch/native/__init__.py",
+                 "deeplearning4j_tpu_torch/datasets/prefetch.py",
+                 "deeplearning4j_tpu_torch/datasets/parallel_etl.py",
+                 "deeplearning4j_tpu_torch/datasets/image.py",
+                 "deeplearning4j_tpu_torch/datasets/records.py",
+                 "deeplearning4j_tpu_torch/datasets/transform.py",
+                 "deeplearning4j_tpu_torch/datasets/normalizers.py",
+                 "deeplearning4j_tpu_torch/datasets/analysis.py",
+                 "deeplearning4j_tpu_torch/datasets/join.py",
                  "tests/samediff_op_cases.py",
                  "chip_smoke.py"):
         assert want in names
     bad = tmp_path / "bad.py"
     bad.write_text("def f():\n    from deeplearning4j_tpu.nn import x\n")
     assert _imported_roots(bad) & FORBIDDEN == {"deeplearning4j_tpu"}
+
+
+def test_native_loader_names_no_path_of_the_jax_package():
+    """The port's native library comes from its own ``etl.cpp`` and is
+    built into its own ``_build/``: neither the loader's paths nor its
+    source text name the JAX package's ``native/`` (whose ``_etl_*.so``
+    it must never load)."""
+    from deeplearning4j_tpu_torch import native
+
+    pkg = Path(deeplearning4j_tpu_torch.__file__).resolve().parent
+    ref = ROOT / "deeplearning4j_tpu"
+    for path in (native.SRC, native.BUILD_DIR, native.library_path()):
+        assert path.resolve().is_relative_to(pkg)
+        assert not path.resolve().is_relative_to(ref)
+    tree = ast.parse((pkg / "native" / "__init__.py").read_text())
+    doc = ast.get_docstring(tree, clean=False)
+    strings = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and n.value != doc]
+    assert not [t for t in strings if "_etl_" in t or "deeplearning4j_tpu/"
+                in t.replace("deeplearning4j_tpu_torch/", "")]
+    if native.available():
+        assert Path(native.load()._name).resolve().is_relative_to(
+            pkg / "_build")
+
+
+def test_prefetcher_stages_on_the_card_unless_cpu_is_named(no_cuda):
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, DevicePrefetcher, ListDataSetIterator)
+
+    base = ListDataSetIterator(DataSet(np.zeros((4, 2), np.float32),
+                                       np.zeros((4, 1), np.float32)), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DevicePrefetcher(base)
+    cpu = DevicePrefetcher(base, device="cpu")
+    assert cpu.next().getFeatures().device.type == "cpu"
+    cpu.close()
 
 
 @pytest.fixture

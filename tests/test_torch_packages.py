@@ -122,6 +122,7 @@ def test_package_exports_every_ported_name(package):
                  "NeuralNetConfiguration"]),
     ("datasets", ["DataSet", "DataSetIterator", "ListDataSetIterator",
                   "ExistingDataSetIterator", "SplitTestAndTrain"]),
+    ("datasets", [name for _, _, name in _reference_exports("datasets")]),
     ("optimize", ["Adam", "Sgd", "updater_from_config", "CycleSchedule"]),
     ("utils", ["ModelSerializer"]),
     ("models", ["TinyYOLO", "YOLO2", "UNet", "SqueezeNet", "Xception",
