@@ -200,6 +200,29 @@ weights from a numpy seed:
   steps over a ListDataSetIterator under the prefetcher (rows 1 and 3
   counted) against the blocking path. The phase alone: call
   ``data_phase(torch, card, lstm)`` after building the LSTM sources.
+- NLP and graph embeddings with the clustering package (``nlp_phase``,
+  last; no kernel of the port is on these paths, PyTorch's gathers,
+  ``bmm`` and ``index_add_`` carry them): A, Word2Vec SkipGram at BASELINE
+  config 4's width as bench.py builds it (a zipf(1.05) corpus of 10M
+  words over 100,000 words, layerSize 128, window 5, 5 negatives, batch
+  8192, subsampling 1e-3; ``fit`` twice to warm up, once timed) with the
+  native pair library loaded, the card's pair generation from fixed draws
+  bitwise the CPU's, 8 fused steps from the warm tables within 1e-4 of
+  each table's largest update of a CPU twin, no NaN; words/s, the epoch's
+  pair generation and training on CUDA events, launches a step, device
+  busy time and idle share over 50 steps (torch.profiler), peak memory;
+  B, CBOW, ParagraphVectors (with inferVector) and GloVe fits on the card
+  against CPU twins from the same carried-over state (1e-5 of the
+  largest element), DeepWalk's walks bitwise the CPU run's and its two
+  cliques apart; C, on A's vectors: k-means (k = 100) of all of them,
+  each Lloyd step replayed on the CPU from the card's centers
+  (assignments equal but recorded near-ties), t-SNE of the 2000 most
+  frequent words at the defaults (1000 iterations, timed) and from one y0
+  against the CPU (5 iterations elementwise, 50 by KL), a VPTree k-NN
+  server over those 2000 answering as brute force over HTTP, and
+  WordVectorSerializer's binary file read back bitwise, its text file to
+  6 decimals. The phase alone: ``nlp_phase(torch, card)`` (it builds only
+  the native library).
 
 Each main path sets its kernels' launch counters to 0 just before it runs
 and reads them just after.
@@ -5034,12 +5057,9 @@ REPLICA_WAIT = 120         # seconds any one future may take (a hang fails)
 REPLICA_TWINS = 8          # burst requests also held against the CPU twin
 
 
-def _stream_profile(torch, fn, kernel=None):
-    """Run ``fn()`` under torch.profiler: (busy share of the device over
-    the run's kernel span, seconds that kernels of different streams ran
-    at once, streams seen, seconds that kernels named ``kernel`` ran at
-    once on different streams), or None where the trace holds no
-    kernel."""
+def _trace_kernels(torch, fn):
+    """Run ``fn()`` under torch.profiler: the trace's kernels as (start
+    us, end us, stream, name)."""
     import os
     import tempfile
 
@@ -5058,9 +5078,18 @@ def _stream_profile(torch, fn, kernel=None):
             events = json.load(f).get("traceEvents", [])
     finally:
         os.unlink(path)
-    kernels = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
-                (e.get("args") or {}).get("stream"), e.get("name", ""))
-               for e in events if e.get("cat") == "kernel"]
+    return [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+             (e.get("args") or {}).get("stream"), e.get("name", ""))
+            for e in events if e.get("cat") == "kernel"]
+
+
+def _stream_profile(torch, fn, kernel=None):
+    """Run ``fn()`` under torch.profiler: (busy share of the device over
+    the run's kernel span, seconds that kernels of different streams ran
+    at once, streams seen, seconds that kernels named ``kernel`` ran at
+    once on different streams), or None where the trace holds no
+    kernel."""
+    kernels = _trace_kernels(torch, fn)
     if not kernels:
         return None
 
@@ -8466,6 +8495,602 @@ def data_phase(torch, card, lstm):
     return {"bilstm_prefetch": bilstm}
 
 
+# -- NLP and embeddings (nlp_phase) ---------------------------------------------
+
+# BASELINE config 4 as bench.py's bench_word2vec builds it: a zipf(1.05)
+# corpus of 10M words over 100,000 words in sentences of 25, from
+# default_rng(0); layerSize 128, window 5, 5 negatives, batch 8192,
+# sampling 1e-3 (the default), one epoch, seed 1
+W2V_WORDS = 10_000_000
+W2V_VOCAB = 100_000
+W2V_SENTENCE = 25
+W2V_TWIN_STEPS = 8       # fused steps on the card and on the CPU twin
+# the card's tables after those steps against the twin's, of each table's
+# largest update: the same arithmetic, summed in another order
+# (index_add_'s atomics against the CPU's serial loop)
+W2V_STEP_TOL = 1e-4
+W2V_PROFILED = 50        # steps under torch.profiler
+# B: a whole fit on the card against its CPU twin from the same state, of
+# the largest element (the CPU tests hold the port to the JAX package at
+# this bound; measured there <= 9e-7)
+NLP_FIT_TOL = 1e-5
+KMEANS_K = 100
+# k-means: a point may take another cluster on the card only where its two
+# nearest centers are this close (float64 distances, relative to
+# |x|^2 + |c|^2): float32's expansion |x|^2 - 2 x.c + |c|^2 cancels
+KMEANS_TIE = 1e-5
+KMEANS_TOL = 1e-5        # centers of clusters no tie touched, of the largest
+TSNE_WORDS = 2000
+# t-SNE card vs CPU from the same y0: elementwise over the first 5
+# iterations; early exaggeration amplifies float32 rounding about 2.3x an
+# iteration (tests/test_torch_clustering.py; at 2000 words the card read
+# 9.4e-5 and 6.3e-4 after 10), so 50 iterations are held by KL(P || Q)
+# instead, within 5% or 1e-3 nats
+TSNE_EARLY = 5
+TSNE_EARLY_TOL = 1e-3
+TSNE_TWIN = 50
+TSNE_KL_TOL = 0.05
+TSNE_KL_ATOL = 1e-3   # nats, where P is near uniform and KL near 0
+TSNE_P_TOL = 1e-5
+KNN_QUERIES = 50
+KNN_K = 10
+
+
+def bench_corpus():
+    """bench.py's Word2Vec corpus, built as bench_word2vec builds it."""
+    rng = np.random.default_rng(0)
+    n_sent = W2V_WORDS // W2V_SENTENCE
+    zipf = 1.0 / np.arange(1, W2V_VOCAB + 1) ** 1.05
+    p = zipf / zipf.sum()
+    flat = rng.choice(W2V_VOCAB, n_sent * W2V_SENTENCE, p=p)
+    names = np.char.add("w", flat.astype("U7"))
+    return [" ".join(row) for row in
+            names.reshape(n_sent, W2V_SENTENCE)]
+
+
+def _busy(kernels):
+    """(busy us, span us) of a kernel list: the union of their intervals
+    and first start to last end."""
+    busy, end = 0.0, None
+    for a, b, _, _ in sorted(kernels):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy, max(k[1] for k in kernels) - min(k[0] for k in kernels)
+
+
+def _w2v_twin_steps(torch, w2v, cent, ctx, n, card):
+    """W2V_TWIN_STEPS fused steps from the warm tables with the same pairs
+    and pool on the card and on a CPU copy; fails past W2V_STEP_TOL."""
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v_mod
+
+    bsz, k_neg = w2v.cfg["batchSize"], w2v.cfg["negative"]
+    table = w2v._neg_table_dev
+    gen = torch.Generator(device=table.device)
+    gen.manual_seed(SEED + 72)
+    pool = table[torch.randint(0, table.shape[0], (1 << 21,),
+                               generator=gen, device=table.device)]
+    start = (w2v.syn0.cpu(), w2v.syn1.cpu())
+    gpu = [t.clone() for t in (w2v.syn0, w2v.syn1)]
+    cpu = [t.clone() for t in start]
+    for (t0, t1), dev in ((gpu, cent.device), (cpu, "cpu")):
+        w2v_mod.sgns_epoch(t0, t1, cent.to(dev), ctx.to(dev), n,
+                           w2v_mod.pooled_negatives(pool.to(dev), bsz,
+                                                    k_neg),
+                           bsz, w2v.cfg["learningRate"],
+                           steps=W2V_TWIN_STEPS)
+    errs = []
+    for name, g, c, s in zip(("syn0", "syn1"), gpu, cpu, start):
+        upd = float((c - s).abs().max())
+        err = float((g.cpu() - c).abs().max())
+        if not upd > 0 or err > W2V_STEP_TOL * upd:
+            fail(f"word2vec: {W2V_TWIN_STEPS} fused steps on {card}: {name} "
+                 f"{err:.3e} from the CPU twin, largest update {upd:.3e}")
+        errs.append(err / upd)
+    return errs
+
+
+def _w2v_config4(torch, card):
+    """A: Word2Vec SkipGram at BASELINE config 4's width, as bench.py builds
+    it: fit() twice to warm up, once timed; the gates. Returns the model
+    and the figures."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v_mod
+
+    lib = native.load()   # raises with the build's error: no list fallback
+    t0 = time.perf_counter()
+    sents = bench_corpus()
+    t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w2v = (Word2Vec.Builder().minWordFrequency(1).layerSize(128)
+           .windowSize(5).negativeSample(5).batchSize(8192)
+           .epochs(1).seed(1).iterate(sents).build())
+    w2v.buildVocab()
+    t_vocab = time.perf_counter() - t0
+    print(f"nlp: native ETL library {lib._name}; corpus of {W2V_WORDS} "
+          f"words built in {t_corpus:.2f} s, vocab of "
+          f"{w2v.vocab.numWords()} in {t_vocab:.2f} s (host)", flush=True)
+
+    # CUDA events around the epoch's two halves, read after the epoch
+    spans = []
+    pairs, fused = w2v._device_pairs, w2v._fused_epoch
+
+    def timed(fn, what):
+        def run(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            spans.append((what, a, b))
+            return out
+        return run
+
+    w2v._device_pairs = timed(pairs, "pairs")
+    w2v._fused_epoch = timed(fused, "train")
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        w2v.fit()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    spans.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w2v.fit()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    w2v._device_pairs, w2v._fused_epoch = pairs, fused
+    split = {what: a.elapsed_time(b) for what, a, b in spans}
+    for name in ("syn0", "syn1"):
+        if not torch.isfinite(getattr(w2v, name)).all():
+            fail(f"word2vec on {card}: {name} holds NaN or inf")
+
+    # the pairs of one epoch again, for the gates and the profile
+    cent, ctx, n = w2v._device_pairs(np.random.default_rng(SEED + 70))
+    steps = -(-n // w2v.cfg["batchSize"])
+    (flat, sid), keep = w2v._corpus_on_device()
+    gen = torch.Generator(device=flat.device)
+    gen.manual_seed(SEED + 71)
+    u = torch.rand(flat.shape[0], generator=gen, device=flat.device)
+    b = torch.randint(1, 6, flat.shape, generator=gen, device=flat.device,
+                      dtype=torch.int32)
+    t0 = time.perf_counter()
+    got = w2v_mod.pair_slots(flat, sid, 5, b, keep, u)
+    want = w2v_mod.pair_slots(flat.cpu(), sid.cpu(), 5, b.cpu(), keep.cpu(),
+                              u.cpu())
+    if int(got[2]) != int(want[2]) or not all(
+            torch.equal(g.cpu(), w) for g, w in zip(got[:2], want[:2])):
+        fail(f"word2vec: the pair generation on {card} from fixed draws "
+             f"differs from the CPU's ({int(got[2])} vs {int(want[2])} "
+             f"pairs)")
+    print(f"nlp: pair generation from fixed draws on {card} equals the "
+          f"CPU's bit for bit: {int(got[2])} pairs in {got[0].shape[0]} "
+          f"slots ({time.perf_counter() - t0:.2f} s with the CPU's)",
+          flush=True)
+    del got, want, u, b
+    twin = _w2v_twin_steps(torch, w2v, cent, ctx, n, card)
+
+    # launches and device time over W2V_PROFILED steps of the fused path
+    bsz, k_neg = w2v.cfg["batchSize"], w2v.cfg["negative"]
+    table = w2v._neg_table_dev
+    pool = table[torch.randint(0, table.shape[0], (1 << 21,),
+                               device=table.device)]
+    t0_, t1_ = w2v.syn0.clone(), w2v.syn1.clone()
+
+    def run():
+        w2v_mod.sgns_epoch(t0_, t1_, cent, ctx, n,
+                           w2v_mod.pooled_negatives(pool, bsz, k_neg), bsz,
+                           w2v.cfg["learningRate"], steps=W2V_PROFILED)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / W2V_PROFILED
+    kernels = _trace_kernels(torch, run)
+    if not kernels:
+        fail(f"word2vec: no kernel of the SGNS steps in the trace on {card}")
+    busy, span = _busy(kernels)
+    by_name = {}
+    for a, e, _, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (e - a)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    del cent, ctx, t0_, t1_, pool
+    torch.cuda.empty_cache()
+    figures = {
+        "words_per_s": W2V_WORDS / dt, "epoch_s": dt,
+        "warm_s": warm, "pairs": n, "steps": steps,
+        "pairgen_ms": split.get("pairs"), "train_ms": split.get("train"),
+        "launches_per_step": len(kernels) / W2V_PROFILED,
+        "device_busy_ms_per_step": busy / 1e3 / W2V_PROFILED,
+        "host_ms_per_step": host_ms,
+        "idle_share": 1.0 - busy / span if span else None,
+        "peak_gib": peak / 2 ** 30, "twin_step_err": twin,
+        "top_kernels_ms_per_step": [(k[:60], v / 1e3 / W2V_PROFILED)
+                                    for k, v in top]}
+    print(f"nlp: Word2Vec SkipGram (BASELINE config 4, {W2V_WORDS} words, "
+          f"vocab {w2v.vocab.numWords()}, 128 wide) on {card}: "
+          f"{figures['words_per_s']:.0f} words/s (epoch {dt:.3f} s on the "
+          f"host clock; warm-up fits {warm[0]:.2f}, {warm[1]:.2f} s), "
+          f"pair generation {figures['pairgen_ms']:.2f} ms + training "
+          f"{figures['train_ms']:.2f} ms (CUDA events), {n} pairs in "
+          f"{steps} steps, {figures['launches_per_step']:.1f} launches a "
+          f"step, over {W2V_PROFILED} steps device busy "
+          f"{figures['device_busy_ms_per_step']:.4f} ms a step of "
+          f"{host_ms:.4f} ms on the host clock, idle "
+          f"{100 * figures['idle_share']:.1f}% (torch.profiler), peak "
+          f"memory {figures['peak_gib']:.2f} GiB; twin steps "
+          f"{twin[0]:.2e}, {twin[1]:.2e} of the largest update; top "
+          f"kernels {top}", flush=True)
+    return w2v, figures
+
+
+def _small_corpus(n=2000, vocab=500, length=20, seed=SEED + 73):
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"w{i}" for i in rng.zipf(1.3, length) % vocab)
+            for _ in range(n)]
+
+
+def _fit_gate(torch, what, card, pairs):
+    """Each (name, card tensor, CPU tensor) within NLP_FIT_TOL of the CPU
+    tensor's largest element; the worst ratio."""
+    worst = 0.0
+    for name, g, c in pairs:
+        g, c = (torch.as_tensor(t).cpu().double() for t in (g, c))
+        err = float((g - c).abs().max() / c.abs().max())
+        if not err <= NLP_FIT_TOL:
+            fail(f"{what} on {card}: {name} {err:.3e} of its largest "
+                 f"element from the CPU twin (bound {NLP_FIT_TOL})")
+        worst = max(worst, err)
+    return worst
+
+
+def _vocab_of(model):
+    return {"words": [w.word for w in model.vocab.words],
+            "counts": [w.count for w in model.vocab.words]}
+
+
+def _other_trainers(torch, card):
+    """B: CBOW, ParagraphVectors (+ inferVector), GloVe and DeepWalk on the
+    card against CPU twins from the same carried-over state."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+    from deeplearning4j_tpu_torch.nlp import (
+        Glove, LabelledDocument, ParagraphVectors, Word2Vec)
+    from deeplearning4j_tpu_torch.utils.convert import embeddings_from_numpy
+
+    rng = np.random.default_rng(SEED + 74)
+    out = {}
+    sents = _small_corpus()
+    models = []
+    for dev in (None, "cpu"):
+        m = (Word2Vec.Builder().minWordFrequency(1).layerSize(64)
+             .windowSize(5).negativeSample(5).batchSize(512).epochs(2)
+             .seed(3).elementsLearningAlgorithm("CBOW").iterate(sents)
+             .build(dev))
+        m.buildVocab()
+        models.append(m)
+    v = models[0].vocab.numWords()
+    state = dict(_vocab_of(models[0]),
+                 syn0=rng.normal(0, 0.05, (v, 64)).astype(np.float32),
+                 syn1=rng.normal(0, 0.05, (v, 64)).astype(np.float32))
+    t0 = time.perf_counter()
+    for m in models:
+        embeddings_from_numpy(m, state)
+        m.fit()
+    torch.cuda.synchronize()
+    out["cbow"] = _fit_gate(torch, "CBOW fit", card, [
+        ("syn0", models[0].syn0, models[1].syn0),
+        ("syn1", models[0].syn1, models[1].syn1)])
+    print(f"nlp: CBOW fit (vocab {v}, 64 wide, 2 epochs) on {card} within "
+          f"{out['cbow']:.2e} of the CPU twin ({time.perf_counter() - t0:.2f}"
+          f" s both)", flush=True)
+
+    topics = [["cat", "dog", "horse", "cow", "sheep"],
+              ["cpu", "gpu", "ram", "disk", "net"]]
+    docs = [(f"{('animal', 'tech')[i % 2]}_{i}",
+             " ".join(rng.choice(topics[i % 2], 12))) for i in range(200)]
+    pvs = []
+    for dev in (None, "cpu"):
+        pv = (ParagraphVectors.Builder().minWordFrequency(1).layerSize(32)
+              .epochs(10).learningRate(0.01).seed(2).batchSize(256)
+              .sampling(0).iterate([LabelledDocument(t, lab)
+                                    for lab, t in docs]).build(dev))
+        pv.buildVocab()
+        pvs.append(pv)
+    v = pvs[0].vocab.numWords()
+    state = dict(_vocab_of(pvs[0]),
+                 syn0=rng.normal(0, 0.05, (v, 32)).astype(np.float32),
+                 syn1=rng.normal(0, 0.05, (v, 32)).astype(np.float32),
+                 doc_vecs=rng.normal(0, 0.05, (200, 32)).astype(np.float32))
+    for pv in pvs:
+        embeddings_from_numpy(pv, state)
+        pv.fit()
+    text = "cat dog cow horse cat dog"
+    out["paragraph_vectors"] = _fit_gate(torch, "ParagraphVectors", card, [
+        ("doc_vecs", pvs[0].doc_vecs, pvs[1].doc_vecs),
+        ("syn1", pvs[0].syn1, pvs[1].syn1),
+        ("inferVector", pvs[0].inferVector(text), pvs[1].inferVector(text))])
+    near = pvs[0].nearestLabels(text, 5)
+    if sum(lab.startswith("animal") for lab in near) < 4:
+        fail(f"ParagraphVectors on {card}: nearest labels of an animal "
+             f"text {near}")
+    print(f"nlp: ParagraphVectors fit + inferVector on {card} within "
+          f"{out['paragraph_vectors']:.2e} of the CPU twin; nearest labels "
+          f"{near}", flush=True)
+
+    corpus = ["the king sits on the throne", "the queen sits on the throne",
+              "the dog runs in the park", "the cat runs in the park",
+              "king and queen rule the land",
+              "dog and cat play in the park"] * 50
+    gloves = []
+    for dev in (None, "cpu"):
+        g = (Glove.Builder().minWordFrequency(1).vectorLength(32)
+             .windowSize(4).learningRate(0.05).epochs(20).seed(1)
+             .batchSize(64).iterate(corpus).build(dev))
+        g.buildVocab()
+        gloves.append(g)
+    v = gloves[0].vocab.numWords()
+    state = dict(_vocab_of(gloves[0]),
+                 w=rng.normal(0, 0.05, (v, 32)), wt=rng.normal(0, 0.05,
+                                                              (v, 32)),
+                 b=np.zeros(v), bt=np.zeros(v))
+    for g in gloves:
+        embeddings_from_numpy(g, state)
+        g.fit()
+    out["glove"] = _fit_gate(torch, "GloVe fit", card, [
+        (k, gloves[0].params[k], gloves[1].params[k])
+        for k in ("w", "wt", "b", "bt")] + [
+        ("loss curve", np.asarray(gloves[0]._loss_curve),
+         np.asarray(gloves[1]._loss_curve))])
+    print(f"nlp: GloVe fit (20 epochs) on {card} within {out['glove']:.2e} "
+          f"of the CPU twin; loss {gloves[0]._loss_curve[0]:.4f} -> "
+          f"{gloves[0]._loss_curve[-1]:.4f}", flush=True)
+
+    g = Graph(12)
+    for base in (0, 6):
+        for i in range(6):
+            for j in range(i + 1, 6):
+                g.addEdge(base + i, base + j)
+    g.addEdge(0, 6)
+    walks = []
+    for dev in (None, "cpu"):
+        dw = (DeepWalk.Builder().vectorSize(16).windowSize(3)
+              .learningRate(0.02).epochs(5).walkLength(10)
+              .walksPerVertex(8).seed(1).build())
+        dw.fit(g, device=dev)
+        walks.append(dw._w2v.sentences._sentences)
+        if dev is None:
+            within, across = dw.similarity(1, 2), dw.similarity(1, 8)
+            near = dw.verticesNearest(1, 4)
+            if dw._w2v.syn0.device.type != "cuda":
+                fail("DeepWalk did not train on the card")
+            if not within > across or sum(x < 6 for x in near) < 3:
+                fail(f"DeepWalk on {card}: two cliques not apart (within "
+                     f"{within:.3f}, across {across:.3f}, nearest {near})")
+    if walks[0] != walks[1]:
+        fail("DeepWalk's walks differ between the card's run and the CPU's")
+    print(f"nlp: DeepWalk on {card}: {len(walks[0])} walks bitwise the CPU "
+          f"twin's; two cliques apart (within {within:.3f} > across "
+          f"{across:.3f}, nearest of 1 {near})", flush=True)
+    return out
+
+
+def _kmeans_check(torch, vectors, card):
+    """k-means (k = KMEANS_K) of every word vector on the card (timed),
+    then the same run recorded step by step, each Lloyd step replayed on
+    the CPU from the card's own centers."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering import kmeans as km_mod
+
+    t0 = time.perf_counter()
+    assign = KMeansClustering(KMEANS_K, seed=SEED + 75).applyTo(vectors)
+    dt = time.perf_counter() - t0
+    seen = []
+    step = km_mod.lloyd_step
+
+    def recording(x, centers):
+        new, got = step(x, centers)
+        seen.append((centers.cpu(), new.cpu(), got.cpu()))
+        return new, got
+
+    km_mod.lloyd_step = recording
+    try:
+        again = KMeansClustering(KMEANS_K, seed=SEED + 75).applyTo(vectors)
+    finally:
+        km_mod.lloyd_step = step
+    if not np.array_equal(assign, again) or not np.array_equal(
+            again, seen[-1][2].numpy()):
+        fail(f"k-means on {card}: two runs from one seed disagree")
+    x = torch.from_numpy(vectors)
+    x64 = x.double()
+    ties = 0
+    for i, (centers, card_new, card_assign) in enumerate(seen):
+        new, got = step(x, centers)
+        touched = set()
+        for p in (card_assign != got).nonzero().flatten().tolist():
+            d = ((x64[p] - centers.double()) ** 2).sum(1)
+            two = torch.topk(d, 2, largest=False)
+            scale = float((x64[p] ** 2).sum()
+                          + (centers.double()[two.indices[0]] ** 2).sum())
+            if float(two.values[1] - two.values[0]) > KMEANS_TIE * scale:
+                fail(f"k-means step {i} on {card}: point {p} in cluster "
+                     f"{int(card_assign[p])}, the CPU's {int(got[p])}, "
+                     f"distances {two.values.tolist()} not a near-tie")
+            touched.update((int(card_assign[p]), int(got[p])))
+            ties += 1
+        keep = [c for c in range(KMEANS_K) if c not in touched]
+        err = float((card_new[keep] - new[keep]).abs().max())
+        if err > KMEANS_TOL * float(new.abs().max()):
+            fail(f"k-means step {i} on {card}: centers {err:.3e} from the "
+                 f"CPU's")
+    print(f"nlp: k-means (k = {KMEANS_K}) of {len(vectors)} word vectors on "
+          f"{card}: {len(seen)} Lloyd steps in {dt:.3f} s (host clock), each "
+          f"replayed on the CPU from the card's centers: assignments equal "
+          f"but {ties} near-ties (bound {KMEANS_TIE}), centers within "
+          f"{KMEANS_TOL}", flush=True)
+    return {"kmeans_s": dt, "kmeans_steps": len(seen), "kmeans_ties": ties}
+
+
+def _tsne_check(torch, vectors, card):
+    """t-SNE of the TSNE_WORDS most frequent words at the reference's
+    defaults on the card (timed), and the card against the CPU from the
+    same y0."""
+    from deeplearning4j_tpu_torch.clustering import BarnesHutTsne
+
+    x = vectors[:TSNE_WORDS]
+    t0 = time.perf_counter()
+    emb = BarnesHutTsne().fit(x).getData()
+    dt = time.perf_counter() - t0
+    if not np.isfinite(emb).all() or emb.shape != (TSNE_WORDS, 2):
+        fail(f"t-SNE on {card}: {emb.shape}, finite {np.isfinite(emb).all()}")
+    gpu, cpu = BarnesHutTsne(), BarnesHutTsne(device="cpu")
+    p_gpu, p_cpu = gpu._affinities(x), cpu._affinities(x)
+    p_err = float((p_gpu.cpu() - p_cpu).abs().max() / p_cpu.abs().max())
+    if p_err > TSNE_P_TOL:
+        fail(f"t-SNE on {card}: P {p_err:.3e} of its largest from the CPU's")
+    y0 = 1e-4 * torch.randn((TSNE_WORDS, 2), generator=torch.Generator()
+                            .manual_seed(SEED + 76))
+    early = [m._optimize(p, y0.to(p.device), TSNE_EARLY).cpu()
+             for m, p in ((gpu, p_gpu), (cpu, p_cpu))]
+    e_err = float((early[0] - early[1]).abs().max() / early[1].abs().max())
+    if e_err > TSNE_EARLY_TOL:
+        fail(f"t-SNE on {card}: after {TSNE_EARLY} iterations {e_err:.3e} "
+             f"of the largest coordinate from the CPU's")
+    late = [m._optimize(p, y0.to(p.device), TSNE_TWIN).cpu().double()
+            for m, p in ((gpu, p_gpu), (cpu, p_cpu))]
+    pd = p_cpu.double()
+    off = ~torch.eye(TSNE_WORDS, dtype=torch.bool)
+
+    def kl(y):
+        num = 1.0 / (1.0 + torch.cdist(y, y) ** 2)
+        q = num[off] / num[off].sum()
+        return float((pd[off] * torch.log(pd[off] / q.clamp(min=1e-12)))
+                     .sum())
+
+    kls = [kl(y) for y in late]
+    l_err = float((late[0] - late[1]).abs().max() / late[1].abs().max())
+    if abs(kls[0] - kls[1]) > TSNE_KL_TOL * abs(kls[1]) + TSNE_KL_ATOL:
+        fail(f"t-SNE on {card}: KL after {TSNE_TWIN} iterations {kls[0]:.4f}"
+             f" vs the CPU's {kls[1]:.4f}")
+    print(f"nlp: t-SNE of the {TSNE_WORDS} most frequent words on {card} "
+          f"(1000 iterations, exact gradients) in {dt:.3f} s; from the same "
+          f"y0 the card is {e_err:.2e} of the largest coordinate from the "
+          f"CPU after {TSNE_EARLY} iterations, {l_err:.2e} after "
+          f"{TSNE_TWIN} (rounding amplified), KL {kls[0]:.4f} vs "
+          f"{kls[1]:.4f}; P within {p_err:.2e}", flush=True)
+    return {"tsne_s": dt, "tsne_early_err": e_err, "tsne_kl": kls}
+
+
+def _knn_check(vectors, words, card):
+    """A VPTree and the k-NN server over the TSNE_WORDS most frequent
+    vectors: answers over HTTP equal to brute force."""
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.clustering import NearestNeighborsServer
+
+    x = vectors[:TSNE_WORDS]
+    rng = np.random.default_rng(SEED + 77)
+    t0 = time.perf_counter()
+    srv = NearestNeighborsServer(x, labels=words[:TSNE_WORDS]).start(port=0)
+    t_build = time.perf_counter() - t0
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        x64 = x.astype(np.float64)
+        for qi in range(KNN_QUERIES):
+            q = x[rng.integers(TSNE_WORDS)] + rng.normal(
+                0, 0.01, x.shape[1]).astype(np.float32)
+            req = urllib.request.Request(
+                base + "/knn", method="POST", data=json.dumps(
+                    {"ndarray": q.tolist(), "k": KNN_K}).encode())
+            with urllib.request.urlopen(req, timeout=30) as r:
+                res = json.loads(r.read())["results"]
+            d = np.sqrt(((x64 - q.astype(np.float32).astype(np.float64))
+                         ** 2).sum(1))
+            order = np.argsort(d, kind="stable")[:KNN_K]
+            if [e["index"] for e in res] != order.tolist() or not np.allclose(
+                    [e["distance"] for e in res], d[order], rtol=1e-12):
+                fail(f"k-NN server on {card}'s vectors: query {qi} answered "
+                     f"{[e['index'] for e in res]}, brute force "
+                     f"{order.tolist()}")
+    finally:
+        srv.stop()
+    print(f"nlp: VPTree + NearestNeighborsServer over {TSNE_WORDS} vectors "
+          f"(built in {t_build:.2f} s): {KNN_QUERIES} k={KNN_K} queries over "
+          f"HTTP equal brute force", flush=True)
+
+
+def _word_vector_files_check(torch, w2v, card):
+    """The model's vectors through both word2vec formats: binary bitwise,
+    text to its 6 decimals."""
+    import tempfile
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.nlp import WordVectorSerializer as S
+
+    with tempfile.TemporaryDirectory(prefix="dl4j_w2v_") as tmp:
+        out = {}
+        for fmt, write, read in (
+                ("binary", S.writeWord2VecBinary, S.readWord2VecBinary),
+                ("text", S.writeWord2VecModel, S.readWord2VecModel)):
+            path = str(Path(tmp) / fmt)
+            t0 = time.perf_counter()
+            write(w2v, path)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = read(path)
+            t_read = time.perf_counter() - t0
+            if back.syn0.device.type != "cuda" or [
+                    w.word for w in back.vocab.words] != [
+                    w.word for w in w2v.vocab.words]:
+                fail(f"word2vec {fmt} file on {card}: the vocab or device "
+                     f"did not come back")
+            if fmt == "binary":
+                if not torch.equal(back.syn0, w2v.syn0):
+                    fail(f"word2vec binary file on {card}: not bitwise")
+                err = 0.0
+            else:
+                top = float(w2v.syn0.abs().max())
+                bound = 5e-7 + float(np.spacing(np.float32(top)))
+                err = float((back.syn0 - w2v.syn0).abs().max())
+                if err > bound:
+                    fail(f"word2vec text file on {card}: {err:.3e} from the "
+                         f"model (6 decimals: {bound:.3e})")
+            out[fmt] = (t_write, t_read, err)
+    print(f"nlp: WordVectorSerializer of {w2v.vocab.numWords()} vectors "
+          f"from {card}: binary written {out['binary'][0]:.2f} s, read "
+          f"{out['binary'][1]:.2f} s, bitwise; text written "
+          f"{out['text'][0]:.2f} s, read {out['text'][1]:.2f} s, within "
+          f"{out['text'][2]:.2e}", flush=True)
+
+
+def nlp_phase(torch, card):
+    """NLP and graph embeddings with the clustering package (see the module
+    docstring): A, Word2Vec SkipGram at BASELINE config 4's width; B, the
+    other trainers against CPU twins; C, clustering and persistence of A's
+    vectors. Returns A's figures."""
+    t_phase = time.perf_counter()
+    w2v, figures = _w2v_config4(torch, card)
+    figures["trainers"] = _other_trainers(torch, card)
+    vectors = w2v.getWordVectorMatrix()
+    words = [w.word for w in w2v.vocab.words]
+    figures.update(_kmeans_check(torch, vectors, card))
+    figures.update(_tsne_check(torch, vectors, card))
+    _knn_check(vectors, words, card)
+    _word_vector_files_check(torch, w2v, card)
+    del w2v
+    torch.cuda.empty_cache()
+    figures["phase_s"] = time.perf_counter() - t_phase
+    print(f"nlp_phase ({card}): {json.dumps(figures)}", flush=True)
+    return figures
+
+
 def main():
     import torch
 
@@ -8531,6 +9156,7 @@ def main():
     wrapped = detection_phase(torch, card, lstm)
     precision_phase(torch, card, resnet_f32)
     data = data_phase(torch, card, lstm)
+    nlp_phase(torch, card)
 
     pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(via deeplearning4j_tpu/models/bert.py:197)")

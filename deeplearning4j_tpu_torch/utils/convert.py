@@ -26,7 +26,12 @@ ml_dtypes; the ``*_to_numpy`` functions give a bfloat16 leaf as float32
 ``bert_params_from_numpy`` and ``bert_params_to_numpy`` carry a BERT
 parameter tree (``models/bert.py``) between the two packages, and
 ``bottleneck_params_from_numpy`` the bottleneck probe's parameters
-(``kernels/bottleneck.py``).
+(``kernels/bottleneck.py``). ``embeddings_from_numpy`` installs the JAX
+package's embedding state (vocab, ``syn0``/``syn1``, ``doc_vecs``,
+GloVe's ``{w, wt, b, bt}``, k-means' ``centers``) into the port's NLP and
+clustering models; both packages draw initial vectors only where the
+state is None, so a whole ``fit`` from it can be compared where numpy
+drives every draw.
 """
 
 from __future__ import annotations
@@ -210,3 +215,75 @@ def bottleneck_params_from_numpy(tree, device):
     return {k: torch.tensor(np.asarray(tree[k], np.float32),
                             device=device).to(dtype)
             for k, dtype in _BOTTLENECK.items()}
+
+
+def _vocab_from(words, counts):
+    from deeplearning4j_tpu_torch.nlp.word2vec import VocabCache
+
+    if len(words) != len(counts):
+        raise ValueError(f"{len(words)} words but {len(counts)} counts")
+    vocab = VocabCache()
+    for w, c in zip(words, counts):
+        vocab.add(str(w), int(c))
+    return vocab
+
+
+def _table(a, rows, cols, what, device):
+    """A float32 copy of ``a`` on ``device``, checked to be [rows, cols]
+    ([rows] where ``cols`` is None)."""
+    a = np.asarray(a, np.float32)
+    want = (rows,) if cols is None else (rows, cols)
+    if a.shape != want:
+        raise ValueError(f"{what} has shape {a.shape}, want {want}")
+    return torch.tensor(a, device=device)
+
+
+def embeddings_from_numpy(model, state):
+    """Install ``state`` (numpy, in the JAX package's layout) into a model
+    of the port, on the model's device, and return the model:
+
+    - ``Word2Vec`` (and ``ParagraphVectors``): ``words`` and ``counts``
+      (the vocab in index order, word for word), ``syn0``, ``syn1`` [V,
+      D], and for ``ParagraphVectors`` ``doc_vecs`` [docs, D]; the
+      negative tables are rebuilt from the counts and the corpus caches
+      dropped;
+    - ``Glove``: ``words``, ``counts``, ``w``, ``wt`` [V, D], ``b``,
+      ``bt`` [V];
+    - ``KMeansClustering``: ``centers`` [k, F], kept as numpy as
+      ``applyTo`` keeps them.
+    """
+    from deeplearning4j_tpu_torch.clustering.kmeans import KMeansClustering
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors)
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    if isinstance(model, KMeansClustering):
+        centers = np.asarray(state["centers"], np.float32)
+        if centers.ndim != 2 or centers.shape[0] != model.k:
+            raise ValueError(f"centers have shape {centers.shape}, want "
+                             f"({model.k}, F)")
+        model.centers = centers.copy()
+        return model
+    if not isinstance(model, (Word2Vec, Glove)):
+        raise TypeError(f"no embedding state for {type(model).__name__}")
+    vocab = _vocab_from(state["words"], state["counts"])
+    v, dev = vocab.numWords(), model.device
+    if isinstance(model, Glove):
+        d = model.cfg["vectorLength"]
+        model.vocab = vocab
+        model.params = {k: _table(state[k], v, d if k in ("w", "wt")
+                                  else None, k, dev)
+                        for k in ("w", "wt", "b", "bt")}
+        return model
+    d = model.cfg["layerSize"]
+    syn0 = _table(state["syn0"], v, d, "syn0", dev)
+    syn1 = _table(state["syn1"], v, d, "syn1", dev)
+    model._invalidate_corpus_caches()
+    model.vocab = vocab
+    model._build_neg_tables()
+    model.syn0, model.syn1 = syn0, syn1
+    if isinstance(model, ParagraphVectors):
+        model.doc_vecs = _table(state["doc_vecs"], len(model.docs), d,
+                                "doc_vecs", dev)
+    return model

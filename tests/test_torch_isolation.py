@@ -9,6 +9,8 @@
   graphs, the zoo with its detectors, restored zips, ResNet-50 in
   bfloat16, an int8 QuantizedServable); a CUDA tensor never reaches the
   plain version.
+- ``chip_smoke.py`` binds each top-level name once, so no phase's
+  helper replaces another's.
 - The bfloat16 paths of the serving boundary, the zip and the numpy
   conversion run in a fresh interpreter that imports neither ``jax`` nor
   ``ml_dtypes`` (the GPU machine has neither; JAX registers bfloat16
@@ -130,12 +132,42 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/datasets/normalizers.py",
                  "deeplearning4j_tpu_torch/datasets/analysis.py",
                  "deeplearning4j_tpu_torch/datasets/join.py",
+                 "deeplearning4j_tpu_torch/nlp/__init__.py",
+                 "deeplearning4j_tpu_torch/nlp/tokenization.py",
+                 "deeplearning4j_tpu_torch/nlp/word2vec.py",
+                 "deeplearning4j_tpu_torch/nlp/paragraph_vectors.py",
+                 "deeplearning4j_tpu_torch/nlp/glove.py",
+                 "deeplearning4j_tpu_torch/nlp/serializer.py",
+                 "deeplearning4j_tpu_torch/graph/__init__.py",
+                 "deeplearning4j_tpu_torch/graph/deepwalk.py",
+                 "deeplearning4j_tpu_torch/clustering/__init__.py",
+                 "deeplearning4j_tpu_torch/clustering/vptree.py",
+                 "deeplearning4j_tpu_torch/clustering/kmeans.py",
+                 "deeplearning4j_tpu_torch/clustering/tsne.py",
+                 "deeplearning4j_tpu_torch/clustering/server.py",
                  "tests/samediff_op_cases.py",
                  "chip_smoke.py"):
         assert want in names
     bad = tmp_path / "bad.py"
     bad.write_text("def f():\n    from deeplearning4j_tpu.nn import x\n")
     assert _imported_roots(bad) & FORBIDDEN == {"deeplearning4j_tpu"}
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A phase's helper must not rebind an earlier phase's (a later
+    ``def`` of the same name would run in the earlier phase's place)."""
+    seen, twice = set(), []
+    for node in ast.parse((ROOT / "chip_smoke.py").read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            bound = [node.name]
+        elif isinstance(node, ast.Assign):
+            bound = [n.id for t in node.targets for n in ast.walk(t)
+                     if isinstance(n, ast.Name)]
+        else:
+            continue
+        twice += [name for name in bound if name in seen]
+        seen.update(bound)
+    assert twice == []
 
 
 def test_native_loader_names_no_path_of_the_jax_package():
