@@ -223,6 +223,22 @@ weights from a numpy seed:
   WordVectorSerializer's binary file read back bitwise, its text file to
   6 decimals. The phase alone: ``nlp_phase(torch, card)`` (it builds only
   the native library).
+- the training half of the parallel tier (``parallel_phase``, last): (a)
+  the LSTM char-RNN at full width (77/256/100, batch 32) through
+  ``ShardedTrainer`` over a data=4 mesh that repeats the card, bitwise
+  ``net.fit`` from the same state, rows 1 and 3 launched once a layer a
+  step; (b) the same after ``MultiHost.initialize(num_processes=1)`` on
+  NCCL (the all-reduce path at world size 1), bitwise (a); (c) BERT-base
+  (768/12/12, batch 16, T=512, float32, dropout 0) through ``BertTrainer``
+  over a seq=4 mesh (ring attention) against the mesh-less flash trainer
+  (rows 7a-c) from the same weights, 3 steps, losses within
+  TRAIN_LOSS_TOL, no flash launch on the ring run, step times and peak
+  memory; (d) ring attention alone at B=1, H=12, T=16384, D=64, seq=8,
+  causal and not, against dense attention in float32 (time and peak memory
+  of each); (e) LeNet ``fitMultiBatch`` of K=8 batches staged by
+  ``DevicePrefetcher.takeMulti(8)``, bitwise 8 ``fit`` calls. The phase
+  alone: build the LSTM and flash sources, then
+  ``parallel_phase(torch, card, lstm, flash)``.
 
 Each main path sets its kernels' launch counters to 0 just before it runs
 and reads them just after.
@@ -9091,6 +9107,308 @@ def nlp_phase(torch, card):
     return figures
 
 
+# -- the parallel tier, training half (parallel_phase) --------------------------
+
+PAR_MESH = 4             # data positions of (a), (b); seq positions of (c)
+PAR_STEPS = 3            # fit steps of (a), (b); BertTrainer steps of (c)
+PAR_TIMED = 3            # (c): steps after the checked ones, only timed
+RING_SHAPE = (1, 12, 16384, 64)   # (d): B, H, T, D
+RING_SEQ = 8
+# (d): the ring against dense attention in float32, the reference's ring
+# rule (tests/test_parallel.py: rtol 2e-4, atol 2e-5)
+RING_RTOL, RING_ATOL = 2e-4, 2e-5
+MULTI_K = 8              # (e): batches a fitMultiBatch call
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _char_rnn_nets(torch, n):
+    """n copies of the full-width LSTM char-RNN on the card from one numpy
+    draw, and (features, labels) of batch 32."""
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils.convert import params_from_numpy
+
+    conf = TextGenerationLSTM(vocabSize=77, hidden=256, seqLength=100).conf()
+    rng = np.random.default_rng(SEED + 91)
+    arrays = [{k: (rng.normal(size=sh) * 0.08).astype(np.float32)
+               for k, sh in lr_.param_shapes().items()} for lr_ in conf.layers]
+    f, l = next_char_batch(rng, 32, 77, 100)
+    nets = []
+    for _ in range(n):
+        c = MultiLayerConfiguration.from_json(conf.to_json())
+        nets.append(MultiLayerNetwork(c).init(params_from_numpy(c, arrays,
+                                                                "cuda")))
+    return nets, f, l
+
+
+def _net_bits(torch, net):
+    from deeplearning4j_tpu_torch.tree_util import tree_leaves
+
+    return b"".join(t.detach().cpu().numpy().tobytes() for t in tree_leaves(
+        [net._params, net._opt_states]))
+
+
+def _timed_fits(torch, fit, steps):
+    """Host-clock ms of each of ``steps`` calls of ``fit()``, each ending
+    in a synchronize (the first call holds the warm-up: the figures
+    printed are the median of the others)."""
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _sharded_char_rnn(torch, lstm, card):
+    """(a) and (b). Returns the launches of rows 1 and 3 in (a)."""
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshConfig, MultiHost, ShardedTrainer, VoidConfiguration)
+
+    (ref, a, b), f, l = _char_rnn_nets(torch, 3)
+    cuda = [torch.device("cuda")] * PAR_MESH
+    kernels = (lstm.lstm_seq_infer, lstm.lstm_seq_fwd, lstm.lstm_seq_bwd)
+    ref_ms = _timed_fits(torch, lambda: ref.fit(f, l), PAR_STEPS)
+    trainer = ShardedTrainer(a, MeshConfig(data=PAR_MESH,
+                                           devices=cuda).build())
+    for fn in kernels:
+        fn.launches = 0
+    a_ms = _timed_fits(torch, lambda: trainer.fit([(f, l)]), PAR_STEPS)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = {"lstm_seq_infer": 0, "lstm_seq_fwd": 2 * PAR_STEPS,
+            "lstm_seq_bwd": 2 * PAR_STEPS}
+    same_a = _net_bits(torch, a) == _net_bits(torch, ref)
+    print(f"parallel ({card}): (a) char-RNN 77/256/100 N=32, ShardedTrainer "
+          f"data={PAR_MESH} over the one card vs net.fit: {PAR_STEPS} steps "
+          f"bitwise {same_a}, scores {a.score()} / {ref.score()}; launches "
+          f"{launches} (one a layer a step, 2 LSTM layers); step ms "
+          f"sharded {[round(t, 3) for t in a_ms]} (median after the first "
+          f"{statistics.median(a_ms[1:]):.3f}), fit "
+          f"{[round(t, 3) for t in ref_ms]} "
+          f"({statistics.median(ref_ms[1:]):.3f})", flush=True)
+    if not same_a or a.score() != ref.score():
+        fail("(a) ShardedTrainer's params or updater state differ from "
+             "net.fit's")
+    if launches != want:
+        fail(f"(a) launches {launches}, want {want}")
+    topo = MultiHost.initialize(
+        VoidConfiguration(controllerAddress=f"127.0.0.1:{_free_port()}"),
+        num_processes=1, process_id=0)
+    try:
+        backend = MultiHost.backend()
+        mesh = MeshConfig(data=PAR_MESH, devices=cuda).build()
+        trainer_b = ShardedTrainer(b, mesh)
+        before = {fn.__name__: fn.launches for fn in kernels}
+        b_ms = _timed_fits(torch, lambda: trainer_b.fit([(f, l)]),
+                           PAR_STEPS)
+        b_launches = {fn.__name__: fn.launches - before[fn.__name__]
+                      for fn in kernels}
+    finally:
+        MultiHost.shutdown()
+    same_b = _net_bits(torch, b) == _net_bits(torch, a)
+    print(f"parallel ({card}): (b) the same under MultiHost.initialize("
+          f"num_processes=1), backend {backend}, topology {topo}, all-reduce "
+          f"path {trainer_b._ranks}: bitwise (a) {same_b}, score {b.score()};"
+          f" launches {b_launches}; step ms {[round(t, 3) for t in b_ms]} "
+          f"(the first holds NCCL's set-up; median after it "
+          f"{statistics.median(b_ms[1:]):.3f})", flush=True)
+    if backend != "nccl" or not trainer_b._ranks:
+        fail(f"(b) ran on {backend}, all-reduce path {trainer_b._ranks}")
+    if not same_b or b.score() != a.score():
+        fail("(b) the world-size-1 run differs from (a)")
+    if b_launches != want:
+        fail(f"(b) launches {b_launches}, want {want}")
+    return {"lstm_seq_fwd": launches["lstm_seq_fwd"],
+            "lstm_seq_bwd": launches["lstm_seq_bwd"],
+            "step_ms": {"sharded": a_ms, "fit": ref_ms, "world1": b_ms}}
+
+
+def _seq_bert(torch, flash, card):
+    """(c): BERT-base with a seq axis (ring attention) against the
+    mesh-less flash trainer."""
+    from deeplearning4j_tpu_torch.models import bert
+    from deeplearning4j_tpu_torch.parallel import MeshConfig
+    from deeplearning4j_tpu_torch.utils.convert import bert_params_from_numpy
+
+    tree = bert_numpy_params(np.random.default_rng(SEED + 92))
+    cfg = bert.BertConfig(**BERT_BASE, dropout=0.0, compute_dtype="float32",
+                          attention_impl="flash")
+    batches = [bert.synthetic_mlm_batch(cfg, BERT_BATCH, BERT_T, seed=s)
+               for s in range(PAR_STEPS)]
+    fns = [getattr(flash, name) for name in FLASH_NAMES]
+    out = {}
+    for label, mesh in (("flash", None), ("ring", MeshConfig(
+            data=1, seq=PAR_MESH,
+            devices=[torch.device("cuda")] * PAR_MESH).build())):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = bert.BertTrainer(cfg, lr=BERT_LR, mesh=mesh,
+                              params=bert_params_from_numpy(tree, "cuda"))
+        for fn in fns:
+            fn.launches = 0
+        losses, times = [], []
+        for i in range(PAR_STEPS + PAR_TIMED):
+            tokens, labels = batches[i % PAR_STEPS]
+            t0 = time.perf_counter()
+            loss = float(tr.train_step(tokens, labels))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i < PAR_STEPS:
+                losses.append(loss)
+        out[label] = {"losses": losses, "step_ms": times,
+                      "median_ms": statistics.median(times[1:]),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": {fn.__name__: fn.launches for fn in fns}}
+        del tr
+    worst = max(abs(a - b) / abs(b) for a, b in zip(out["ring"]["losses"],
+                                                    out["flash"]["losses"]))
+    print(f"parallel ({card}): (c) BERT-base B={BERT_BATCH} T={BERT_T} "
+          f"float32, {PAR_STEPS} steps, seq={PAR_MESH} ring vs flash: "
+          f"{json.dumps(out)}; losses max rel {worst:.3e}", flush=True)
+    if worst > TRAIN_LOSS_TOL:
+        fail(f"(c) ring losses differ from flash by {worst:.3e} > "
+             f"{TRAIN_LOSS_TOL}")
+    if any(out["ring"]["launches"].values()):
+        fail(f"(c) flash kernels launched under the seq axis: "
+             f"{out['ring']['launches']}")
+    if out["flash"]["launches"]["flash_fwd"] != 12 * (PAR_STEPS
+                                                      + PAR_TIMED):
+        fail(f"(c) the flash trainer's launches {out['flash']['launches']}")
+    return out
+
+
+def _ring_alone(torch, card):
+    """(d): ring attention at long context against dense attention."""
+    from deeplearning4j_tpu_torch.parallel import MeshConfig, ring_attention
+    from deeplearning4j_tpu_torch.parallel.ring_attention import (
+        _dense_attention)
+
+    mesh = MeshConfig(data=1, seq=RING_SEQ,
+                      devices=[torch.device("cuda")] * RING_SEQ).build()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 93)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
+               for _ in range(3))
+    out = {}
+    with torch.no_grad():
+        for causal in (False, True):
+            row = {}
+            for label, fn in (
+                    ("ring", lambda: ring_attention(q, k, v, mesh,
+                                                    causal=causal)),
+                    ("dense", lambda: _dense_attention(q, k, v, causal,
+                                                       True))):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                y = fn()
+                torch.cuda.synchronize()
+                row[f"{label}_peak_gib"] = (
+                    torch.cuda.max_memory_allocated() - base) / 2**30
+                row[label] = y
+            err = (row["ring"] - row["dense"]).abs()
+            bad = int((err > RING_ATOL + RING_RTOL
+                       * row["dense"].abs()).sum())
+            row["max_abs_err"] = float(err.max())
+            del row["ring"], row["dense"]
+            row["ring_ms"] = time_ms(lambda: ring_attention(
+                q, k, v, mesh, causal=causal), 3)
+            row["dense_ms"] = time_ms(lambda: _dense_attention(
+                q, k, v, causal, True), 3)
+            out["causal" if causal else "full"] = row
+            print(f"parallel ({card}): (d) ring seq={RING_SEQ} vs dense at "
+                  f"(B, H, T, D) = {RING_SHAPE} float32, causal={causal}: "
+                  f"{json.dumps(row)}, {bad} elements beyond rtol "
+                  f"{RING_RTOL} atol {RING_ATOL}", flush=True)
+            if bad:
+                fail(f"(d) ring attention (causal={causal}) differs from "
+                     f"dense at {bad} elements")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def _multi_batch_lenet(torch, card):
+    """(e): LeNet fitMultiBatch over takeMulti(8) against 8 fit calls."""
+    from deeplearning4j_tpu_torch.datasets import (
+        DevicePrefetcher, MnistDataSetIterator)
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    # cuDNN's deterministic algorithms, so two runs of one step agree
+    # bitwise (its fastest backward algorithms sum in a varying order)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        net = LeNet().init()
+        twin = net.clone()
+        pf = DevicePrefetcher(MnistDataSetIterator(batch_size=LENET_BATCH))
+        try:
+            fk, lk = pf.takeMulti(MULTI_K)
+        finally:
+            pf.close()
+        if fk.device.type != "cuda":
+            fail(f"(e) takeMulti staged on {fk.device}")
+        host = MnistDataSetIterator(batch_size=LENET_BATCH)
+        batches = [host.next() for _ in range(MULTI_K)]
+        warm = net.clone()   # the first step's set-up, outside the timings
+        warm.fit(batches[0])
+        warm.fitMultiBatch(fk[:1], lk[:1])
+        del warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = net.fitMultiBatch(fk, lk)
+        torch.cuda.synchronize()
+        multi_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = []
+        for ds in batches:
+            twin.fit(ds)
+            want.append(twin.score())
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    same = _net_bits(torch, net) == _net_bits(torch, twin)
+    got = losses.tolist()
+    print(f"parallel ({card}): (e) LeNet fitMultiBatch K={MULTI_K} batch "
+          f"{LENET_BATCH} from takeMulti vs {MULTI_K} fit calls: bitwise "
+          f"{same}, losses equal {got == want} ({got[0]:.6f} .. "
+          f"{got[-1]:.6f}); ms {multi_ms:.2f} vs {fit_ms:.2f}", flush=True)
+    if not same or got != want:
+        fail("(e) fitMultiBatch differs from the fit calls")
+    return {"multi_ms": multi_ms, "fit_ms": fit_ms}
+
+
+def parallel_phase(torch, card, lstm, flash):
+    """The training half of the parallel tier on the one card: (a)-(e) of
+    the module docstring. Returns the launches of rows 1 and 3 in (a) and
+    the figures."""
+    t_phase = time.perf_counter()
+    figures = {"charrnn": _sharded_char_rnn(torch, lstm, card)}
+    figures["bert_seq"] = _seq_bert(torch, flash, card)
+    torch.cuda.empty_cache()
+    figures["ring"] = _ring_alone(torch, card)
+    figures["multi_batch"] = _multi_batch_lenet(torch, card)
+    figures["phase_s"] = time.perf_counter() - t_phase
+    print(f"parallel_phase ({card}): {figures['phase_s']:.1f} s", flush=True)
+    return figures
+
+
 def main():
     import torch
 
@@ -9157,6 +9475,7 @@ def main():
     precision_phase(torch, card, resnet_f32)
     data = data_phase(torch, card, lstm)
     nlp_phase(torch, card)
+    parallel = parallel_phase(torch, card, lstm, flash)
 
     pallas = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
               "(via deeplearning4j_tpu/models/bert.py:197)")
@@ -9262,6 +9581,13 @@ def main():
          rows[(100, PIPE_LSTM_OUT_ROWS, 256)]["err"],
          (100, PIPE_LSTM_OUT_ROWS, 256),
          dict(rows[(100, PIPE_LSTM_OUT_ROWS, 256)], path="pipeline_lstm"))
+    ] + [
+        # rows 1 and 3 through ShardedTrainer over a data=4 mesh
+        (name, source, f"kernels/lstm.py:{line}",
+         parallel["charrnn"][name], train_errs[name], REPORT_SHAPE,
+         dict(train_rows[name][REPORT_SHAPE], path="sharded_charrnn"))
+        for name, source, line in (("lstm_seq_fwd", "lstm_seq_infer.cu", 97),
+                                   ("lstm_seq_bwd", "lstm_seq_bwd.cu", 200))
     ] + [
         # rows 2, 5 and 7a through the replica sets, on CUDA streams
         ("lstm_seq_infer", "lstm_seq_infer.cu", "kernels/lstm.py:115",

@@ -22,12 +22,15 @@ Where the reference differs by design:
   compute dtype; the layers' aux losses, times ``moe_aux_weight``, join
   both MLM losses;
 - ``BertTrainer`` takes a ``mesh`` (``parallel/mesh.py``) under the
-  one-process semantics of ``parallel/__init__.py``: ``data``, ``expert``
-  and ``pipe`` place nothing and change no number, and everything sits on
-  the mesh's first device. Ring attention (``seq``) and the tensor-parallel
-  shardings (``model``) come with the parallel tier (ROADMAP queue 1, item
-  12) and raise; ``param_specs`` gives the reference's layout as tuples of
-  axis names.
+  one-process semantics of ``parallel/__init__.py``: ``data``, ``model``,
+  ``expert`` and ``pipe`` place nothing and change no number, and
+  everything sits on the mesh's first device; a ``seq`` axis sends the
+  attention to ``ring_attention`` (``parallel/ring_attention.py``) before
+  any other route, as the reference's ``_attention`` does, so the flash
+  kernels do not run under it. ``param_specs`` gives the reference's
+  layout as tuples of axis names, and the trainer keeps it, resolved
+  against the mesh, with the (data, seq) batch spec, in name only. A mesh
+  across ranks raises (ROADMAP queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -43,9 +46,10 @@ from deeplearning4j_tpu_torch.backend import resolve_device, torch_dtype
 from deeplearning4j_tpu_torch.kernels import flash
 from deeplearning4j_tpu_torch.nn.conf.layers import take_rows
 from deeplearning4j_tpu_torch.parallel.mesh import (
-    MODEL_AXIS, SEQ_AXIS, Mesh)
+    DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, spec_for)
 from deeplearning4j_tpu_torch.parallel.moe import (
     moe_apply, moe_init, moe_param_specs)
+from deeplearning4j_tpu_torch.parallel.ring_attention import ring_attention
 
 
 @dataclass
@@ -196,10 +200,13 @@ def attention_route(cfg: BertConfig, t: int, device_type: str) -> str:
     return impl if impl in ("flash", "dpa") else "dense"
 
 
-def _attention(q, k, v, cfg: BertConfig):
-    """[B, H, T, D] attention by ``attention_route``. Flash takes the
+def _attention(q, k, v, cfg: BertConfig, mesh=None):
+    """[B, H, T, D] attention: a mesh with a ``seq`` axis takes ring
+    attention; otherwise ``attention_route``, flash taking the
     differentiable kernels when a gradient is wanted, the inference kernel
     otherwise."""
+    if mesh is not None and SEQ_AXIS in mesh.axis_names:
+        return ring_attention(q, k, v, mesh)
     impl = attention_route(cfg, q.shape[-2], q.device.type)
     if impl == "dpa":
         return F.scaled_dot_product_attention(q, k, v)
@@ -213,7 +220,7 @@ def _attention(q, k, v, cfg: BertConfig):
 
 
 def encoder_layer(lp, x, cfg: BertConfig, li=0, deterministic=True,
-                  generator=None):
+                  generator=None, mesh=None):
     """One post-LN encoder block. x [B, T, H] in the compute dtype ->
     ([B, T, H], aux loss: the MoE load-balancing loss, float32, or 0.0 for
     a dense FFN). Residual adds happen in the compute dtype, then the sum
@@ -227,7 +234,7 @@ def encoder_layer(lp, x, cfg: BertConfig, li=0, deterministic=True,
     def to_heads(a):
         return a.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
 
-    att = _attention(to_heads(q), to_heads(k), to_heads(v), cfg)
+    att = _attention(to_heads(q), to_heads(k), to_heads(v), cfg, mesh)
     att = att.permute(0, 2, 1, 3).reshape(b, t, nh * hd)
     att = att @ lp["out_w"].to(dtype) + lp["out_b"].to(dtype)
     drop = not deterministic and cfg.dropout > 0 and generator is not None
@@ -271,7 +278,7 @@ def embed(params, cfg: BertConfig, tokens, type_ids=None):
 
 
 def forward_with_aux(params, cfg: BertConfig, tokens, type_ids=None,
-                     deterministic=True, generator=None):
+                     deterministic=True, generator=None, mesh=None):
     """tokens [B, T] -> (hidden states [B, T, H], the layers' MoE aux
     losses summed, float32; 0.0 without MoE)."""
     x = embed(params, cfg, tokens, type_ids)
@@ -279,25 +286,25 @@ def forward_with_aux(params, cfg: BertConfig, tokens, type_ids=None,
     for li, lp in enumerate(params["layers"]):
         x, aux = encoder_layer(lp, x, cfg, li=li,
                                deterministic=deterministic,
-                               generator=generator)
+                               generator=generator, mesh=mesh)
         aux_total = aux_total + aux
     return x, aux_total
 
 
 def forward(params, cfg: BertConfig, tokens, type_ids=None,
-            deterministic=True, generator=None):
+            deterministic=True, generator=None, mesh=None):
     """tokens [B, T] -> hidden states [B, T, H] (compute dtype)."""
     return forward_with_aux(params, cfg, tokens, type_ids, deterministic,
-                            generator)[0]
+                            generator, mesh)[0]
 
 
 def mlm_loss(params, cfg: BertConfig, tokens, labels, deterministic=False,
-             generator=None):
+             generator=None, mesh=None):
     """Masked-LM loss over every position; labels -100 where unmasked.
     The LM head ties tok_emb."""
     hs, aux = forward_with_aux(params, cfg, tokens,
                                deterministic=deterministic,
-                               generator=generator)
+                               generator=generator, mesh=mesh)
     logits = hs.float() @ params["tok_emb"].T + params["mlm_bias"]
     logp = torch.log_softmax(logits, dim=-1)
     valid = labels >= 0
@@ -309,7 +316,7 @@ def mlm_loss(params, cfg: BertConfig, tokens, labels, deterministic=False,
 
 
 def mlm_loss_masked(params, cfg: BertConfig, tokens, positions, mlm_labels,
-                    weights, deterministic=False, generator=None):
+                    weights, deterministic=False, generator=None, mesh=None):
     """Masked-LM loss over the gathered masked positions only.
 
     positions, mlm_labels [B, M] ints, weights [B, M] float32 (0 pads a
@@ -318,7 +325,7 @@ def mlm_loss_masked(params, cfg: BertConfig, tokens, positions, mlm_labels,
     for bf16 values) and multiply with TF32 off."""
     hs, aux = forward_with_aux(params, cfg, tokens,
                                deterministic=deterministic,
-                               generator=generator)
+                               generator=generator, mesh=mesh)
     loss = masked_lm_head_loss(params, hs, positions, mlm_labels, weights)
     return loss + cfg.moe_aux_weight * aux
 
@@ -398,18 +405,26 @@ def adam_update(leaves, grads, opt, step, lr):
 
 def mesh_device(mesh, device):
     """The device a trainer given ``mesh`` and ``device`` runs on: the
-    named device, else the mesh's first, else CUDA. A mesh with a ``seq``
-    or ``model`` axis (ring attention, tensor parallel) raises."""
+    named device, else the mesh's first, else CUDA. A mesh whose positions
+    belong to several ranks raises: the BERT trainers across ranks are
+    ROADMAP queue 1 item 12b."""
     if mesh is not None:
-        for axis, what in ((SEQ_AXIS, "ring attention"),
-                           (MODEL_AXIS, "tensor-parallel shardings")):
-            if mesh.shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"a mesh with a {axis!r} axis ({what}) is not ported "
-                    f"yet: ROADMAP queue 1 item 12")
+        if mesh.multi_rank:
+            raise NotImplementedError(
+                "a BERT trainer over a mesh across ranks is not ported: "
+                "it comes with ROADMAP queue 1 item 12b")
         if device is None:
             device = mesh.device
     return resolve_device(device)
+
+
+def _resolve_specs(specs, mesh):
+    """A spec tree with the axes the mesh lacks as None."""
+    if isinstance(specs, dict):
+        return {k: _resolve_specs(v, mesh) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_resolve_specs(v, mesh) for v in specs]
+    return spec_for(mesh, *specs)
 
 
 class BertTrainer:
@@ -420,9 +435,11 @@ class BertTrainer:
     ``params`` (a tree from ``init_params`` or ``bert_params_from_numpy``)
     replaces the random draw from ``seed``; dropout draws from a generator
     seeded with ``seed`` on the trainer's device. ``mesh`` (optional,
-    keyword) lays the reference's shardings out in name only: ``data``,
-    ``expert`` and ``pipe`` change no number, and the trainer runs on the
-    mesh's first device unless ``device`` names another."""
+    keyword) lays the reference's shardings out in name only
+    (``param_specs``, ``batch_spec``, ``pos_spec``): ``data``, ``model``,
+    ``expert`` and ``pipe`` change no number, a ``seq`` axis runs ring
+    attention, and the trainer runs on the mesh's first device unless
+    ``device`` names another."""
 
     def __init__(self, cfg: BertConfig, lr=1e-4, seed=0, device=None,
                  params=None, *, mesh: Mesh | None = None):
@@ -430,6 +447,11 @@ class BertTrainer:
         self.lr = lr
         self.mesh = mesh
         self.device = mesh_device(mesh, device)
+        if mesh is not None:
+            self.param_specs = _resolve_specs(param_specs(cfg), mesh)
+            self.batch_spec = spec_for(mesh, DATA_AXIS, SEQ_AXIS)
+            # masked-position tensors [B, M]: data only (M is not T)
+            self.pos_spec = spec_for(mesh, DATA_AXIS)
         if params is None:
             params = init_params(cfg, torch.Generator().manual_seed(seed),
                                  self.device)
@@ -453,7 +475,8 @@ class BertTrainer:
             with torch.enable_grad():
                 loss = mlm_loss_masked(
                     self.params, self.cfg, tokens, positions, mlm_labels,
-                    weights, deterministic=False, generator=self._gen)
+                    weights, deterministic=False, generator=self._gen,
+                    mesh=self.mesh)
                 grads = torch.autograd.grad(loss, self._leaves,
                                             materialize_grads=True)
         finally:

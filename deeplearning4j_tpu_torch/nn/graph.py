@@ -34,8 +34,11 @@ output dtype returned; with loss scaling the gated step and the scaler
 state (``_prec_state``), published one step behind through
 ``precision.monitor_for("graph", ...)``.
 
-Left for later slices, as in ROADMAP.md: ``fitMultiBatch``, listeners,
-training health and telemetry beyond the precision monitor.
+``fitMultiBatch`` takes single-input, single-output graphs, as in the
+JAX package, and runs its K steps as K ``fit`` calls would.
+
+Left for later slices, as in ROADMAP.md: listeners, training health and
+telemetry beyond the precision monitor.
 """
 
 from __future__ import annotations
@@ -407,8 +410,42 @@ class ComputationGraph:
         return self
 
     def fitMultiBatch(self, features_k, labels_k, repeats: int = 1):
-        raise NotImplementedError(
-            "fitMultiBatch comes with ROADMAP.md queue 1 item 12")
+        """K optimizer steps over stacked [K, batch, ...] minibatches of a
+        single-input, single-output graph, as K successive ``fit`` calls
+        on the K slices; ``repeats=R`` makes R passes. Returns the [K]
+        losses (of the last pass). A stack on this graph's device is
+        sliced where it lies. The precision monitor hears of the call
+        once, after its last step (``on_launch``)."""
+        self._check_init()
+        if len(self.conf.inputs) != 1 or len(self.conf.outputs) != 1:
+            raise ValueError(
+                "fitMultiBatch takes single-input, single-output graphs; "
+                f"this one has inputs {list(self.conf.inputs)} and outputs "
+                f"{list(self.conf.outputs)}")
+        f_k, l_k = self._input(features_k), self._input(labels_k)
+        if f_k.shape[0] != l_k.shape[0]:
+            raise ValueError(f"{f_k.shape[0]} feature batches for "
+                             f"{l_k.shape[0]} label batches")
+        name_in, name_out = self.conf.inputs[0], self.conf.outputs[0]
+        masks = {name_out: torch.as_tensor(_ones_mask(l_k[0]),
+                                           device=self.device)}
+        pm = monitor_for("graph", self._policy)
+        if pm is not None:
+            pm.baseline_from(self._prec_state)
+        it0 = self._iteration
+        losses = None
+        for _ in range(repeats):
+            losses = []
+            for f, l in zip(f_k, l_k):
+                loss, states = self._step(self._states, {name_in: f},
+                                          {name_out: l}, masks)
+                self._states = self._strip_rnn_states(states)
+                losses.append(loss)
+            losses = torch.stack(losses)
+        self._score = float(losses[-1])
+        if pm is not None:
+            pm.on_launch(range(it0, self._iteration), self._prec_state)
+        return losses
 
     def setListeners(self, *listeners):
         raise NotImplementedError(

@@ -73,8 +73,12 @@ CUDA side stream (``_prefetch_prepare``), so the step takes device tensors
 (a ``DeviceBatch``) and copies nothing. The values are those of the
 blocking path, which ``set_default_depth(0)`` restores.
 
+``fitMultiBatch`` runs K steps over stacked [K, batch, ...] batches as K
+``fit`` calls would, bitwise, and ``_step`` takes the data-parallel
+trainer's gradient all-reduce (``parallel/trainer.py``) as a hook.
+
 Left for later slices, as in ROADMAP.md: training health, telemetry
-beyond the precision monitor, listeners and fitMultiBatch.
+beyond the precision monitor, and listeners.
 """
 
 from __future__ import annotations
@@ -474,15 +478,20 @@ class MultiLayerNetwork:
             return None
         return _dropout_generator(self.conf.seed, it, self.device)
 
-    def _step(self, states, f, l, lmask):
+    def _step(self, states, f, l, lmask, reduce_grads=None):
         """One optimizer step on a device batch; returns (loss, states).
         The params and the updater state are updated in place; with loss
-        scaling, only where the unscaled gradients are all finite."""
+        scaling, only where the unscaled gradients are all finite.
+        ``reduce_grads(loss, grads) -> (loss, grads)`` (the data-parallel
+        all-reduce of ``parallel/trainer.py``) runs on the loss and the
+        per-layer gradients before anything reads them."""
         it = self._iteration
         prec = self._prec_state if self._scaler is not None else {}
         loss, new_states, grads = self._value_and_grad(
             states, f, l, lmask, True, self._dropout_generator(it),
             prec=prec or None)
+        if reduce_grads is not None:
+            loss, grads = reduce_grads(loss, grads)
         with torch.no_grad():
             if prec:
                 grads = self._scaler.unscale(grads, prec)
@@ -632,6 +641,38 @@ class MultiLayerNetwork:
                         pm.on_step(it_used, self._prec_state)
             self._epoch += 1
         return last_loss
+
+    def fitMultiBatch(self, features_k, labels_k, repeats: int = 1):
+        """K optimizer steps over stacked [K, batch, ...] minibatches, as K
+        successive ``fit`` calls on the K slices (each with a mask of
+        ones); ``repeats=R`` makes R passes over them. Returns the [K]
+        losses (of the last pass). The reference scans the K steps in one
+        launch; eager PyTorch runs them as a loop, and a stack already on
+        this network's device (``DevicePrefetcher.takeMulti``) is sliced
+        where it lies, with no host bounce. The precision monitor hears
+        of the call once, after its last step (``on_launch``)."""
+        self._check_init()
+        f_k, l_k = self._input(features_k), self._input(labels_k)
+        if f_k.shape[0] != l_k.shape[0]:
+            raise ValueError(f"{f_k.shape[0]} feature batches for "
+                             f"{l_k.shape[0]} label batches")
+        mask = torch.as_tensor(_ones_mask(l_k[0]), device=self.device)
+        pm = monitor_for("fit", self._policy)
+        if pm is not None:
+            pm.baseline_from(self._prec_state)
+        it0 = self._iteration
+        losses = None
+        for _ in range(repeats):
+            losses = []
+            for f, l in zip(f_k, l_k):
+                loss, states = self._step(self._states, f, l, mask)
+                self._states = self._strip_rnn_states(states)
+                losses.append(loss)
+            losses = torch.stack(losses)
+        self._score = float(losses[-1])
+        if pm is not None:
+            pm.on_launch(range(it0, self._iteration), self._prec_state)
+        return losses
 
     def _strip_rnn_states(self, states):
         out = list(states)

@@ -13,9 +13,9 @@ process runs the same schedule:
   ticks where that index falls outside [0, M) are bubble ticks and do no
   work;
 - an activation moves to the next stage's device with ``.to()`` (the
-  reference's ``ppermute``); multi-rank send/recv over
-  ``torch.distributed`` comes with the parallel tier (ROADMAP queue 1,
-  item 12);
+  reference's ``ppermute``); a ``pipe`` axis across ranks (send/recv
+  between ranks' stages) is ROADMAP queue 1 item 12b, and
+  ``MeshConfig.build`` refuses it;
 - the backward pipeline is autograd through those ops.
 
 The output equals applying the stages in sequence, as the reference's

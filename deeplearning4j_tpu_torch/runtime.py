@@ -6,8 +6,11 @@ PyTorch has no XLA and no jit here, so the knobs map as follows:
 - ``platform``: None, "cuda" or "cpu". ``apply`` checks that the backend
   is there (``Nd4jBackend.load(force=...)``) and makes it the default
   device of ``Nd4j``'s factories. Networks keep their own ``device=``.
-- ``host_device_count``: None or 1. Virtual devices belong to the
-  parallel tier, which is not ported.
+- ``host_device_count``: n virtual CPU devices, the JAX package's
+  in-process multi-chip simulation. In the port they are a CPU mesh of
+  ``["cpu"] * n``: once applied, ``MeshConfig.build()`` without devices
+  lays its mesh over them (``virtual_cpu_devices``) and ``environment()``
+  counts them on the CPU backend.
 - ``matmul_precision``: None or "highest". The port computes float32 in
   float32 (TF32 off), so "high" and "default", which would turn TF32 on,
   are refused.
@@ -27,6 +30,22 @@ import torch
 
 from deeplearning4j_tpu_torch.backend import Nd4jBackend
 
+_VIRTUAL = {"cpu": None}   # the applied host_device_count
+
+
+def virtual_cpu_devices() -> list | None:
+    """``["cpu"] * n`` after a ``RuntimeConfig`` with
+    ``host_device_count=n`` was applied, else None."""
+    n = _VIRTUAL["cpu"]
+    return [torch.device("cpu")] * n if n else None
+
+
+def _process_count() -> int:
+    import torch.distributed as dist
+
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
 
 @dataclass
 class RuntimeConfig:
@@ -45,10 +64,10 @@ class RuntimeConfig:
                 f"matmul_precision {self.matmul_precision!r} would turn "
                 f"TF32 on; the port computes float32 in float32, so only "
                 f"'highest' is taken")
-        if self.host_device_count not in (None, 1):
-            raise NotImplementedError(
-                "virtual host devices come with the parallel tier "
-                "(ROADMAP.md, queue 1)")
+        if self.host_device_count is not None and \
+                int(self.host_device_count) < 1:
+            raise ValueError(f"host_device_count must be at least 1, got "
+                             f"{self.host_device_count}")
         if self.extra_xla_flags:
             raise ValueError("the port runs no XLA: extra_xla_flags must "
                              "be empty")
@@ -57,6 +76,8 @@ class RuntimeConfig:
 
             backend = Nd4jBackend.load(force=self.platform)
             Nd4j.setDefaultDevice(backend.platform)
+        if self.host_device_count is not None:
+            _VIRTUAL["cpu"] = int(self.host_device_count)
         if self.matmul_precision == "highest":
             torch.set_float32_matmul_precision("highest")
         if self.deterministic:
@@ -69,8 +90,9 @@ class RuntimeConfig:
     @staticmethod
     def cpu_mesh(n_devices: int = 8,
                  matmul_precision: str = "highest") -> "RuntimeConfig":
-        """The JAX package's in-process multi-device simulation; the port
-        takes only ``n_devices=1`` when it is applied."""
+        """The JAX package's in-process multi-device simulation: n virtual
+        CPU devices (a CPU mesh of ``["cpu"] * n``), float32 matmuls in
+        float32."""
         return RuntimeConfig(platform="cpu", host_device_count=n_devices,
                              matmul_precision=matmul_precision)
 
@@ -78,11 +100,12 @@ class RuntimeConfig:
     def environment() -> dict:
         """The runtime's facts: backend, devices, versions."""
         backend = Nd4jBackend.load()
+        virtual = virtual_cpu_devices() if backend.name == "cpu" else None
         return {
             "backend": backend.name,
-            "device_count": backend.device_count,
+            "device_count": len(virtual) if virtual else backend.device_count,
             "devices": [str(d) for d in Nd4jBackend.devices()],
-            "process_count": 1,
+            "process_count": _process_count(),
             "torch_version": torch.__version__,
             "cuda_version": torch.version.cuda,
             "cudnn_version": (torch.backends.cudnn.version()

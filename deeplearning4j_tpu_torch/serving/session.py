@@ -384,8 +384,8 @@ class InferenceSession:
         still flows). Each replica set also says what its replicas hold:
         the streams they run on and the staging bytes each owns beside
         the parameters they share. The reference's ``sharded`` section
-        (mesh-sharded servables and decoders) comes with the parallel
-        tier (ROADMAP.md, queue 1 item 12)."""
+        (mesh-sharded servables and decoders) comes with the serving
+        half of the parallel tier (ROADMAP.md, queue 1 item 12b)."""
         with self._lock:
             batchers = dict(self._batchers)
             decoders = dict(self._decoders)

@@ -120,7 +120,7 @@ class ModelSerializer:
         groups, Bidirectional's, the reference raises; the port writes
         its ``tree_leaves`` order). The reference refuses the flag with
         ``sharded=True``; the port's writeModel takes no ``sharded=``
-        yet (ROADMAP.md, queue 1 item 12), so the flag always goes to the
+        yet (ROADMAP.md, queue 1 item 12b), so the flag always goes to the
         single file."""
         is_graph = isinstance(model, ComputationGraph)
         named = {}

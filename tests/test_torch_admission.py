@@ -329,7 +329,22 @@ def test_unregister_decoder_closes_engine(pkg):
     sess.close()
 
 
-def test_unregister_releases_the_pool_claim_and_records_flight():
+@pytest.fixture
+def telemetry_on():
+    """Telemetry on (memledger claims and flight events need it),
+    whatever an earlier test in the process left; restored after."""
+    from deeplearning4j_tpu_torch import telemetry
+
+    was = telemetry.enabled(), flight.enabled()
+    telemetry.enable()
+    flight.enable()
+    yield
+    (telemetry.enable if was[0] else telemetry.disable)()
+    (flight.enable if was[1] else flight.disable)()
+
+
+def test_unregister_releases_the_pool_claim_and_records_flight(
+        telemetry_on):
     memledger.set_ledger(memledger.MemLedger())
     flight.get_recorder().clear()
     sess = _session("torch")

@@ -385,8 +385,9 @@ def test_precision_policies_wait_for_their_slice():
     tighter than BF16_FACTOR unit roundoffs of its largest element); one
     fit step's loss-scaler state equal and the masters and moments still
     float32; the output in float32. An uninitialised graph refuses
-    ``output``; ``fitMultiBatch`` and listeners still wait for ROADMAP.md
-    queue 1 items 12 and 13."""
+    ``output``; ``fitMultiBatch`` refuses this two-input graph (it takes
+    single-input, single-output graphs, as the reference's does), and
+    listeners still wait for ROADMAP.md queue 1 item 13."""
     with pytest.raises(RuntimeError, match="init"):
         ComputationGraph(_mixed_conf(PORT), device="cpu").output(
             np.zeros((1, 2, 8, 8), np.float32))
@@ -422,8 +423,8 @@ def test_precision_policies_wait_for_their_slice():
     assert {v.dtype for v in tree_leaves(
         [port._params, port._opt_states])} == {torch.float32}
     assert all(y.dataType() == torch.float32 for y in port.output(*feats))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port.fitMultiBatch(None, None)
+    with pytest.raises(ValueError, match="single-input"):
+        port.fitMultiBatch(np.stack([feats[0]]), np.stack([labels[0]]))
     with pytest.raises(NotImplementedError, match="item 13"):
         port.setListeners(object())
 
@@ -831,8 +832,16 @@ def test_runtime_config_fields_and_refusals_against_the_reference():
     for bad in ("high", "default"):
         with pytest.raises(ValueError, match="TF32"):
             RuntimeConfig(matmul_precision=bad).apply()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        RuntimeConfig.cpu_mesh(4).apply()
+    from deeplearning4j_tpu_torch import runtime
+    from deeplearning4j_tpu_torch.ndarray import ndarray as nd
+
+    default = nd._default_device[0]
+    try:   # n virtual devices are a CPU mesh of ["cpu"] * n
+        assert RuntimeConfig.cpu_mesh(4).apply().host_device_count == 4
+        assert runtime.virtual_cpu_devices() == [torch.device("cpu")] * 4
+    finally:
+        runtime._VIRTUAL["cpu"] = None
+        nd._default_device[0] = default
     with pytest.raises(ValueError, match="XLA"):
         RuntimeConfig(extra_xla_flags=["--x"]).apply()
     with pytest.raises(RuntimeError, match="not available"):

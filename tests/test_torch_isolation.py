@@ -145,6 +145,11 @@ def test_scan_sees_the_package_and_a_forbidden_import(tmp_path):
                  "deeplearning4j_tpu_torch/clustering/kmeans.py",
                  "deeplearning4j_tpu_torch/clustering/tsne.py",
                  "deeplearning4j_tpu_torch/clustering/server.py",
+                 "deeplearning4j_tpu_torch/parallel/multihost.py",
+                 "deeplearning4j_tpu_torch/parallel/transport.py",
+                 "deeplearning4j_tpu_torch/parallel/sharding.py",
+                 "deeplearning4j_tpu_torch/parallel/ring_attention.py",
+                 "deeplearning4j_tpu_torch/parallel/trainer.py",
                  "tests/samediff_op_cases.py",
                  "chip_smoke.py"):
         assert want in names

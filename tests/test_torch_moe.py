@@ -445,10 +445,14 @@ def test_bert_moe_param_specs_and_mesh_rules():
     assert tbert.param_specs(tcfg) == want
     dense = dataclasses.replace(tcfg, n_experts=0)
     assert "ffn_in_w" in tbert.param_specs(dense)["layers"][0]
+    # a seq or model axis at one process builds: seq runs ring attention,
+    # model lays the specs out in name only
     for axes in (dict(data=1, seq=2), dict(data=1, model=2)):
         mesh = MeshConfig(**axes, devices=["cpu"] * 2).build()
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tbert.BertTrainer(tcfg, mesh=mesh)
+        trainer = tbert.BertTrainer(tcfg, mesh=mesh)
+        assert trainer.device.type == "cpu"
+        assert trainer.param_specs["layers"][0]["qkv_w"] == (
+            (None, "model") if "model" in axes else (None, None))
 
 
 # ---------------------------------------------------------------------------

@@ -116,6 +116,11 @@ def test_package_exports_every_ported_name(package):
                   "replicated", "DATA_AXIS", "EXPERT_AXIS", "PIPE_AXIS",
                   "moe_apply", "MoELayerTrainer", "pipeline_apply",
                   "PipelineMlp", "PipelineParallelTrainer"]),
+    ("parallel", ["ShardedTrainer", "ParallelWrapper", "ParallelInference",
+                  "ParameterAveragingTrainingMaster", "SharedTrainingMaster",
+                  "SparkDl4jMultiLayer", "ring_attention", "MultiHost",
+                  "VoidConfiguration", "alternating_dense_specs",
+                  "replicated_specs", "SEQ_AXIS", "MODEL_AXIS"]),
     ("nn.conf", ["variational", "objdetect", "layers_extra", "attention",
                  "capsnet"]),
     ("nn.conf", ["InputType", "MultiLayerConfiguration",

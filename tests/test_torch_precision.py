@@ -637,6 +637,7 @@ class TestOverflowSkip:
         port, _ = _net("bf16_mixed", seed=11)
         x, y = _data()
         prev = telemetry.set_registry(CountingStub())
+        was = telemetry.enabled()
         telemetry.disable()
         try:
             xbad = x.copy()
@@ -645,7 +646,7 @@ class TestOverflowSkip:
             assert CountingStub.calls == 0
         finally:
             telemetry.set_registry(prev)
-            telemetry.enable()
+            (telemetry.enable if was else telemetry.disable)()
         assert _scaler(port)["overflows"] == 1
         assert np.isfinite(port.getParam(0, "W").toNumpy()).all()
 

@@ -268,6 +268,7 @@ def test_prefetcher_claims_its_staged_bytes_when_telemetry_is_on():
     from deeplearning4j_tpu_torch.telemetry import memledger
 
     x, y = _data(8)
+    was = telemetry.enabled()
     telemetry.enable()
     try:
         p = pds.DevicePrefetcher(pds.ListDataSetIterator(pds.DataSet(x, y),
@@ -280,7 +281,7 @@ def test_prefetcher_claims_its_staged_bytes_when_telemetry_is_on():
         p.close()
         assert p._mem_claim is None
     finally:
-        telemetry.disable()
+        (telemetry.enable if was else telemetry.disable)()
         memledger.release("prefetch", "t_claim")
 
 

@@ -493,11 +493,13 @@ def traced():
     prev_reg = port_telemetry.set_registry(reg)
     tr = tracing.Tracer()
     prev_tr = tracing.set_tracer(tr)
+    was = port_telemetry.enabled()
     port_telemetry.enable()
     tracing.configure(enabled=True, sample_rate=1.0)
     yield tr, reg
     tracing.set_tracer(prev_tr)
     port_telemetry.set_registry(prev_reg)
+    (port_telemetry.enable if was else port_telemetry.disable)()
     tracing.configure(enabled=True, sample_rate=0.01)
 
 

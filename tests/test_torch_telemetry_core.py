@@ -157,6 +157,7 @@ def test_buckets_and_number_format_equal():
 
 def test_module_switch_and_process_registry():
     prev = telemetry.set_registry(None)
+    was = telemetry.enabled()
     try:
         reg = telemetry.get_registry()
         assert isinstance(reg, registry.MetricsRegistry)
@@ -166,7 +167,7 @@ def test_module_switch_and_process_registry():
         assert telemetry.enable() is reg and telemetry.enabled()
     finally:
         telemetry.set_registry(prev)
-        telemetry.enable()
+        (telemetry.enable if was else telemetry.disable)()
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +216,7 @@ def test_flight_ring_capacity_and_switch():
             rec.record("step", step=i)
     assert _strip(mine.events()) == _strip(theirs.events())
     assert [e["seq"] for e in mine.events()] == [3, 4, 5]
+    was = flight.enabled()
     flight.disable()
     try:
         assert flight.record("step", step=9) is None
@@ -222,6 +224,8 @@ def test_flight_ring_capacity_and_switch():
     finally:
         flight.enable()
     assert flight.record("step", step=10)["step"] == 10
+    if not was:
+        flight.disable()
     assert flight.get_recorder() is flight.get_recorder()
     assert flight.default_dump_path().endswith(".jsonl")
 

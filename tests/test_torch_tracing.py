@@ -143,11 +143,13 @@ def traced(api):
     prev_reg = api.T.set_registry(reg)
     tr = api.tracing.Tracer()
     prev_tr = api.tracing.set_tracer(tr)
+    was = api.T.enabled()
     api.T.enable()
     api.tracing.configure(enabled=True, sample_rate=1.0)
     yield tr, reg
     api.tracing.set_tracer(prev_tr)
     api.T.set_registry(prev_reg)
+    (api.T.enable if was else api.T.disable)()
     api.tracing.configure(enabled=True, sample_rate=0.01)
 
 
